@@ -4,13 +4,19 @@
 
 Builds both CUDA kernels from ``kube_batch_tpu_torch/csrc`` with nvcc,
 holds each against its plain PyTorch version at the main path's shapes
-(bit-exact: the tolerance is zero), carries the CPU ↔ CUDA parity of the
+(bit-exact: the tolerance is zero) — K1 at round 0 and at a late round
+with a tenth of the rows pending, K2 at both bucket sizes — and at their
+corners: ragged blocks at a nonzero origin, odd N with no row start
+aligned, rows without a candidate, picks decided by the node index, and
+-0.0 scores.  It times each main-path case against its bound
+(``kube_batch_tpu_torch/testing/kernel_bench.py``), carries the CPU ↔ CUDA parity of the
 whole solve at a mid size, then runs the allocate solve at the size users
 run — 50 000 pods × 5 000 nodes, gangs of 4 over 3 queues, DRF and
 proportion on — through the full and the compacted program, checking the
 ledger and gang invariants, determinism, and that the two programs agree.
 Each phase prints one JSON line; any failure raises (non-zero exit).  The
-last two lines are the kernels' summary and ``{"ok": true, "device": ...}``.
+last three lines are the kernels' summary, the card's name and power
+limit, and ``{"ok": true, "device": ...}``.
 
 Exits non-zero without a result when no CUDA device is present.
 """
@@ -18,17 +24,15 @@ Exits non-zero without a result when no CUDA device is present.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
-import numpy as np
 import torch
 
-# memory rate and non-tensor-core f32 rate of one H100 SXM (NVIDIA's data
-# sheet); the bound of a kernel is the larger of bytes / rate and ops / rate
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+from kube_batch_tpu_torch.testing.kernel_bench import (
+    index_decided_rows, k1_bound, k1_case, k2_bound, k2_case, late_round,
+    nvidia_smi, offset_copy, run_case, same,
+)
 
 N_TASKS, N_NODES, GANG, N_QUEUES = 50_000, 5_000, 4, 3
 MID_TASKS, MID_NODES = 4096, 1024
@@ -41,64 +45,6 @@ def emit(phase: str, **fields) -> None:
 
 def fail(msg: str) -> None:
     raise AssertionError(msg)
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def to_np(x):
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return x
-
-
-def same(a, b) -> bool:
-    """Bit-exact equality of two results (tuples of tensors)."""
-    for x, y in zip(a, b):
-        x, y = to_np(x), to_np(y)
-        if x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(x, y):
-            return False
-    return True
-
-
-def max_abs_err(a, b) -> float:
-    err = 0.0
-    for x, y in zip(a, b):
-        x = to_np(x).astype(np.float64)
-        y = to_np(y).astype(np.float64)
-        if x.size:
-            err = max(err, float(np.max(np.abs(x - y))))
-    return err
-
-
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def bound(bytes_moved: int, ops: int):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # --------------------------------------------------------------------------
@@ -125,122 +71,86 @@ def phase_build():
          ptxas=info.ptxas)
 
 
-def k1_case(snap, score, static_ok, t0=0, n0=0, rows=None, cols=None):
-    """K1's inputs at the round-0 state of ``snap`` (optionally a block)."""
-    rows = slice(None) if rows is None else rows
-    cols = slice(None) if cols is None else cols
-    pending = (snap.task_pending & snap.task_valid)[rows].contiguous()
-    return dict(
-        score=score[rows, cols].contiguous(),
-        static_ok=static_ok[rows, cols].contiguous(),
-        task_req=snap.task_req[rows].contiguous(),
-        idle=snap.node_idle[cols].contiguous(),
-        releasing=snap.node_releasing[cols].contiguous(),
-        pending=pending, quanta=snap.quanta, t0=t0, n0=n0,
-    )
-
-
-def k2_case(snap, P, n_cols=None):
-    """K2's inputs for a compacted solve whose bucket holds the first ``P``
-    pending rows (a ``n_cols``-wide node block if given)."""
-    from kube_batch_tpu_torch.ops.assignment import (
-        NEG, pend_view, score_matrix, static_predicates,
-    )
-
-    rows = torch.nonzero(snap.task_pending).flatten()[:P].to(torch.int32)
-    pend_rows = torch.full((P,), -1, dtype=torch.int32, device=rows.device)
-    pend_rows[: rows.numel()] = rows
-    view = pend_view(snap, pend_rows)
-    from kube_batch_tpu_torch.ops.scoring import ScoreWeights
-
-    ss = torch.where(static_predicates(view),
-                     score_matrix(view, ScoreWeights()), NEG)
-    cols = slice(None) if n_cols is None else slice(0, n_cols)
-    return dict(score_static=ss[:, cols].contiguous(),
-                task_req=view.task_req.contiguous(),
-                idle=snap.node_idle[cols].contiguous(),
-                releasing=snap.node_releasing[cols].contiguous(),
-                rows=pend_rows.clamp(min=0), quanta=snap.quanta)
-
-
-def k1_bound(inp):
-    T, N = inp["score"].shape
-    R = inp["task_req"].shape[1]
-    ins = nbytes(*(inp[k] for k in ("score", "static_ok", "task_req", "idle",
-                                    "releasing", "pending", "quanta")))
-    outs = T * (4 + 4 + 4 + 1)
-    # per cell: 2R budget adds, 2R compares, the tie hash (7 integer ops),
-    # the mask select and the two-key compare
-    return bound(ins + outs, T * N * (4 * R + 10))
-
-
-def k2_bound(inp):
-    P, N = inp["score_static"].shape
-    R = inp["task_req"].shape[1]
-    ins = nbytes(*(inp[k] for k in ("score_static", "task_req", "idle",
-                                    "releasing", "rows", "quanta")))
-    outs = P * N * 4 + 3 * P * (N // 64) * 4
-    # per cell: 2R adds, 2R compares, select, +0.0, key flip (3), hash (7),
-    # the triple's compares (2)
-    return bound(ins + outs, P * N * (4 * R + 13))
-
-
-def check_kernel(name, kernel, plain, inp, reps, plain_reps):
-    """Kernel vs plain version on the same inputs: bit-exact, and timed."""
-    got = kernel(**inp)
-    torch.cuda.synchronize()
-    want = plain(**inp)
-    if not same(got, want):
-        fail(f"{name}: kernel disagrees with its plain version "
-             f"(max abs err {max_abs_err(got, want)})")
-    ms = time_ms(lambda: kernel(**inp), reps)
-    plain_ms = time_ms(lambda: plain(**inp), plain_reps, warmup=1)
-    return dict(max_abs_err=max_abs_err(got, want), ms=ms, plain_ms=plain_ms)
-
-
 def phase_kernels(snap):
     from kube_batch_tpu_torch.ops import kernels
     from kube_batch_tpu_torch.ops.assignment import score_matrix, static_predicates
     from kube_batch_tpu_torch.ops.scoring import ScoreWeights
 
+    k1_kernel = (kernels.masked_best_node_raw, kernels.masked_best_node_raw_plain)
+    k2_kernel = (kernels.masked_topk_blocks, kernels.masked_topk_blocks_plain)
     score = score_matrix(snap, ScoreWeights())
     static_ok = static_predicates(snap)
     T, N = score.shape
     report = {}
 
-    # K1 at the main path's round-0 inputs
+    def timed(name, kernel, inp, reps, plain_reps, bound_fn):
+        r = run_case(*kernel, inp, reps, plain_reps)
+        b_ms, b_by = bound_fn(inp)
+        key = "score" if "score" in inp else "score_static"
+        report[name] = dict(shape=list(inp[key].shape), **r, bound_ms=b_ms,
+                            bound_by=b_by, bound_fraction=b_ms / r["ms"])
+
+    def checked(name, kernel, inp, **info):
+        r = run_case(*kernel, inp, reps=1)
+        key = "score" if "score" in inp else "score_static"
+        report[name] = dict(shape=list(inp[key].shape), **info,
+                            max_abs_err=r["max_abs_err"])
+
+    # K1 at the main path's round-0 inputs, and at a late round
     k1 = k1_case(snap, score, static_ok)
-    r = check_kernel("K1", kernels.masked_best_node_raw,
-                     kernels.masked_best_node_raw_plain, k1, 20, 3)
-    b_ms, b_by = k1_bound(k1)
-    report["K1"] = dict(shape=[T, N], **r, bound_ms=b_ms, bound_by=b_by,
-                        bound_fraction=b_ms / r["ms"])
-    del k1
+    timed("K1", k1_kernel, k1, 20, 3, k1_bound)
+    # the homogeneous round 0 scores every node alike, so many picks are
+    # decided by the hash, and some by the node index alone
+    decided = index_decided_rows(k1)
+    if decided == 0:
+        fail("K1: no row of the round-0 inputs is decided by the node index")
+    report["K1"]["index_decided_rows"] = decided
+    late = late_round(k1)
+    timed("K1_late_round", k1_kernel, late, 20, 3, k1_bound)
+    report["K1_late_round"]["pending_rows"] = int(late["pending"].sum())
+    del k1, late
     # K1 on a ragged block at a nonzero global origin
     k1r = k1_case(snap, score, static_ok, t0=1000, n0=333,
                   rows=slice(1000, 1000 + 4099), cols=slice(333, 333 + 1021))
-    r = check_kernel("K1 ragged", kernels.masked_best_node_raw,
-                     kernels.masked_best_node_raw_plain, k1r, 5, 1)
-    report["K1_ragged_offset"] = dict(shape=[4099, 1021], t0=1000, n0=333,
-                                      max_abs_err=r["max_abs_err"])
-    del k1r, score, static_ok
+    checked("K1_ragged_offset", k1_kernel, k1r, t0=1000, n0=333)
+    # odd N with no row start aligned, wide enough for the vector body
+    k1u = k1_case(snap, score, static_ok, t0=7, n0=3, rows=slice(7, 1007),
+                  cols=slice(3, 3 + 5117))
+    k1u["score"] = offset_copy(k1u["score"])
+    k1u["static_ok"] = offset_copy(k1u["static_ok"])
+    checked("K1_odd_n_unaligned", k1_kernel, k1u, t0=7, n0=3)
+    # rows with no candidate: none pending, and pending but all infeasible
+    k1n = k1_case(snap, score, static_ok, rows=slice(0, 4096))
+    checked("K1_all_non_pending", k1_kernel,
+            dict(k1n, pending=torch.zeros_like(k1n["pending"])))
+    checked("K1_all_infeasible", k1_kernel,
+            dict(k1n, static_ok=torch.zeros_like(k1n["static_ok"])))
+    del k1r, k1u, k1n, score, static_ok
 
-    # K2 at the compacted solve's bucket sizes, plus a ragged node block
+    # K2 at the compacted solve's bucket sizes, plus ragged node blocks
     for P in (8192, T):
-        k2 = k2_case(snap, P)
-        r = check_kernel(f"K2 P={P}", kernels.masked_topk_blocks,
-                         kernels.masked_topk_blocks_plain, k2, 10, 2)
-        b_ms, b_by = k2_bound(k2)
-        report[f"K2_P{P}"] = dict(shape=[P, N], **r, bound_ms=b_ms,
-                                  bound_by=b_by,
-                                  bound_fraction=b_ms / r["ms"])
-        del k2
+        timed(f"K2_P{P}", k2_kernel, k2_case(snap, P), 10, 2, k2_bound)
     k2r = k2_case(snap, 1000, n_cols=1000)
     k2r["rows"] = k2r["rows"] + 17
-    r = check_kernel("K2 ragged", kernels.masked_topk_blocks,
-                     kernels.masked_topk_blocks_plain, dict(k2r, n0=24), 5, 1)
-    report["K2_ragged_offset"] = dict(shape=[1000, 1000], n0=24,
-                                      max_abs_err=r["max_abs_err"])
+    checked("K2_ragged_offset", k2_kernel, dict(k2r, n0=24), n0=24)
+    k2u = k2_case(snap, 1000)
+    cols = slice(3, 3 + 5117)
+    k2u = dict(k2u, score_static=offset_copy(k2u["score_static"][:, cols]),
+               idle=k2u["idle"][cols].contiguous(),
+               releasing=k2u["releasing"][cols].contiguous(), n0=3)
+    checked("K2_odd_n_unaligned", k2_kernel, k2u, n0=3)
+    # -0.0 cells key as +0.0
+    k2z = k2_case(snap, 1000)
+    ss = k2z["score_static"]
+    gen = torch.Generator(device=ss.device).manual_seed(0)
+    zero = (torch.rand(ss.shape, generator=gen, device=ss.device) < 0.05) & (
+        ss > kernels.NEG)
+    k2z["score_static"] = torch.where(zero, -0.0, ss)
+    if not (k2z["score_static"] == 0).logical_and(
+            torch.signbit(k2z["score_static"])).any():
+        fail("K2: the -0.0 case holds no -0.0 cell")
+    checked("K2_negative_zero", k2_kernel, k2z,
+            negative_zero_cells=int(zero.sum()))
     emit("kernels", tolerance="bit-exact", **report)
     return report
 
@@ -421,24 +331,23 @@ def main() -> int:
     topk_launches = phase_solve_topk(snap, config, full["homogeneous"])
 
     src = "kube_batch_tpu_torch/csrc/"
+    fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    k1, k1_late = kern["K1"], kern["K1_late_round"]
+    k2 = kern[f"K2_P{snap.task_req.shape[0]}"]
     summary = [
         dict(name="masked_best_node_raw", route="cuda",
              source=src + "best_node.cu",
              replaces="kube_batch_tpu/ops/pallas_kernels.py:52",
              launches=full_launches["masked_best_node_raw"],
-             max_abs_err=kern["K1"]["max_abs_err"], ms=kern["K1"]["ms"],
-             plain_ms=kern["K1"]["plain_ms"], bound_ms=kern["K1"]["bound_ms"],
-             bound_by=kern["K1"]["bound_by"], library_ms=None),
+             **{f: k1[f] for f in fields}, library_ms=None,
+             late_round_ms=k1_late["ms"],
+             late_round_bound_ms=k1_late["bound_ms"],
+             late_round_pending_rows=k1_late["pending_rows"]),
         dict(name="masked_topk_blocks", route="cuda",
              source=src + "topk_blocks.cu",
              replaces="kube_batch_tpu/ops/pallas_kernels.py:216",
              launches=topk_launches["masked_topk_blocks"],
-             max_abs_err=kern[f"K2_P{snap.task_req.shape[0]}"]["max_abs_err"],
-             ms=kern[f"K2_P{snap.task_req.shape[0]}"]["ms"],
-             plain_ms=kern[f"K2_P{snap.task_req.shape[0]}"]["plain_ms"],
-             bound_ms=kern[f"K2_P{snap.task_req.shape[0]}"]["bound_ms"],
-             bound_by=kern[f"K2_P{snap.task_req.shape[0]}"]["bound_by"],
-             library_ms=None),
+             **{f: k2[f] for f in fields}, library_ms=None),
     ]
     print(json.dumps({"kernels": summary}))
     print(smi)

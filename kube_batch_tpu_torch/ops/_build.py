@@ -22,6 +22,7 @@ import dataclasses
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -42,7 +43,7 @@ COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 class BuildInfo:
     path: Path
     seconds: float           # wall time of this call's compile + link
-    ptxas: List[str]         # nvcc's "ptxas info" lines (registers, smem)
+    ptxas: List[str]         # per kernel: registers, shared memory, spills
 
 
 def nvcc_path() -> str:
@@ -103,9 +104,44 @@ def build(force: bool = False) -> BuildInfo:
                    *map(str, objs)]])
         os.replace(tmp_lib, lib)  # atomic: a concurrent loader sees old or new
     stamp.write_text(digest)
-    ptxas = [ln.strip() for out in outs for ln in out.splitlines()
-             if "ptxas info" in ln]
+    ptxas = [ln for out in outs for ln in ptxas_summary(out)]
     return BuildInfo(lib, time.perf_counter() - t0, ptxas)
+
+
+def _kernel_name(mangled: str) -> str:
+    """``name<args>`` of a mangled kernel in a namespace whose template
+    arguments are integers; the mangled name itself if it does not read so."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    i, name = 3, None
+    while i < len(mangled) and mangled[i].isdigit():  # <length><identifier>...
+        m = re.match(r"\d+", mangled[i:])
+        n = int(m.group(0))
+        i += len(m.group(0))
+        name = mangled[i:i + n]
+        i += n
+    args = re.match(r"I((?:Li-?\d+E)+)E", mangled[i:])
+    if name is None or args is None:
+        return mangled
+    values = re.findall(r"Li(-?\d+)E", args.group(1))
+    return f"{name}<{', '.join(values)}>"
+
+
+def ptxas_summary(out: str) -> List[str]:
+    """One line per compiled kernel from nvcc's ``-Xptxas -v`` output:
+    its name, then the registers, shared memory and spill figures."""
+    lines, name, spill = [], None, ""
+    for ln in out.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", ln)
+        if entry:
+            name, spill = _kernel_name(entry.group(1)), ""
+        elif "spill stores" in ln and name:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln and name:
+            used = ln.split(":", 1)[1].strip()
+            lines.append(f"{name}: {used}; {spill}" if spill else f"{name}: {used}")
+            name = None
+    return lines
 
 
 @functools.lru_cache(maxsize=1)
