@@ -1,4 +1,4 @@
-"""Drive kube_batch_tpu_torch's allocate solve on one NVIDIA GPU and check it.
+"""Drive kube_batch_tpu_torch's scheduler on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
 
@@ -14,9 +14,17 @@ whole solve at a mid size, then runs the allocate solve at the size users
 run — 50 000 pods × 5 000 nodes, gangs of 4 over 3 queues, DRF and
 proportion on — through the full and the compacted program, checking the
 ledger and gang invariants, determinism, and that the two programs agree.
-Each phase prints one JSON line; any failure raises (non-zero exit).  The
-last three lines are the kernels' summary, the card's name and power
-limit, and ``{"ok": true, "device": ...}``.
+Then it drives the whole scheduling cycle through ``Scheduler.run_once``
+(``kube_batch_tpu_torch/testing/cycle_drive.py``): a 50 000-pod cluster
+built through the cache's handlers, cycle 1 with every pod pending (the
+full program, K1), cycle 2 after the bound pods start Running and 5 000
+pods arrive in 1 250 gangs (the compacted program, K2), cycle 3 with
+nothing pending (the idle path) — checking the column store, the node
+ledgers and that no pod binds twice after each — and the same drive at
+4 096 × 1 024 with host ports on the CPU and on the card, which must bind
+identically.  Each phase prints one JSON line; any failure raises
+(non-zero exit).  The last three lines are the kernels' summary, the
+card's name and power limit, and ``{"ok": true, "device": ...}``.
 
 Exits non-zero without a result when no CUDA device is present.
 """
@@ -37,6 +45,8 @@ from kube_batch_tpu_torch.testing.kernel_bench import (
 N_TASKS, N_NODES, GANG, N_QUEUES = 50_000, 5_000, 4, 3
 MID_TASKS, MID_NODES = 4096, 1024
 TOPK = 32
+# the cycle drive: pods arriving before cycle 2, and host ports at mid size
+ARRIVALS, MID_ARRIVALS, MID_PORTS = 5_000, 408, 0.1
 
 
 def emit(phase: str, **fields) -> None:
@@ -308,6 +318,53 @@ def phase_solve_topk(snap, config, full):
     return counts
 
 
+def phase_cycle():
+    """Three cycles of ``Scheduler.run_once`` at 50k × 5k on the card."""
+    from kube_batch_tpu_torch.testing.cycle_drive import drive
+
+    r = drive(N_TASKS, N_NODES, ARRIVALS, device="cuda")
+    c1, c2, c3 = r["cycles"]
+    k1, k2 = "masked_best_node_raw", "masked_topk_blocks"
+    if c1["mode"] != "full" or c1["new_binds"] != N_TASKS \
+            or c1["gangs_running"] != N_TASKS // GANG:
+        fail(f"cycle 1: {c1['mode']}, {c1['new_binds']} binds, "
+             f"{c1['gangs_running']} gangs running")
+    if c1["launches"][k1] == 0 or c1["launches"][k1] != c1["rounds"]:
+        fail(f"cycle 1: K1 launches {c1['launches']} != rounds {c1['rounds']}")
+    if c2["mode"] != "compacted" or c2["launches"][k2] == 0:
+        fail(f"cycle 2: {c2['mode']} program, launches {c2['launches']}")
+    if c2["new_binds"] == 0:
+        fail("cycle 2 bound nothing")
+    if c3["mode"] != "idle" or any(c3["launches"].values()):
+        fail(f"cycle 3: {c3['mode']}, launches {c3['launches']}")
+    emit("cycle", **r)
+    return r
+
+
+def phase_cycle_cross_device():
+    """The three-cycle drive at 4 096 × 1 024 with host ports, on the CPU
+    (plain versions) and on the card (kernels): identical binds and task
+    statuses after every cycle."""
+    from kube_batch_tpu_torch.testing.cycle_drive import drive
+
+    kw = dict(n_tasks=MID_TASKS, n_nodes=MID_NODES, arrivals=MID_ARRIVALS,
+              host_ports_frac=MID_PORTS, keep_states=True)
+    cpu = drive(**kw, device="cpu")
+    gpu = drive(**kw, device="cuda")
+    for c, (a, b) in enumerate(zip(cpu.pop("states"), gpu.pop("states"))):
+        for key in a:
+            if a[key] != b[key]:
+                fail(f"cycle_cross_device: cycle {c + 1} {key} differ")
+    if not gpu["cycles"][0]["launches"]["masked_best_node_raw"]:
+        fail("cycle_cross_device: the card's cycle 1 launched no K1")
+    emit("cycle_cross_device", shape=[MID_TASKS, MID_NODES],
+         host_ports_frac=MID_PORTS, equal="binds and task statuses",
+         cycles=[dict(cycle=c["cycle"], mode=c["mode"], binds=c["binds"],
+                      cpu_wall_ms=a["wall_ms"], gpu_wall_ms=c["wall_ms"],
+                      gpu_launches=c["launches"], fallback=c["fallback"])
+                 for a, c in zip(cpu["cycles"], gpu["cycles"])])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -329,11 +386,20 @@ def main() -> int:
     full, full_launches = phase_solve_full(snaps, config)
     del snaps["gpu_gangs"]
     topk_launches = phase_solve_topk(snap, config, full["homogeneous"])
+    T = snap.task_req.shape[0]
+    # the cycles reuse the caching allocator's blocks, as a long-running
+    # scheduler process does
+    del snap, snaps, full
+    cycle = phase_cycle()
+    phase_cycle_cross_device()
+    cycle_launches = {name: {f"cycle{c['cycle']}": c["launches"][name]
+                             for c in cycle["cycles"]}
+                      for name in ("masked_best_node_raw", "masked_topk_blocks")}
 
     src = "kube_batch_tpu_torch/csrc/"
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     k1, k1_late = kern["K1"], kern["K1_late_round"]
-    k2 = kern[f"K2_P{snap.task_req.shape[0]}"]
+    k2 = kern[f"K2_P{T}"]
     summary = [
         dict(name="masked_best_node_raw", route="cuda",
              source=src + "best_node.cu",
@@ -342,12 +408,14 @@ def main() -> int:
              **{f: k1[f] for f in fields}, library_ms=None,
              late_round_ms=k1_late["ms"],
              late_round_bound_ms=k1_late["bound_ms"],
-             late_round_pending_rows=k1_late["pending_rows"]),
+             late_round_pending_rows=k1_late["pending_rows"],
+             cycle_launches=cycle_launches["masked_best_node_raw"]),
         dict(name="masked_topk_blocks", route="cuda",
              source=src + "topk_blocks.cu",
              replaces="kube_batch_tpu/ops/pallas_kernels.py:216",
              launches=topk_launches["masked_topk_blocks"],
-             **{f: k2[f] for f in fields}, library_ms=None),
+             **{f: k2[f] for f in fields}, library_ms=None,
+             cycle_launches=cycle_launches["masked_topk_blocks"]),
     ]
     print(json.dumps({"kernels": summary}))
     print(smi)

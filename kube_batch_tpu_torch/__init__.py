@@ -1,26 +1,34 @@
-"""kube_batch_tpu_torch — the allocate solve in PyTorch with CUDA kernels.
+"""kube_batch_tpu_torch — the scheduler in PyTorch with CUDA kernels.
 
-A port of ``kube_batch_tpu``'s device half to PyTorch on an NVIDIA H100:
-the padded ``DeviceSnapshot`` goes in, the gang-constrained allocate solve
-runs (static predicates, the score matrix, proportion deserved,
-virtual-time ranks, bidding rounds, gang commit/discard), and an
-``AllocateResult`` plus its bind list come out.  The layout mirrors the
-JAX package path for path, so each module's counterpart is found at the
-same name:
+A port of ``kube_batch_tpu`` to PyTorch on an NVIDIA H100.  The serial
+scheduling cycle runs end to end: pods, nodes, PodGroups and queues enter
+the cache through its handlers; ``Scheduler.run_once`` opens an exclusive
+session with the configured plugins, runs the allocate action (the
+snapshot built from the cache's column store, uploaded once; the
+gang-constrained solve on the device; one readback; the host replay into
+binds), and closes the session with the PodGroup and queue statuses.  The
+layout mirrors the JAX package path for path, so each module's
+counterpart is found at the same name:
 
-  api/        — resource axis, task status values, the snapshot tensors,
+  api/        — resources, the ingest objects, task / job / node / queue
+                info, the column store, the snapshot tensors,
                 numpy ↔ tensor conversion
+  cache/      — the cluster mirror and its binder / status seams
+  framework/  — conf, session, statement, the action and plugin registries
+  plugins/    — priority, gang, conformance, drf, predicates, proportion,
+                nodeorder, binpack
   ops/        — feasibility, scoring, fairness, ordering, the assignment
                 solve, and the two hand-written kernels (``ops/kernels.py``
                 over ``csrc/*.cu``)
-  actions/    — the allocate dispatch (single device, cold)
-  testing/    — the synthetic snapshot generator
+  actions/    — allocate (single device, cold)
+  scheduler.py — the serial loop
+  testing/    — synthetic clusters and snapshots, the kernel bench, the
+                cycle drive
 
-The package imports torch, numpy and the standard library only.  Functions
-that create tensors take ``device=`` (default CUDA; asking for CUDA without
-a card raises — see :mod:`kube_batch_tpu_torch.device`); the solve runs on
-the device its snapshot's tensors lie on.  A CUDA tensor goes through the
-kernels, a CPU tensor through their plain PyTorch versions.
+The package imports torch, numpy and the standard library only.  Entry
+points take ``device=`` (default CUDA; asking for CUDA without a card
+raises — see :mod:`kube_batch_tpu_torch.device`); a CUDA tensor goes
+through the kernels, a CPU tensor through their plain PyTorch versions.
 """
 
 __version__ = "0.1.0"

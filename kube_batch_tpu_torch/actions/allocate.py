@@ -1,29 +1,45 @@
-"""The allocate dispatch — which solve program runs for a snapshot.
+"""allocate action — the placement pass, solved on the device.
 
-Mirrors the single-device, unguarded, cold branch of
-``kube_batch_tpu/actions/allocate.py``: the compacted solve
-(``allocate_topk_solve``) when the pending rows fit the task-capacity
-shape's one pending bucket, the full [T, N] solve otherwise, and
-``result_binds`` — the (task, node) pairs the host replay would bind.
-The host half of the action (cache, session, plugins, ``_replay``), warm
-carry, the sentinel and the sharded paths are not ported yet.
+Mirrors ``kube_batch_tpu/actions/allocate.py``: build the session's
+snapshot from the cache's column store, upload it, run the allocate solve
+(predicates, scoring, fairness, ordering, gang commit/discard) on the
+device, read the result back in one transfer, and replay it into host
+state.  The replay is vectorized: jobs whose readiness gate is the gang
+arithmetic and whose tasks carry no host-only constraints take a bulk path
+(readiness from the snapshot's counts, whole-matrix ledger updates, one
+bulk bind); jobs that need host predicates (ports, rich affinity) replay
+through the per-task Statement path with the sequential semantics
+(statement.go:29-337).
+
+The dispatch is the single-device cold branch of the JAX package's: the
+compacted solve when the pending rows fit the task capacity's one pending
+bucket, the full [T, N] solve otherwise.  Not ported: the sharded solve,
+the warm carry (``KB_WARM``), the guard sentinel and shadow audit, the
+query lease, the resident snapshot cache, and the tracer and metrics.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import List, Optional, Tuple
+import time
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from kube_batch_tpu_torch.api.convert import snapshot_from_numpy
 from kube_batch_tpu_torch.api.snapshot import DeviceSnapshot, SnapshotMeta
+from kube_batch_tpu_torch.api.types import TaskStatus
+from kube_batch_tpu_torch.framework.interface import Action
+from kube_batch_tpu_torch.framework.session import JOB_READY, NODE_ORDER, FitFailure
 from kube_batch_tpu_torch.ops.assignment import (
     AllocateConfig,
     AllocateResult,
     allocate_solve,
     allocate_topk_solve,
+    failure_histogram_bucket_solve,
+    failure_histogram_solve,
 )
 
 logger = logging.getLogger("kube_batch_tpu_torch")
@@ -63,7 +79,9 @@ def plan_topk_bucket(snap: DeviceSnapshot, k: int):
     """(pend_rows [P] np.int32, K), or (None, 0) when the full solve should
     run: K no smaller than the node bucket, a task bucket below the
     smallest rung, no pending rows, or more pending rows than the bucket
-    (the cold-start regime).  Reads ``task_pending`` on the host."""
+    (the cold-start regime).  ``snap`` holds tensors or numpy arrays;
+    ``task_pending`` is read on the host (a device read for a snapshot on
+    the card)."""
     capT = int(snap.task_req.shape[0])
     capN = int(snap.node_idle.shape[0])
     if k <= 0 or k >= capN:
@@ -71,7 +89,10 @@ def plan_topk_bucket(snap: DeviceSnapshot, k: int):
     bucket = topk_bucket_for(capT)
     if bucket is None:
         return None, 0
-    rows = np.flatnonzero(snap.task_pending.cpu().numpy())
+    pending = snap.task_pending
+    if isinstance(pending, torch.Tensor):
+        pending = pending.cpu().numpy()
+    rows = np.flatnonzero(pending)
     if rows.size == 0 or rows.size > bucket:
         return None, 0
     pend_rows = np.full(bucket, -1, np.int32)
@@ -79,13 +100,14 @@ def plan_topk_bucket(snap: DeviceSnapshot, k: int):
     return pend_rows, k
 
 
-def dispatch_allocate_solve(snap: DeviceSnapshot, config: AllocateConfig
-                            ) -> Tuple[AllocateResult, str, Optional[dict]]:
+def dispatch_allocate_solve(snap: DeviceSnapshot, config: AllocateConfig,
+                            plan=None) -> Tuple[AllocateResult, str, Optional[dict]]:
     """``(result, mode, topk_info)`` for one allocate pass over ``snap``,
     on the device its tensors lie on.  ``mode`` is "single" (one device);
     ``topk_info`` is ``{"k", "bucket"}`` when the compacted solve ran,
-    None for the full solve."""
-    pend_rows, k = plan_topk_bucket(snap, resolve_topk())
+    None for the full solve.  ``plan`` is :func:`plan_topk_bucket`'s
+    answer when the caller already has it."""
+    pend_rows, k = plan if plan is not None else plan_topk_bucket(snap, resolve_topk())
     if pend_rows is not None:
         rows = torch.from_numpy(pend_rows).to(snap.task_req.device)
         res = allocate_topk_solve(snap, rows, config._replace(topk=k))
@@ -103,3 +125,600 @@ def result_binds(res: AllocateResult, meta: SnapshotMeta) -> List[Tuple[str, str
     rows = np.flatnonzero((assigned >= 0) & ~pipelined)
     return [(meta.task_keys[t], meta.node_names[assigned[t]])
             for t in rows.tolist()]
+
+
+def _run_bounds(sorted_arr) -> list:
+    """[lo, hi) boundaries of the runs of equal values in a sorted array."""
+    return np.concatenate(
+        ([0], np.flatnonzero(np.diff(sorted_arr)) + 1, [sorted_arr.size])
+    ).tolist()
+
+
+class _PhaseMarks:
+    """Accumulating wall-clock marks: each ``mark(key)`` charges the time
+    since the previous mark to ``sink[key]`` in ms."""
+
+    def __init__(self, sink: Dict[str, float]):
+        self.sink = sink
+        self.t = time.perf_counter()
+
+    def mark(self, key: str) -> None:
+        now = time.perf_counter()
+        self.sink[key] = self.sink.get(key, 0.0) + (now - self.t) * 1e3
+        self.t = now
+
+
+def build_session_snapshot(ssn):
+    """(DeviceSnapshot of numpy arrays, SnapshotMeta) for the session, from
+    the cache's column store."""
+    return ssn.columns.device_snapshot(ssn)
+
+
+def session_allocate_config(ssn) -> AllocateConfig:
+    """The solve configuration a session implies: plugin enables and the
+    session's score weights."""
+    return AllocateConfig(
+        gang=ssn.plugin_enabled("gang"),
+        drf=ssn.plugin_enabled("drf"),
+        proportion=ssn.plugin_enabled("proportion"),
+        weights=ssn.score_weights,
+    )
+
+
+def _read_back(res: AllocateResult, T: int):
+    """(assigned [T] i32, pipelined [T] bool, rounds_run, topk_exhausted,
+    topk_reentries) in ONE device-to-host transfer."""
+    counters = torch.stack([res.rounds_run, res.topk_exhausted,
+                            res.topk_reentries]).to(torch.int32)
+    packed = torch.cat([res.assigned, res.pipelined.to(torch.int32),
+                        counters]).cpu().numpy()
+    return (packed[:T], packed[T:2 * T].astype(bool), int(packed[2 * T]),
+            int(packed[2 * T + 1]), int(packed[2 * T + 2]))
+
+
+class AllocateAction(Action):
+    name = "allocate"
+
+    def __init__(self):
+        # per-phase ms of the most recent execute(): snapshot_build, upload,
+        # solve (dispatch and readback), fit_errors, replay (+ replay_*)
+        self.last_phase_ms: Dict[str, float] = {}
+        # bidding rounds the last solve ran
+        self.last_solve_rounds = 0
+        # {"k", "bucket", "exhausted", "reentries"} when the compacted
+        # program ran, None for the full program
+        self.last_topk = None
+        # whether the last execute dispatched the fit-error histogram
+        self.last_fit_histogram = False
+        # fallback pressure: slow-replay jobs, host-ports jobs promoted back
+        # to the bulk path, tasks placed by the host scan
+        self.last_fallback: Dict[str, int] = {}
+        # jobs whose placements were discarded host-side this execute()
+        self.last_host_discards = 0
+        self._host_place_count = 0
+        self._ports_by_node: Optional[Dict[int, list]] = None
+
+    def execute(self, ssn) -> None:
+        self.last_phase_ms = {}
+        self.last_fallback = {}
+        self.last_host_discards = 0
+        self.last_solve_rounds = 0
+        self.last_topk = None
+        self.last_fit_histogram = False
+        self._host_place_count = 0
+        self._ports_by_node = None
+        if not ssn.jobs or not ssn.nodes:
+            return
+        cols = ssn.columns
+        if not cols.has_schedulable_pending():
+            # idle cycle: nothing schedulable anywhere — skip the snapshot,
+            # the solve and the replay
+            self.last_phase_ms = {"snapshot_build": 0.0, "upload": 0.0,
+                                  "solve": 0.0, "fit_errors": 0.0, "replay": 0.0}
+            return
+        t0 = time.perf_counter()
+        snap, meta = build_session_snapshot(ssn)
+        t1 = time.perf_counter()
+        dev = snapshot_from_numpy(snap, ssn.device)
+        t_up = time.perf_counter()
+        config = session_allocate_config(ssn)
+        # the bucket plan from the host's own pending mask: no device read
+        plan = plan_topk_bucket(snap, resolve_topk())
+        result, _mode, topk_info = dispatch_allocate_solve(dev, config, plan=plan)
+        T = meta.n_tasks
+        assigned, pipelined, rounds, exhausted, reentries = _read_back(result, T)
+        self.last_solve_rounds = rounds
+        if topk_info is not None:
+            topk_info = dict(topk_info, exhausted=exhausted, reentries=reentries)
+        self.last_topk = topk_info
+        t2 = time.perf_counter()
+        task_job = snap.task_job[:T]
+        # fit errors only for tasks of jobs that are in this session (the row
+        # space also carries rows of jobs the session dropped)
+        pending = snap.task_pending[:T] & snap.job_valid[task_job]
+        # the histogram is its own dispatch, launched before the host replay
+        # and read after it, so the device computes it while the host
+        # replays; only cycles with unplaced pending tasks pay it
+        fail_hist_dev = None
+        if bool(np.any(pending & (assigned < 0))):
+            self.last_fit_histogram = True
+            pend_rows = plan[0]
+            if pend_rows is not None:
+                rows = torch.from_numpy(pend_rows).to(dev.task_req.device)
+                fail_hist_dev = failure_histogram_bucket_solve(dev, rows)
+            else:
+                fail_hist_dev = failure_histogram_solve(dev)
+        t_fit1 = time.perf_counter()
+        self._replay(ssn, snap, meta, assigned, pipelined, task_job)
+        t3 = time.perf_counter()
+        if fail_hist_dev is not None:
+            self._record_fit_errors(ssn, meta, fail_hist_dev.cpu().numpy(),
+                                    assigned, task_job, pending)
+        t4 = time.perf_counter()
+        # update, not replace: _replay folded its replay_* sub-phases in
+        self.last_phase_ms.update(
+            snapshot_build=(t1 - t0) * 1e3,
+            upload=(t_up - t1) * 1e3,
+            solve=(t2 - t_up) * 1e3,
+            fit_errors=((t_fit1 - t2) + (t4 - t3)) * 1e3,
+            replay=(t3 - t_fit1) * 1e3,
+        )
+
+    # ------------------------------------------------------------------
+    def _replay(self, ssn, snap, meta, assigned, pipelined, task_job) -> None:
+        placed = np.flatnonzero(assigned >= 0)
+        if placed.size == 0:
+            return
+        _mark = _PhaseMarks(self.last_phase_ms).mark
+        # group placements by job, keeping device task order within a job
+        order = np.argsort(task_job[placed], kind="stable")
+        placed = placed[order]
+        pjobs = task_job[placed]
+        bounds = _run_bounds(pjobs)
+
+        # the bulk path is sound only when the gang arithmetic is the whole
+        # JobReady gate (gang.go:122-129: snapshot ready count + new
+        # allocations vs min_available)
+        gang_only_ready = ssn.enabled_plugin_names(JOB_READY) <= {"gang"}
+        nJ, nN = len(meta.job_objs), len(meta.node_names)
+        resreq64 = meta.task_resreq64
+        R = resreq64.shape[1]
+        pipe_flags = pipelined[placed]
+        n_alloc_per_job = np.bincount(pjobs[~pipe_flags], minlength=nJ)
+        if ssn.plugin_enabled("gang"):
+            committed = (snap.job_ready[:nJ] + n_alloc_per_job) >= snap.job_min_avail[:nJ]
+        else:
+            # no gang plugin ⇒ JobReady is vacuously true
+            committed = np.ones(nJ, bool)
+        job_slow = np.zeros(nJ, bool)
+        if not gang_only_ready or ssn.host_only_predicates:
+            job_slow[:] = True
+        else:
+            np.logical_or.at(job_slow, pjobs, meta.task_needs_host[placed])
+
+        # ---- bulk path first ------------------------------------------
+        # Bulk placements need no host state (the solve guarantees their fit,
+        # readiness is snapshot arithmetic), while the slow path's host
+        # predicates must observe them live; host fallbacks happen strictly
+        # after every bulk placement has landed.  The resreq sums are global
+        # segment sums over the float64 resreq matrix, and the apply loop
+        # runs over plain Python lists.
+        placed_l = placed.tolist()
+        pjobs_l = pjobs.tolist()
+        pipe_l = pipe_flags.tolist()
+        node_l = assigned[placed].tolist()
+        task_objs = meta.task_objs
+        node_names = meta.node_names
+        n_groups = len(bounds) - 1
+        _mark("replay_prep")
+
+        # ---- promote host-ports-only jobs back to the bulk path --------
+        # a placement's ports conflict iff its (node, port) is held by a
+        # resident task or claimed earlier this cycle: conflict-free jobs
+        # keep the solve's guarantees and bulk-apply; conflicted or
+        # affinity-carrying jobs take the sequential Statement replay
+        promoted_jobs = 0
+        cols = ssn.columns
+        if job_slow.any() and gang_only_ready and not ssn.host_only_predicates:
+            occupied = set()
+            for r in cols._ported_rows:
+                ni = int(cols.t_node[r])
+                rt = cols.task_by_row[r]
+                if ni >= 0 and rt is not None:
+                    for p in rt.pod.host_ports:
+                        occupied.add((ni, p))
+            for g in range(n_groups):
+                lo, hi = bounds[g], bounds[g + 1]
+                ji = pjobs_l[lo]
+                # uncommitted jobs never apply: promoting them would plant
+                # phantom port claims
+                if not job_slow[ji] or not committed[ji]:
+                    continue
+                claims: Optional[set] = set()
+                for i in range(lo, hi):
+                    t = task_objs[placed_l[i]]
+                    if not t.needs_host_predicate:
+                        continue
+                    if t.pod.affinity is not None:
+                        claims = None  # rich constraints → sequential path
+                        break
+                    ni = node_l[i]
+                    for p in t.pod.host_ports:
+                        key = (ni, p)
+                        if key in occupied or key in claims:
+                            claims = None
+                            break
+                        claims.add(key)
+                    if claims is None:
+                        break
+                if claims is None:
+                    continue  # conflict → the sequential replay re-decides
+                occupied.update(claims)
+                job_slow[ji] = False
+                promoted_jobs += 1
+
+        slow_l = job_slow.tolist()
+        committed_l = committed.tolist()
+
+        # volume pre-check (AllocateVolumes, session.go:252-257): a rejected
+        # group demotes to the sequential path before anything is mutated;
+        # skipped when the volume binder declares itself a no-op
+        demoted_jobs: set = set()
+        volume_noop = getattr(ssn.cache.volume_binder, "noop", False)
+        if not volume_noop:
+            allocate_volumes = ssn.cache.allocate_volumes
+            release = getattr(ssn.cache.volume_binder, "release_task", None)
+            for g in range(n_groups):
+                lo = bounds[g]
+                ji = pjobs_l[lo]
+                if slow_l[ji] or not committed_l[ji]:
+                    continue
+                try:
+                    for i in range(lo, bounds[g + 1]):
+                        if not pipe_l[i]:
+                            allocate_volumes(task_objs[placed_l[i]], node_names[node_l[i]])
+                except FitFailure:
+                    demoted_jobs.add(ji)
+                    if release is not None:
+                        for i in range(lo, bounds[g + 1]):
+                            release(task_objs[placed_l[i]].uid)
+
+        apply_job = committed & ~job_slow
+        if demoted_jobs:
+            apply_job[list(demoted_jobs)] = False
+        apply_mask = apply_job[pjobs]          # placements to bulk-apply
+        alloc_sel = apply_mask & ~pipe_flags
+        pipe_sel = apply_mask & pipe_flags
+        placed_rows = resreq64[placed]
+        node_of = assigned[placed]
+        job_alloc_sum = np.zeros((nJ, R))
+        np.add.at(job_alloc_sum, pjobs[alloc_sel], placed_rows[alloc_sel])
+        job_total_sum = np.zeros((nJ, R))
+        np.add.at(job_total_sum, pjobs[apply_mask], placed_rows[apply_mask])
+        node_alloc_sum = np.zeros((nN, R))
+        np.add.at(node_alloc_sum, node_of[alloc_sel], placed_rows[alloc_sel])
+        node_pipe_sum = np.zeros((nN, R))
+        np.add.at(node_pipe_sum, node_of[pipe_sel], placed_rows[pipe_sel])
+        apply_l = apply_job.tolist()
+        n_alloc_applied = np.bincount(pjobs[alloc_sel], minlength=nJ)
+        _mark("replay_sums")
+
+        # ---- columnar apply: every ledger / count / status column updated
+        # by whole-matrix ops; the loops below only touch what must be an
+        # object (status-index buckets, node task dicts, the binds list).
+        # The ledger matrices are the buffers the JobInfo / NodeInfo
+        # Resources wrap, so the objects see every update.
+        if not ssn.all_handlers_columnar():
+            raise NotImplementedError(
+                "an event handler without columnar_allocate_func: the port's "
+                "allocate replay fires allocate events in columnar form only")
+        BINDING_I = int(TaskStatus.BINDING)
+        PIPELINED_I = int(TaskStatus.PIPELINED)
+        PENDING_I = int(TaskStatus.PENDING)
+        cols.t_status[placed[alloc_sel]] = BINDING_I
+        cols.t_status[placed[pipe_sel]] = PIPELINED_I
+        cols.t_node[placed[apply_mask]] = node_of[apply_mask]
+        cols.j_alloc += job_alloc_sum
+        cols.j_pend -= job_total_sum
+        np.maximum(cols.j_pend, 0.0, out=cols.j_pend)
+        n_pipe_applied = np.bincount(pjobs[pipe_sel], minlength=nJ)
+        jc = cols.j_counts
+        jc[:, PENDING_I] -= n_alloc_applied + n_pipe_applied
+        jc[:, BINDING_I] += n_alloc_applied
+        jc[:, PIPELINED_I] += n_pipe_applied
+        cols.n_idle -= node_alloc_sum
+        np.maximum(cols.n_idle, 0.0, out=cols.n_idle)
+        cols.n_used += node_alloc_sum + node_pipe_sum
+        cols.n_rel -= node_pipe_sum
+        np.maximum(cols.n_rel, 0.0, out=cols.n_rel)
+        ssn.fire_columnar_allocations(cols, job_total_sum)
+        _mark("replay_columns")
+
+        binds: List[Tuple[object, str]] = []
+        if not pipe_sel.any():
+            # ---- flat residue (every placement allocates — the steady
+            # state): binds, bucket moves and node registration from whole
+            # arrays, one object gather and one dict insert per task
+            ptasks_l = [task_objs[r] for r in placed_l]
+            apply_pos = np.flatnonzero(apply_mask)
+            app_tasks = (ptasks_l if apply_pos.size == len(ptasks_l)
+                         else [ptasks_l[i] for i in apply_pos.tolist()])
+            app_nodes = node_of[apply_mask]
+            binds = list(zip(app_tasks, (node_names[n] for n in app_nodes.tolist())))
+            job_objs = meta.job_objs
+            for g in range(n_groups):
+                lo = bounds[g]
+                ji = pjobs_l[lo]
+                if apply_l[ji]:
+                    job_objs[ji].rebucket_moved(ptasks_l[lo:bounds[g + 1]],
+                                                TaskStatus.BINDING)
+            # node registration grouped by one argsort over the node column
+            if app_nodes.size:
+                nsort = np.argsort(app_nodes, kind="stable")
+                nodes_sorted = app_nodes[nsort]
+                run_bounds = _run_bounds(nodes_sorted)
+                nsort_l = nsort.tolist()
+                for k in range(len(run_bounds) - 1):
+                    lo, hi = run_bounds[k], run_bounds[k + 1]
+                    node = ssn.nodes.get(node_names[nodes_sorted[lo]])
+                    if node is not None:
+                        node.bulk_register_tasks([app_tasks[i] for i in nsort_l[lo:hi]], ())
+        else:
+            # ---- general residue: pipelined placements record their fit
+            # shortfall (allocate.go:170-175) and stay session-only
+            by_node: Dict[int, Tuple[list, list]] = {}
+            for g in range(n_groups):
+                lo, hi = bounds[g], bounds[g + 1]
+                ji = pjobs_l[lo]
+                if not apply_l[ji]:
+                    continue
+                job = meta.job_objs[ji]
+                alloc_tasks: list = []
+                pipe_tasks: list = []
+                for i in range(lo, hi):
+                    t = task_objs[placed_l[i]]
+                    ni = node_l[i]
+                    name = node_names[ni]
+                    t._node_name = name
+                    slot = by_node.get(ni)
+                    if slot is None:
+                        slot = by_node[ni] = ([], [])
+                    if pipe_l[i]:
+                        pnode = ssn.nodes.get(name)
+                        if pnode is not None:
+                            job.nodes_fit_delta[name] = t.init_resreq.fit_delta(pnode.idle)
+                        pipe_tasks.append(t)
+                        slot[1].append(t)
+                    else:
+                        alloc_tasks.append(t)
+                        slot[0].append(t)
+                        binds.append((t, name))
+                job.rebucket_moved(alloc_tasks, TaskStatus.BINDING)
+                if pipe_tasks:
+                    job.rebucket_moved(pipe_tasks, TaskStatus.PIPELINED)
+                    ssn.pipelined_tasks.extend(pipe_tasks)
+            for ni, (allocs, pipes) in by_node.items():
+                node = ssn.nodes.get(node_names[ni])
+                if node is not None:
+                    node.bulk_register_tasks(allocs, pipes)
+        _mark("replay_residue")
+
+        if binds:
+            # BindVolumes precedes every dispatch (statement.go:253-277)
+            if not volume_noop:
+                for t, _ in binds:
+                    ssn.cache.bind_volumes(t)
+            ssn.cache.bulk_bind(binds)
+        _mark("replay_bind")
+
+        # slow path after every bulk placement has landed: host predicates
+        # observe them; jobs the volume pre-check demoted replay here too
+        n_slow = 0
+        for g in range(n_groups):
+            ji = pjobs_l[bounds[g]]
+            if slow_l[ji] or ji in demoted_jobs:
+                n_slow += 1
+                self._slow_replay_job(ssn, meta, assigned, pipelined, ji,
+                                      placed[bounds[g]:bounds[g + 1]])
+        self.last_fallback = {
+            "slow_jobs": n_slow,
+            "promoted_ports_jobs": promoted_jobs,
+            "host_place_tasks": self._host_place_count,
+        }
+
+    # ------------------------------------------------------------------
+    def _slow_replay_job(self, ssn, meta, assigned, pipelined, ji, idxs) -> None:
+        """Per-task Statement replay: the host is authoritative for the
+        commit gate (JobReady, allocate.go:192-196) and every predicate."""
+        job = meta.job_objs[ji]
+        stmt = ssn.statement()
+        for ti in idxs:
+            task = meta.task_objs[int(ti)]
+            node_name = meta.node_names[int(assigned[ti])]
+            pipe = bool(pipelined[ti])
+            node = ssn.nodes.get(node_name)
+            try:
+                if node is not None and (task.needs_host_predicate
+                                         or ssn.host_only_predicates):
+                    ssn.predicate(task, node)
+                # live fit re-check: a host-fallback placement may have taken
+                # capacity the solve promised to this placement
+                if node is not None and not (
+                        (not pipe and task.init_resreq.less_equal(node.idle))
+                        or (pipe and task.init_resreq.less_equal(node.releasing))):
+                    raise FitFailure("node resources taken by host fallback")
+                if pipe:
+                    if node is not None:
+                        job.nodes_fit_delta[node_name] = task.init_resreq.fit_delta(node.idle)
+                    stmt.pipeline(task, node_name)
+                else:
+                    stmt.allocate(task, node_name)
+            except FitFailure as e:
+                logger.info("device placement %s→%s rejected by host predicate: %s",
+                            task.key(), node_name, e.reason)
+                # the deterministic solve would re-propose the same node next
+                # cycle: take the reference's sequential path for this task
+                self._host_place(ssn, stmt, task)
+        if ssn.job_ready(job):
+            stmt.commit()
+        else:
+            logger.info("job %s not ready after device solve (%d placements), "
+                        "discarding", job.uid, int(idxs.size))
+            self.last_host_discards += 1
+            ssn.host_discards += 1
+            stmt.discard()
+
+    def _record_fit_errors(self, ssn, meta, fail_hist, assigned, task_job,
+                           pending) -> None:
+        """FitErrors for unplaced pending tasks (allocate.go:151-155), from
+        the reason histogram."""
+        from kube_batch_tpu_torch.api.job_info import FitErrors
+        from kube_batch_tpu_torch.ops.feasibility import REASON_MESSAGES
+
+        unplaced = np.flatnonzero(pending & (assigned < 0))
+        hist = fail_hist[: meta.n_tasks]
+        n_nodes = meta.live_nodes
+        for ti in unplaced:
+            job = meta.job_objs[int(task_job[ti])]
+            task = meta.task_objs[int(ti)]
+            if job is None or task is None:
+                continue
+            counts = dict(zip(REASON_MESSAGES, hist[ti].tolist()))
+            if not any(counts.values()):
+                # feasible at cycle start but lost the contention
+                counts = {"node(s) resources were consumed by other tasks "
+                          "this cycle": n_nodes}
+            fe = FitErrors()
+            fe.set_histogram(counts, n_nodes)
+            job.nodes_fit_errors[task.uid] = fe
+
+    def _port_rows(self, cols) -> Dict[int, list]:
+        """port → [task rows] of every ported task, built once per execute;
+        occupancy is read live from the t_node column at query time."""
+        idx = self._ports_by_node
+        if idx is None:
+            idx = self._ports_by_node = {}
+            for row in cols._ported_rows:
+                t = cols.task_by_row[row]
+                if t is not None:
+                    for p in t.pod.host_ports:
+                        idx.setdefault(p, []).append(row)
+        return idx
+
+    def _port_held_nodes(self, cols, port: int, exclude_row: int) -> set:
+        """Node rows currently holding ``port`` (live t_node view)."""
+        rows = self._port_rows(cols).get(port)
+        if not rows:
+            return set()
+        t_node = cols.t_node
+        return {int(t_node[r]) for r in rows if r != exclude_row and t_node[r] >= 0}
+
+    def _host_place_columns(self, ssn, stmt, task) -> Optional[bool]:
+        """Vectorized residual placement over the column matrices for tasks
+        whose only host-side constraint is hostPorts: fit, static predicates
+        and port exclusion as array ops, the device weights' scoring, then
+        the Idle-vs-Releasing decision.  None when the task needs the full
+        object scan (affinity, host-only predicates, a custom scorer)."""
+        cols = ssn.columns
+        if (ssn.host_only_predicates or task.pod.affinity is not None
+                or task._row < 0
+                or set(ssn._fns.get(NODE_ORDER, {})) - {"nodeorder"}):
+            return None
+        req = task.init_resreq.vec
+        quanta = cols.spec.quanta
+        fit_idle = np.all(req <= cols.n_idle + quanta, axis=1)
+        fit_rel = np.all(req <= cols.n_rel + quanta, axis=1)
+        cand = (fit_idle | fit_rel) & cols.n_valid & cols.n_sched
+        excluded_rows = cols.excluded_node_rows(ssn)
+        if excluded_rows:
+            cand[excluded_rows] = False
+        row = task._row
+        if cols.t_sel_impossible[row]:
+            return False
+        sel = cols.t_sel_bits[row]
+        if sel.any():
+            cand &= ~np.any(sel[None, :] & ~cols.n_label_bits, axis=1)
+        cand &= ~np.any(cols.n_taint_bits & ~cols.t_tol_bits[row][None, :], axis=1)
+        for p in task.pod.host_ports:
+            held = self._port_held_nodes(cols, p, exclude_row=row)
+            if held:
+                cand[list(held)] = False
+        if not cand.any():
+            return False
+        # the device weights' scoring rows (ops/scoring.py's host twin)
+        w = ssn.score_weights
+        alloc = cols.n_alloc
+        with np.errstate(divide="ignore", invalid="ignore"):
+            used_after = cols.n_used + req
+            frac = np.where(alloc > 0,
+                            np.minimum(used_after / np.maximum(alloc, 1e-9), 1.0), 1.0)
+        free_cpu, free_mem = 1.0 - frac[:, 0], 1.0 - frac[:, 1]
+        score = (w.least_requested * (free_cpu + free_mem) * 5.0
+                 + w.balanced_resource * (10.0 - np.abs(free_cpu - free_mem) * 10.0)
+                 + w.binpack * (frac[:, 0] + frac[:, 1]) * 5.0)
+        score = np.where(cand, score, -np.inf)
+        volume_ok = getattr(ssn.cache.volume_binder, "noop", False)
+        for _ in range(8):  # volume-infeasible nodes retire and we re-pick
+            ni = int(np.argmax(score))
+            if score[ni] == -np.inf:
+                return False
+            name = cols.node_names[ni]
+            if volume_ok or ssn.cache.volume_feasible(task, name):
+                break
+            score[ni] = -np.inf
+        else:
+            return None  # past 8 volume-infeasible picks: the object scan
+        try:
+            if fit_idle[ni]:
+                stmt.allocate(task, name)
+            else:
+                job = ssn.jobs.get(task.job)
+                node = ssn.nodes.get(name)
+                if job is not None and node is not None:
+                    job.nodes_fit_delta[name] = task.init_resreq.fit_delta(node.idle)
+                stmt.pipeline(task, name)
+        except FitFailure as e:
+            logger.info("columns host placement %s→%s failed: %s",
+                        task.key(), name, e.reason)
+            return False
+        return True
+
+    def _host_place(self, ssn, stmt, task) -> bool:
+        """Sequential placement for a task the device model could not
+        encode: predicate every node, take the best-scoring fit —
+        allocate.go:151-184 (PredicateNodes → PrioritizeNodes →
+        SelectBestNode → Allocate on Idle / Pipeline on Releasing)."""
+        self._host_place_count += 1
+        fast = self._host_place_columns(ssn, stmt, task)
+        if fast is not None:
+            return fast
+        best, best_score = None, None
+        for node in ssn.nodes.values():
+            try:
+                ssn.predicate(task, node)
+            except FitFailure:
+                continue
+            if not (task.init_resreq.less_equal(node.idle)
+                    or task.init_resreq.less_equal(node.releasing)):
+                continue
+            if not ssn.cache.volume_feasible(task, node.name):
+                continue
+            score = ssn.node_order(task, node)
+            if best is None or score > best_score:
+                best, best_score = node, score
+        if best is None:
+            return False
+        # allocate-vs-pipeline is decided on the selected node
+        # (allocate.go:161-184)
+        try:
+            if task.init_resreq.less_equal(best.idle):
+                stmt.allocate(task, best.name)
+            else:
+                job = ssn.jobs.get(task.job)
+                if job is not None:
+                    job.nodes_fit_delta[best.name] = task.init_resreq.fit_delta(best.idle)
+                stmt.pipeline(task, best.name)
+        except FitFailure as e:
+            logger.info("host placement %s→%s failed: %s", task.key(), best.name, e.reason)
+            return False
+        return True

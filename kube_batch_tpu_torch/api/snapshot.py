@@ -7,8 +7,9 @@ The u32 bitsets (``task_sel_bits``, ``task_tol_bits``, ``node_label_bits``,
 ``node_taint_bits``) ride as int32 views: ``&``, ``~`` and ``==`` are
 bit-identical on them, and torch's uint32 lacks most CPU ops.
 
-Building a snapshot from a host ``ClusterInfo`` (``build_snapshot``) is
-part of the host slice and not ported yet.
+The host cycle builds a snapshot from the cache's column store
+(``api/columns.py`` ``ColumnStore.device_snapshot``); the JAX package's
+object-model ``build_snapshot`` (isolated sessions) is not ported.
 """
 
 from __future__ import annotations
@@ -21,6 +22,10 @@ import numpy as np
 
 from kube_batch_tpu_torch.api.resources import ResourceSpec
 
+#: bits per word of the label / taint bitsets
+BITS = 32
+#: taint effects that hard-exclude a node (PreferNoSchedule only scores)
+HARD_TAINT_EFFECTS = ("NoSchedule", "NoExecute")
 #: capability value meaning "unbounded" (queue without a Capability cap)
 UNBOUNDED = np.float32(3.4e38)
 
@@ -108,8 +113,38 @@ class SnapshotMeta:
     n_nodes: int
     n_jobs: int
     n_queues: int
+    # the session's own objects in device-index order — the allocate replay
+    # addresses placements by index instead of by dict lookups
+    task_objs: List = dataclasses.field(default_factory=list)
+    job_objs: List = dataclasses.field(default_factory=list)
+    node_objs: List = dataclasses.field(default_factory=list)
+    # [T, R] float64 resreq: segment sums over it match the host Resource
+    # ledgers exactly (the f32 device cast would not)
+    task_resreq64: "np.ndarray" = None
+    # [T] bool — task carries host-only constraints (ports, rich affinity)
+    task_needs_host: "np.ndarray" = None
+    # Ready nodes at snapshot time (the fit-error "0/N nodes" denominator)
+    live_nodes: int = 0
 
     @property
     def shape(self) -> Tuple[int, int, int, int]:
         return (len(self.task_keys), len(self.node_names),
                 len(self.job_uids), len(self.queue_names))
+
+
+def _pack_bits(bit_indices: List[int], words: int) -> np.ndarray:
+    out = np.zeros(words, dtype=np.uint32)
+    for b in bit_indices:
+        out[b // BITS] |= np.uint32(1 << (b % BITS))
+    return out
+
+
+class _TaintView:
+    """Duck-typed taint for ``Toleration.tolerates`` during interning."""
+
+    __slots__ = ("key", "value", "effect")
+
+    def __init__(self, key: str, value: str, effect: str):
+        self.key = key
+        self.value = value
+        self.effect = effect

@@ -554,3 +554,36 @@ def allocate_topk_solve(snap: DeviceSnapshot, pend_rows: torch.Tensor,
                           snap.node_releasing, snap.node_used,
                           compact_head=head)
     return scatter_bucket_result(res, pend_rows, T)
+
+
+def failure_histogram_solve(snap: DeviceSnapshot) -> torch.Tensor:
+    """[T, N_REASONS] i32 cycle-start fit-error histogram, its own dispatch:
+    the allocate action runs it only when the solve left pending tasks
+    unplaced (allocate.go:151-155 builds FitErrors for failing tasks
+    only)."""
+    from kube_batch_tpu_torch.ops.feasibility import failure_histogram
+
+    static_ok = static_predicates(snap)
+    fit = (fits(snap.task_req, snap.node_idle, snap.quanta)
+           | fits(snap.task_req, snap.node_releasing, snap.quanta))
+    return failure_histogram(snap, static_ok, fit)
+
+
+def failure_histogram_bucket_solve(snap: DeviceSnapshot,
+                                   pend_rows: torch.Tensor) -> torch.Tensor:
+    """:func:`failure_histogram_solve` over the [P] pending bucket instead of
+    [T, N]: the histogram is read only at unplaced pending rows, all of
+    which the bucket covers, and each row is a reduction over nodes alone —
+    so the bucket rows equal the full program's and the other rows (never
+    read) are zeros."""
+    from kube_batch_tpu_torch.ops.feasibility import N_REASONS, failure_histogram
+
+    T = snap.task_req.shape[0]
+    view_p = pend_view(snap, pend_rows)
+    static_ok = static_predicates(view_p)
+    fit = (fits(view_p.task_req, snap.node_idle, snap.quanta)
+           | fits(view_p.task_req, snap.node_releasing, snap.quanta))
+    h = failure_histogram(view_p, static_ok, fit)
+    scat = torch.where(pend_rows >= 0, pend_rows, T).long()
+    out = torch.zeros((T + 1, N_REASONS), dtype=torch.int32, device=h.device)
+    return out.index_copy_(0, scat, h)[:T]

@@ -24,14 +24,6 @@ def fits(req: torch.Tensor, budget: torch.Tensor,
     return ok
 
 
-def _all_words(x: torch.Tensor) -> torch.Tensor:
-    """[T, N, W] bool → [T, N], unrolled over the (small) word axis."""
-    out = x[..., 0]
-    for w in range(1, x.shape[-1]):
-        out = out & x[..., w]
-    return out
-
-
 def static_predicates(snap: DeviceSnapshot) -> torch.Tensor:
     """[T, N] non-resource predicate conjunction."""
     node_ok = snap.node_valid & snap.node_sched  # [N]
@@ -57,3 +49,56 @@ def static_predicates(snap: DeviceSnapshot) -> torch.Tensor:
     rows = idx.clamp(0, T - 1)[:, None].expand(-1, N)
     okb = ok.to(torch.uint8).scatter_reduce_(0, rows, upd.to(torch.uint8), "amin")
     return okb.bool()
+
+
+# Reason codes for fit-error diagnostics (unschedule_info.go:11-19); the host
+# renders them into FitErrors strings for unplaced tasks only.
+REASON_NODE_UNHEALTHY = 0
+REASON_SELECTOR = 1
+REASON_TAINT = 2
+REASON_RESOURCE = 3
+N_REASONS = 4
+
+#: the message of each reason class, in code order
+REASON_MESSAGES = (
+    "node(s) were not ready or unschedulable",
+    "node(s) didn't match node selector",
+    "node(s) had taints that the pod didn't tolerate",
+    "Insufficient resources",
+)
+
+
+def _selector_taint_ok(snap: DeviceSnapshot):
+    """([T, N] selector ok, [T, N] taints ok), word by word."""
+    T = snap.task_sel_bits.shape[0]
+    N = snap.node_label_bits.shape[0]
+    sel_ok = torch.ones((T, N), dtype=torch.bool, device=snap.node_valid.device)
+    for w in range(snap.task_sel_bits.shape[1]):
+        sel = snap.task_sel_bits[:, w, None]
+        sel_ok &= (sel & snap.node_label_bits[None, :, w]) == sel
+    sel_ok &= ~snap.task_sel_impossible[:, None]
+    taints_ok = torch.ones_like(sel_ok)
+    for w in range(snap.task_tol_bits.shape[1]):
+        taints_ok &= (snap.node_taint_bits[None, :, w]
+                      & ~snap.task_tol_bits[:, w, None]) == 0
+    return sel_ok, taints_ok
+
+
+def failure_histogram(snap: DeviceSnapshot, static_ok: torch.Tensor,
+                      fit: torch.Tensor) -> torch.Tensor:
+    """[T, N_REASONS] i32: per task, how many valid nodes failed each
+    predicate class — the device analog of FitErrors' reason histogram.
+    ``static_ok`` is :func:`static_predicates`, ``fit`` the fit in Idle or
+    Releasing."""
+    node_ok = snap.node_valid & snap.node_sched
+    nodes = snap.node_valid[None, :]
+    sel_ok, taints_ok = _selector_taint_ok(snap)
+    T = snap.task_req.shape[0]
+    unhealthy = (snap.node_valid & ~node_ok).sum().expand(T)  # task-independent
+    healthy = nodes & node_ok[None, :]
+    return torch.stack([
+        unhealthy,
+        (healthy & ~sel_ok).sum(dim=1),
+        (healthy & sel_ok & ~taints_ok).sum(dim=1),
+        (nodes & static_ok & ~fit).sum(dim=1),
+    ], dim=1).to(torch.int32)

@@ -1,11 +1,16 @@
-"""Synthetic device snapshots at the sizes users run (50k pods × 5k nodes).
+"""Synthetic workloads at the sizes users run (50k pods × 5k nodes).
 
-Mirrors ``synthetic_device_snapshot`` of ``kube_batch_tpu/testing/
-synthetic.py``: the same ``np.random.default_rng(seed)`` draws in the same
-order, so the arrays are identical to the JAX package's before they are
-moved to the device.  Tasks are pending gangs of ``gang_size`` spread over
-``n_queues`` queues; a ``gpu_task_frac`` of the gangs asks for GPUs, which
-only the first ``gpu_node_frac`` of the nodes carry.
+Mirrors ``kube_batch_tpu/testing/synthetic.py``, with the same
+``np.random.default_rng(seed)`` draws in the same order, so each
+generator's output equals the JAX package's:
+
+  synthetic_device_snapshot — the snapshot arrays directly, moved to the
+    device: pending gangs of ``gang_size`` over ``n_queues`` queues; a
+    ``gpu_task_frac`` of the gangs asks for GPUs, which only the first
+    ``gpu_node_frac`` of the nodes carry
+  synthetic_cluster, synthetic_overcommit_cluster — a real
+    ``SchedulerCache`` built through its ingest handlers, for the whole
+    scheduling cycle
 """
 
 from __future__ import annotations
@@ -166,3 +171,104 @@ def synthetic_device_snapshot(
         n_queues=n_queues,
     )
     return snapshot_from_numpy(arrays, device), meta
+
+
+def synthetic_overcommit_cluster(
+    n_running: int = 800,
+    n_pending: int = 400,
+    n_nodes: int = 100,
+    gang_size: int = 4,
+    seed: int = 0,
+):
+    """An overcommitted 2-queue cluster: queue q0 (weight 1) runs gangs that
+    fill every node's cpu; queue q1 (weight 3) has pending gangs that fit
+    only where capacity frees up."""
+    from kube_batch_tpu_torch.api.pod import GROUP_NAME_ANNOTATION, Node, Pod, PodGroup, Queue
+    from kube_batch_tpu_torch.api.types import PodPhase
+    from kube_batch_tpu_torch.cache.cache import SchedulerCache
+
+    rng = np.random.default_rng(seed)
+    cache = SchedulerCache()
+    cache.add_queue(Queue(name="q0", weight=1))
+    cache.add_queue(Queue(name="q1", weight=3))
+    for i in range(n_nodes):
+        cache.add_node(Node(name=f"n{i}", allocatable={
+            "cpu": NODE_CPU, "memory": NODE_MEM, "pods": NODE_PODS}))
+    # running workload in q0, round-robin across nodes, saturating cpu
+    per_node = max(1, n_running // n_nodes)
+    cpu_each = NODE_CPU / per_node
+    n_run_jobs = -(-n_running // gang_size)
+    for j in range(n_run_jobs):
+        cache.add_pod_group(PodGroup(name=f"run{j}", namespace="bench", min_member=1,
+                                     queue="q0", creation_index=j))
+    for i in range(n_running):
+        cache.add_pod(Pod(
+            name=f"r{i}", namespace="bench",
+            requests={"cpu": cpu_each, "memory": 1 * GiB},
+            annotations={GROUP_NAME_ANNOTATION: f"run{i // gang_size}"},
+            phase=PodPhase.RUNNING,
+            node_name=f"n{i % n_nodes}",
+            creation_index=i,
+        ))
+    # pending gangs in the heavier queue
+    n_pend_jobs = -(-n_pending // gang_size)
+    for j in range(n_pend_jobs):
+        cache.add_pod_group(PodGroup(
+            name=f"pend{j}", namespace="bench",
+            min_member=min(gang_size, n_pending - j * gang_size),
+            queue="q1", creation_index=n_run_jobs + j))
+    for i in range(n_pending):
+        cache.add_pod(Pod(
+            name=f"p{i}", namespace="bench",
+            requests={"cpu": float(rng.choice(CPU_CHOICES)),
+                      "memory": float(rng.choice(MEM_CHOICES))},
+            annotations={GROUP_NAME_ANNOTATION: f"pend{i // gang_size}"},
+            phase=PodPhase.PENDING,
+            creation_index=n_running + i,
+        ))
+    return cache
+
+
+def synthetic_cluster(
+    n_tasks: int = 200,
+    n_nodes: int = 20,
+    gang_size: int = 4,
+    n_queues: int = 2,
+    seed: int = 0,
+    host_ports_frac: float = 0.0,
+):
+    """A pending synthetic workload through the real cache handlers: gangs
+    of ``gang_size`` over ``n_queues`` queues on identical nodes.  A
+    ``host_ports_frac`` of the tasks asks for a hostPort from a 64-port
+    pool, a host-only constraint that routes their job through the allocate
+    replay's slow path.  Returns the ``SchedulerCache`` (fake binder)."""
+    from kube_batch_tpu_torch.api.pod import GROUP_NAME_ANNOTATION, Node, Pod, PodGroup, Queue
+    from kube_batch_tpu_torch.api.types import PodPhase
+    from kube_batch_tpu_torch.cache.cache import SchedulerCache
+
+    rng = np.random.default_rng(seed)
+    cache = SchedulerCache(spec=ResourceSpec(scalar_names=(GPU,)))
+    for q in range(n_queues):
+        cache.add_queue(Queue(name=f"q{q}", weight=q + 1))
+    for i in range(n_nodes):
+        cache.add_node(Node(name=f"n{i}", allocatable={
+            "cpu": NODE_CPU, "memory": NODE_MEM, "pods": NODE_PODS}))
+    n_jobs = -(-n_tasks // gang_size)
+    for j in range(n_jobs):
+        cache.add_pod_group(PodGroup(
+            name=f"pg{j}", namespace="bench",
+            min_member=min(gang_size, n_tasks - j * gang_size),
+            queue=f"q{j % n_queues}", creation_index=j))
+    ported = rng.random(n_tasks) < host_ports_frac if host_ports_frac > 0 else None
+    for i in range(n_tasks):
+        cache.add_pod(Pod(
+            name=f"t{i}", namespace="bench",
+            requests={"cpu": float(rng.choice(CPU_CHOICES)),
+                      "memory": float(rng.choice(MEM_CHOICES))},
+            annotations={GROUP_NAME_ANNOTATION: f"pg{i // gang_size}"},
+            phase=PodPhase.PENDING,
+            creation_index=i,
+            host_ports=((7000 + int(rng.integers(64)),)
+                        if ported is not None and ported[i] else ()),
+        ))
+    return cache
