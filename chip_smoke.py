@@ -2,29 +2,39 @@
 
     python3 chip_smoke.py
 
-Builds both CUDA kernels from ``kube_batch_tpu_torch/csrc`` with nvcc,
-holds each against its plain PyTorch version at the main path's shapes
-(bit-exact: the tolerance is zero) — K1 at round 0 and at a late round
-with a tenth of the rows pending, K2 at both bucket sizes — and at their
-corners: ragged blocks at a nonzero origin, odd N with no row start
-aligned, rows without a candidate, picks decided by the node index, and
--0.0 scores.  It times each main-path case against its bound
-(``kube_batch_tpu_torch/testing/kernel_bench.py``), carries the CPU ↔ CUDA parity of the
-whole solve at a mid size, then runs the allocate solve at the size users
-run — 50 000 pods × 5 000 nodes, gangs of 4 over 3 queues, DRF and
-proportion on — through the full and the compacted program, checking the
-ledger and gang invariants, determinism, and that the two programs agree.
-Then it drives the whole scheduling cycle through ``Scheduler.run_once``
-(``kube_batch_tpu_torch/testing/cycle_drive.py``): a 50 000-pod cluster
-built through the cache's handlers, cycle 1 with every pod pending (the
-full program, K1), cycle 2 after the bound pods start Running and 5 000
-pods arrive in 1 250 gangs (the compacted program, K2), cycle 3 with
-nothing pending (the idle path) — checking the column store, the node
-ledgers and that no pod binds twice after each — and the same drive at
-4 096 × 1 024 with host ports on the CPU and on the card, which must bind
-identically.  Each phase prints one JSON line; any failure raises
-(non-zero exit).  The last three lines are the kernels' summary, the
-card's name and power limit, and ``{"ok": true, "device": ...}``.
+Builds the three CUDA kernels from ``kube_batch_tpu_torch/csrc`` with nvcc
+(one nvcc per source, all at once) and holds each against its plain
+PyTorch version at the main path's shapes (bit-exact: the tolerance is
+zero) — K1 at round 0 and at a late round with a tenth of the rows
+pending, K2 at both bucket sizes, the enqueue gate over 12 500
+MinResources rows at capJ 16 384 — and at their corners: ragged blocks at
+a nonzero origin, odd N with no row start aligned, rows without a
+candidate, picks decided by the node index, -0.0 scores; for the gate,
+rows within one quantum of the budget's edge, every row rejected,
+non-candidate rows between candidates, thousands of admissions, an
+infinite budget.  It times each main-path case against its bound
+(``kube_batch_tpu_torch/testing/kernel_bench.py``), carries the CPU ↔ CUDA
+parity of the whole allocate solve and of the reclaim and preempt solves
+at a mid size, then runs the allocate solve at the size users run —
+50 000 pods × 5 000 nodes, gangs of 4 over 3 queues, DRF and proportion
+on — through the full and the compacted program, checking the ledger and
+gang invariants, determinism, and that the two programs agree.
+
+Then it drives the scheduling cycle through ``Scheduler.run_once`` under
+the shipped five-action conf (``kube_batch_tpu_torch/testing/cycle_drive.py``):
+the 50 000-pod cluster built through the cache's handlers — cycle 1 with
+every pod pending (the full program, K1), cycle 2 after 5 000 pods arrive
+in 1 250 gangs carrying MinResources (the compacted program, K2), cycle 3
+after enqueue promotes the arrivals cycle 2 left Pending (the admission
+gate) — and the overcommitted 60 000-pod cluster, where reclaim evicts
+and pipelines and the claimants bind once the victims are gone; after
+each cycle the column store, the node ledgers, double binds and every
+eviction are checked.  The same drives at 4 096 × 1 024 (with host ports)
+and at 3 072 × 256 (overcommitted) run on the CPU and on the card, which
+must bind and evict identically.  Each phase prints one JSON line; any
+failure raises (non-zero exit).  The last three lines are the kernels'
+summary, the card's name and power limit, and ``{"ok": true, "device":
+...}``.
 
 Exits non-zero without a result when no CUDA device is present.
 """
@@ -38,8 +48,10 @@ import time
 import torch
 
 from kube_batch_tpu_torch.testing.kernel_bench import (
-    index_decided_rows, k1_bound, k1_case, k2_bound, k2_case, late_round,
-    nvidia_smi, offset_copy, run_case, same,
+    gate_bound, gate_case, gate_corners, gate_kernel, gate_plain, gate_tensors,
+    index_decided_rows,
+    k1_bound, k1_case, k2_bound, k2_case, late_round, nvidia_smi, offset_copy,
+    run_case, same, sm_clock_hz,
 )
 
 N_TASKS, N_NODES, GANG, N_QUEUES = 50_000, 5_000, 4, 3
@@ -47,6 +59,12 @@ MID_TASKS, MID_NODES = 4096, 1024
 TOPK = 32
 # the cycle drive: pods arriving before cycle 2, and host ports at mid size
 ARRIVALS, MID_ARRIVALS, MID_PORTS = 5_000, 408, 0.1
+# the overcommit drive (kube_batch_tpu/testing/benchmark.py:85, 800 running /
+# 400 pending / 100 nodes, scaled 50x to the headline's nodes), and at a
+# small size for the CPU <-> CUDA comparison
+OC_RUNNING, OC_PENDING = 40_000, 20_000
+MID_OC = dict(n_running=2048, n_pending=1024, n_nodes=256)
+KERNELS = ("masked_best_node_raw", "masked_topk_blocks", "enqueue_gate")
 
 
 def emit(phase: str, **fields) -> None:
@@ -163,6 +181,95 @@ def phase_kernels(snap):
             negative_zero_cells=int(zero.sum()))
     emit("kernels", tolerance="bit-exact", **report)
     return report
+
+
+def phase_enqueue_gate():
+    """The admission gate's kernel against its plain version, bit-exact, at
+    capJ 16 384 with 12 500 MinResources rows and at its corners; the main
+    case timed against its bound (the dependence chain at the card's
+    highest SM clock)."""
+    dev = torch.device("cuda")
+    clock = sm_clock_hz()
+    main = gate_tensors(gate_case(), dev)
+    r = run_case(gate_kernel, gate_plain, main, reps=20, plain_reps=1)
+    b_ms, b_by = gate_bound(main, clock)
+    admitted = int(gate_kernel(**main)[0].sum())
+    report = {"main": dict(cap=main["min_res"].shape[0], rows=main["n_rows"],
+                           candidates=int(main["cand"].sum()), admitted=admitted,
+                           **r, bound_ms=b_ms, bound_by=b_by,
+                           bound_fraction=b_ms / r["ms"], sm_clock_mhz=clock / 1e6)}
+    if not 0 < admitted < int(main["cand"].sum()):
+        fail(f"enqueue_gate: the main case admitted {admitted} rows")
+    for name, case in gate_corners().items():
+        inp = gate_tensors(case, dev)
+        rc = run_case(gate_kernel, gate_plain, inp, reps=1)
+        report[name] = dict(rows=inp["n_rows"], admitted=int(gate_kernel(**inp)[0].sum()),
+                            max_abs_err=rc["max_abs_err"])
+    emit("enqueue_gate", tolerance="bit-exact", **report)
+    return report
+
+
+def _mid_evict_cluster():
+    """An overcommitted 4 096-task × 1 024-node cluster: q0 fills every
+    node's cpu, q1 waits (reclaim's claimants), and 128 high-priority q0
+    gangs wait too (preempt's)."""
+    from kube_batch_tpu_torch.api.pod import GROUP_NAME_ANNOTATION, Pod, PodGroup
+    from kube_batch_tpu_torch.api.types import PodPhase
+    from kube_batch_tpu_torch.testing.synthetic import synthetic_overcommit_cluster
+
+    cache = synthetic_overcommit_cluster(n_running=2048, n_pending=1536, n_nodes=MID_NODES)
+    for j in range(128):
+        cache.add_pod_group(PodGroup(name=f"high{j}", namespace="bench", min_member=GANG,
+                                     queue="q0", creation_index=10**6 + j))
+        for k in range(GANG):
+            cache.add_pod(Pod(name=f"high{j}-{k}", namespace="bench",
+                              requests={"cpu": 2000.0, "memory": 2.0 * 2**30},
+                              annotations={GROUP_NAME_ANNOTATION: f"high{j}"},
+                              phase=PodPhase.PENDING, priority=100,
+                              creation_index=10**6 + GANG * j + k))
+    return cache
+
+
+def phase_evict_cross_device():
+    """The reclaim and preempt solves on one 4 096 × 1 024 session snapshot,
+    on the CPU (plain PyTorch) and on the card: all three result fields and
+    the rounds equal."""
+    from kube_batch_tpu_torch import plugins as _plugins  # noqa: F401 — registers
+    from kube_batch_tpu_torch.actions.reclaim import evict_config
+    from kube_batch_tpu_torch.api.convert import snapshot_from_numpy
+    from kube_batch_tpu_torch.framework.conf import load_scheduler_conf, shipped_conf_path
+    from kube_batch_tpu_torch.framework.session import close_session, open_session
+    from kube_batch_tpu_torch.ops.eviction import evict_solve
+
+    cache = _mid_evict_cluster()
+    conf = load_scheduler_conf(shipped_conf_path())
+    ssn = open_session(cache, conf.tiers, "cpu")
+    ssn.action_names = list(conf.actions)
+    out = {}
+    try:
+        snap, _meta = cache.columns.device_snapshot(ssn)
+        for mode in ("reclaim", "preempt"):
+            cfg = evict_config(ssn, mode)
+            cpu, cpu_rounds = evict_solve(snapshot_from_numpy(snap, "cpu"), cfg)
+            gpu_snap = snapshot_from_numpy(snap, "cuda")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            gpu, gpu_rounds = evict_solve(gpu_snap, cfg)
+            torch.cuda.synchronize()
+            gpu_ms = (time.perf_counter() - t) * 1e3
+            bad = [f for f, x, y in zip(cpu._fields, cpu, gpu) if not same([x], [y])]
+            if bad or cpu_rounds != gpu_rounds:
+                fail(f"evict_cross_device {mode}: {bad} differ, rounds "
+                     f"{cpu_rounds} / {gpu_rounds}")
+            claims = int((gpu.claim_node >= 0).sum())
+            if claims == 0:
+                fail(f"evict_cross_device {mode}: no claim")
+            out[mode] = dict(claims=claims, evicted=int(gpu.evicted.sum()),
+                             rounds=gpu_rounds, idle_gate=cfg.idle_gate, gpu_ms=gpu_ms)
+    finally:
+        close_session(ssn)
+    emit("evict_cross_device", shape=[int(snap.task_req.shape[0]), int(snap.node_idle.shape[0])],
+         equal="bit-exact", **out)
 
 
 def phase_cross_device():
@@ -319,12 +426,12 @@ def phase_solve_topk(snap, config, full):
 
 
 def phase_cycle():
-    """Three cycles of ``Scheduler.run_once`` at 50k × 5k on the card."""
+    """Three cycles of the shipped conf at 50k × 5k on the card."""
     from kube_batch_tpu_torch.testing.cycle_drive import drive
 
     r = drive(N_TASKS, N_NODES, ARRIVALS, device="cuda")
     c1, c2, c3 = r["cycles"]
-    k1, k2 = "masked_best_node_raw", "masked_topk_blocks"
+    k1, k2, gate = KERNELS
     if c1["mode"] != "full" or c1["new_binds"] != N_TASKS \
             or c1["gangs_running"] != N_TASKS // GANG:
         fail(f"cycle 1: {c1['mode']}, {c1['new_binds']} binds, "
@@ -335,34 +442,70 @@ def phase_cycle():
         fail(f"cycle 2: {c2['mode']} program, launches {c2['launches']}")
     if c2["new_binds"] == 0:
         fail("cycle 2 bound nothing")
+    if c3["enqueue"]["gate_rows"] == 0 or c3["launches"][gate] == 0 \
+            or c3["new_binds"] == 0:
+        fail(f"cycle 3: gate rows {c3['enqueue']['gate_rows']}, launches "
+             f"{c3['launches']}, {c3['new_binds']} binds")
+    totals = {k: sum(c["launches"][k] for c in r["cycles"]) for k in KERNELS}
+    if not all(totals.values()):
+        fail(f"the headline drive did not launch every kernel: {totals}")
+    emit("cycle", conf="shipped", launches_total=totals, **r)
+    return r
+
+
+def phase_cycle_overcommit():
+    """Three cycles of the shipped conf on the 60k-pod overcommitted
+    cluster: reclaim evicts and pipelines, the claimants bind once the
+    kubelet deleted the victims; the drive checks every eviction."""
+    from kube_batch_tpu_torch.testing.cycle_drive import drive_overcommit
+
+    r = drive_overcommit(OC_RUNNING, OC_PENDING, N_NODES, device="cuda")
+    c1, c2, c3 = r["cycles"]
+    if c1["new_evicts"] == 0 or c1["pipelined_claimants"] == 0:
+        fail(f"overcommit cycle 1: {c1['new_evicts']} evictions, "
+             f"{c1['pipelined_claimants']} pipelined claimants")
+    if c2["new_binds"] == 0:
+        fail("overcommit cycle 2 bound nothing")
+    # nothing is left pending: the idle path launches no kernel
     if c3["mode"] != "idle" or any(c3["launches"].values()):
-        fail(f"cycle 3: {c3['mode']}, launches {c3['launches']}")
-    emit("cycle", **r)
+        fail(f"overcommit cycle 3: {c3['mode']}, launches {c3['launches']}")
+    emit("cycle_overcommit", conf="shipped", **r)
     return r
 
 
 def phase_cycle_cross_device():
-    """The three-cycle drive at 4 096 × 1 024 with host ports, on the CPU
-    (plain versions) and on the card (kernels): identical binds and task
-    statuses after every cycle."""
-    from kube_batch_tpu_torch.testing.cycle_drive import drive
+    """The headline drive at 4 096 × 1 024 with host ports and the
+    overcommit drive at 3 072 × 256, on the CPU (plain versions) and on the
+    card (kernels): identical binds, evictions and task statuses after
+    every cycle."""
+    from kube_batch_tpu_torch.testing.cycle_drive import drive, drive_overcommit
 
-    kw = dict(n_tasks=MID_TASKS, n_nodes=MID_NODES, arrivals=MID_ARRIVALS,
-              host_ports_frac=MID_PORTS, keep_states=True)
-    cpu = drive(**kw, device="cpu")
-    gpu = drive(**kw, device="cuda")
-    for c, (a, b) in enumerate(zip(cpu.pop("states"), gpu.pop("states"))):
-        for key in a:
-            if a[key] != b[key]:
-                fail(f"cycle_cross_device: cycle {c + 1} {key} differ")
-    if not gpu["cycles"][0]["launches"]["masked_best_node_raw"]:
+    runs = {
+        "headline": lambda dev: drive(MID_TASKS, MID_NODES, MID_ARRIVALS,
+                                      host_ports_frac=MID_PORTS, device=dev,
+                                      keep_states=True),
+        "overcommit": lambda dev: drive_overcommit(**MID_OC, device=dev,
+                                                   keep_states=True),
+    }
+    out = {}
+    for name, run in runs.items():
+        cpu, gpu = run("cpu"), run("cuda")
+        for c, (a, b) in enumerate(zip(cpu.pop("states"), gpu.pop("states"))):
+            for key in a:
+                if a[key] != b[key]:
+                    fail(f"cycle_cross_device {name}: cycle {c + 1} {key} differ")
+        out[name] = [dict(cycle=g["cycle"], mode=g["mode"], binds=g["binds"],
+                          evicts=g["evicts"], cpu_wall_ms=c_["wall_ms"],
+                          gpu_wall_ms=g["wall_ms"], gpu_launches=g["launches"],
+                          fallback=g["fallback"])
+                     for c_, g in zip(cpu["cycles"], gpu["cycles"])]
+    if not out["headline"][0]["gpu_launches"]["masked_best_node_raw"]:
         fail("cycle_cross_device: the card's cycle 1 launched no K1")
-    emit("cycle_cross_device", shape=[MID_TASKS, MID_NODES],
-         host_ports_frac=MID_PORTS, equal="binds and task statuses",
-         cycles=[dict(cycle=c["cycle"], mode=c["mode"], binds=c["binds"],
-                      cpu_wall_ms=a["wall_ms"], gpu_wall_ms=c["wall_ms"],
-                      gpu_launches=c["launches"], fallback=c["fallback"])
-                 for a, c in zip(cpu["cycles"], gpu["cycles"])])
+    if not out["overcommit"][0]["evicts"]:
+        fail("cycle_cross_device: the overcommit drive evicted nothing")
+    emit("cycle_cross_device", conf="shipped", equal="binds, evictions and task statuses",
+         headline_shape=[MID_TASKS, MID_NODES], host_ports_frac=MID_PORTS,
+         overcommit=MID_OC, cycles=out)
 
 
 def main() -> int:
@@ -378,7 +521,9 @@ def main() -> int:
                    n_queues=N_QUEUES, seed=0, device="cuda")
     snap, _meta = synthetic_device_snapshot(**main_kw)
     kern = phase_kernels(snap)
+    gate = phase_enqueue_gate()
     phase_cross_device()
+    phase_evict_cross_device()
     config = AllocateConfig()
     snaps = {"homogeneous": snap,
              "gpu_gangs": synthetic_device_snapshot(**main_kw,
@@ -391,15 +536,20 @@ def main() -> int:
     # scheduler process does
     del snap, snaps, full
     cycle = phase_cycle()
+    overcommit = phase_cycle_overcommit()
     phase_cycle_cross_device()
     cycle_launches = {name: {f"cycle{c['cycle']}": c["launches"][name]
                              for c in cycle["cycles"]}
-                      for name in ("masked_best_node_raw", "masked_topk_blocks")}
+                      for name in KERNELS}
+    overcommit_launches = {name: {f"cycle{c['cycle']}": c["launches"][name]
+                                  for c in overcommit["cycles"]}
+                           for name in KERNELS}
 
     src = "kube_batch_tpu_torch/csrc/"
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     k1, k1_late = kern["K1"], kern["K1_late_round"]
     k2 = kern[f"K2_P{T}"]
+    g = gate["main"]
     summary = [
         dict(name="masked_best_node_raw", route="cuda",
              source=src + "best_node.cu",
@@ -409,13 +559,22 @@ def main() -> int:
              late_round_ms=k1_late["ms"],
              late_round_bound_ms=k1_late["bound_ms"],
              late_round_pending_rows=k1_late["pending_rows"],
-             cycle_launches=cycle_launches["masked_best_node_raw"]),
+             cycle_launches=cycle_launches["masked_best_node_raw"],
+             overcommit_launches=overcommit_launches["masked_best_node_raw"]),
         dict(name="masked_topk_blocks", route="cuda",
              source=src + "topk_blocks.cu",
              replaces="kube_batch_tpu/ops/pallas_kernels.py:216",
              launches=topk_launches["masked_topk_blocks"],
              **{f: k2[f] for f in fields}, library_ms=None,
-             cycle_launches=cycle_launches["masked_topk_blocks"]),
+             cycle_launches=cycle_launches["masked_topk_blocks"],
+             overcommit_launches=overcommit_launches["masked_topk_blocks"]),
+        dict(name="enqueue_gate", route="cuda",
+             source=src + "enqueue_gate.cu",
+             replaces="kube_batch_tpu/ops/admission.py:48",
+             launches=sum(cycle_launches["enqueue_gate"].values()),
+             **{f: g[f] for f in fields}, library_ms=None,
+             cycle_launches=cycle_launches["enqueue_gate"],
+             overcommit_launches=overcommit_launches["enqueue_gate"]),
     ]
     print(json.dumps({"kernels": summary}))
     print(smi)

@@ -3,24 +3,30 @@
 A port of ``kube_batch_tpu`` to PyTorch on an NVIDIA H100.  The serial
 scheduling cycle runs end to end: pods, nodes, PodGroups and queues enter
 the cache through its handlers; ``Scheduler.run_once`` opens an exclusive
-session with the configured plugins, runs the allocate action (the
-snapshot built from the cache's column store, uploaded once; the
-gang-constrained solve on the device; one readback; the host replay into
-binds), and closes the session with the PodGroup and queue statuses.  The
+session with the configured plugins, runs the configured actions — the
+shipped conf's enqueue (the admission gate on the device), reclaim and
+preempt (the eviction solve on the device, the claims replayed through
+the plugins), allocate (the snapshot built from the cache's column store,
+uploaded once; the gang-constrained solve on the device; one readback;
+the host replay into binds) and backfill — and closes the session with
+the PodGroup and queue statuses.  The
 layout mirrors the JAX package path for path, so each module's
 counterpart is found at the same name:
 
   api/        — resources, the ingest objects, task / job / node / queue
                 info, the column store, the snapshot tensors,
                 numpy ↔ tensor conversion
-  cache/      — the cluster mirror and its binder / status seams
+  cache/      — the cluster mirror and its binder / evictor / status seams
   framework/  — conf, session, statement, the action and plugin registries
   plugins/    — priority, gang, conformance, drf, predicates, proportion,
                 nodeorder, binpack
   ops/        — feasibility, scoring, fairness, ordering, the assignment
-                solve, and the two hand-written kernels (``ops/kernels.py``
-                over ``csrc/*.cu``)
-  actions/    — allocate (single device, cold)
+                and eviction solves, the admission gate, and the three
+                hand-written kernels (``ops/kernels.py``,
+                ``ops/admission.py`` over ``csrc/*.cu``)
+  actions/    — enqueue, reclaim, allocate (single device, cold),
+                backfill, preempt
+  utils/      — invariant assertions, the priority queue
   scheduler.py — the serial loop
   testing/    — synthetic clusters and snapshots, the kernel bench, the
                 cycle drive

@@ -157,6 +157,11 @@ class ColumnStore:
         self.j_has_pg = np.zeros(capJ, bool)
         self.j_shadow = np.zeros(capJ, bool)
         self.j_phase = np.full(capJ, -1, np.int8)   # PHASE_CODE, -1 = none
+        # the PodGroup's MinResources as an f32 row (the enqueue gate's
+        # input), kept at PodGroup ingest; j_has_minres tells an empty
+        # MinResources (budgeted, zero) from none (promoted unconditionally)
+        self.j_has_minres = np.zeros(capJ, bool)
+        self.j_minres = np.zeros((capJ, R), np.float32)
 
         # ---- node axis --------------------------------------------------
         self.nodes = _Axis()
@@ -339,6 +344,8 @@ class ColumnStore:
         self.j_has_pg[row] = False
         self.j_shadow[row] = False
         self.j_phase[row] = -1
+        self.j_has_minres[row] = False
+        self.j_minres[row] = 0.0
         # give the job private buffers (copies of its final state)
         job.allocated.vec = self.j_alloc[row].copy()
         job.total_request.vec = self.j_total[row].copy()
@@ -350,11 +357,29 @@ class ColumnStore:
         self.job_by_row[row] = None
         self.jobs.free(row)
 
+    def sync_job_minres(self, job) -> None:
+        """The job's MinResources row from its PodGroup (at PodGroup add,
+        update and delete).  ``is None``, not truthiness: an empty dict is
+        a budgeted zero request (enqueue.go:102-105)."""
+        row = job._row
+        if row < 0 or job._cols is not self:
+            return
+        mr = job.pod_group.min_resources if job.pod_group is not None else None
+        self.j_has_minres[row] = mr is not None
+        self.j_minres[row] = self._minres_vec(mr)
+
+    def _minres_vec(self, mr) -> np.ndarray:
+        vec = np.zeros(self.R, np.float32)
+        for name, v in (mr or {}).items():
+            if name in self.spec:
+                vec[self.spec.index(name)] = float(v)
+        return vec
+
     def _grow_jobs(self) -> None:
         cap = self.jobs.grown_cap()
         for name in ("j_alloc", "j_total", "j_pend", "j_counts", "j_min",
                      "j_queue", "j_prio", "j_creation", "j_sess", "j_sched",
-                     "j_has_pg", "j_shadow"):
+                     "j_has_pg", "j_shadow", "j_has_minres", "j_minres"):
             setattr(self, name, _grow(getattr(self, name), cap))
         j_phase = np.full(cap, -1, np.int8)
         j_phase[: self.j_phase.shape[0]] = self.j_phase
@@ -585,6 +610,12 @@ class ColumnStore:
     def has_schedulable_pending(self) -> bool:
         return bool(np.any(self.schedulable_pending_mask()))
 
+    def has_running_victims(self) -> bool:
+        """Any live task Running on a node — without one the eviction solve
+        has no victim and can make no claim."""
+        return bool(np.any((self.t_status == int(TaskStatus.RUNNING))
+                           & self.t_valid & (self.t_node >= 0)))
+
     def excluded_node_rows(self, ssn) -> List[int]:
         """Rows of the session's excluded nodes (pressure gates)."""
         if not ssn.session_excluded_nodes:
@@ -763,6 +794,10 @@ class ColumnStore:
                 errs.append(f"job {uid} pending mismatch")
             if not np.allclose(self.j_total[row], job.total_request.vec):
                 errs.append(f"job {uid} total mismatch")
+            mr = job.pod_group.min_resources if job.pod_group is not None else None
+            if (bool(self.j_has_minres[row]) != (mr is not None)
+                    or not np.array_equal(self.j_minres[row], self._minres_vec(mr))):
+                errs.append(f"job {uid} min_resources row mismatch")
             for s in TaskStatus:
                 want = len(job.task_status_index.get(s, {}))
                 got = int(self.j_counts[row, int(s)])

@@ -183,6 +183,11 @@ class NodeInfo:
                     self.used.sub_(r)
         self.tasks.pop(key, None)
 
+    def update_task(self, task: TaskInfo) -> None:
+        """Re-account a task under its current status (node_info.go:225-233)."""
+        self.remove_task(task)
+        self.add_task(task)
+
     def bulk_register_tasks(self, alloc_tasks, pipe_tasks) -> None:
         """Task-dict / ``_acct`` registration only, for the columnar
         allocate replay: the ledger algebra was already applied to this

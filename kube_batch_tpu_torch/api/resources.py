@@ -163,6 +163,10 @@ class Resource:
         np.maximum(self._vec, 0.0, out=self._vec)
         return self
 
+    def multi(self, ratio: float) -> "Resource":
+        """Every dimension scaled by ``ratio`` (resource_info.go:193-202)."""
+        return Resource(self._vec * ratio, self.spec)
+
     def set_max_(self, other: "Resource") -> "Resource":
         """Elementwise max in place (resource_info.go:205-221)."""
         self._check(other)

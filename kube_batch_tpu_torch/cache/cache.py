@@ -2,10 +2,11 @@
 
 Mirrors ``kube_batch_tpu/cache/cache.py`` (the reference's cache.go:71-736
 and event_handlers.go): an in-memory image of pods, nodes, PodGroups,
-queues and priority classes, fed by event-handler calls, with bind egress
-through a pluggable Binder seam and the close-time job-status pass.  The
-cache owns the persistent ``ColumnStore`` (``api/columns.py``); every
-ingest handler binds or frees its rows.
+queues and priority classes, fed by event-handler calls, with bind and
+evict egress through pluggable Binder and Evictor seams and the
+close-time job-status pass.  The cache owns the persistent
+``ColumnStore`` (``api/columns.py``); every ingest handler binds or frees
+its rows.
 
 While a scheduling cycle holds the exclusive session gate
 (``begin_exclusive_session``), ingest is deferred and applied in order at
@@ -15,9 +16,10 @@ snapshot has, without a deep clone.
 What the JAX package has and this port does not (each is later work in
 ROADMAP.md): the async binder pool (binds run inline here, which leaves
 the state ``flush_binds`` leaves), the failed-write resync queue and
-repair loop, staged ingest and the dirty tracker behind the delta session
-open, PodDisruptionBudgets, evictions (and the Evictor seam), the volume ledger (the fake binder
-seam stays), and the status-write breaker.  The cache starts no thread.
+repair loop (a failed bind or evict is logged and left for the pod's next
+update or delete), staged ingest and the dirty tracker behind the delta
+session open, PodDisruptionBudgets, the volume ledger (the fake binder
+seam stays), and the egress breakers.  The cache starts no thread.
 """
 
 from __future__ import annotations
@@ -43,7 +45,12 @@ from kube_batch_tpu_torch.api.types import (
     TaskStatus,
     queue_phase_counts,
 )
-from kube_batch_tpu_torch.cache.fake import FakeBinder, FakeStatusUpdater, FakeVolumeBinder
+from kube_batch_tpu_torch.cache.fake import (
+    FakeBinder,
+    FakeEvictor,
+    FakeStatusUpdater,
+    FakeVolumeBinder,
+)
 from kube_batch_tpu_torch.utils.assertions import graft_assert
 
 logger = logging.getLogger("kube_batch_tpu_torch")
@@ -73,6 +80,7 @@ class SchedulerCache:
         scheduler_name: str = "volcano",
         default_queue: str = "default",
         binder=None,
+        evictor=None,
         status_updater=None,
         volume_binder=None,
         resolve_priority: bool = True,
@@ -86,6 +94,7 @@ class SchedulerCache:
         # --priority-class toggle (options.go:30, consumed cache.go:352,378)
         self.resolve_priority = resolve_priority
         self.binder = binder if binder is not None else FakeBinder()
+        self.evictor = evictor if evictor is not None else FakeEvictor()
         self.status_updater = status_updater or FakeStatusUpdater()
         self.volume_binder = volume_binder or FakeVolumeBinder()
         # guards every mutation: ingest may come from another thread while
@@ -312,6 +321,7 @@ class SchedulerCache:
                 self.jobs[job_id] = job
                 self.columns.bind_job(job)
             job.set_pod_group(pg)
+            self.columns.sync_job_minres(job)
 
     def update_pod_group(self, pg: PodGroup) -> None:
         self.add_pod_group(pg)
@@ -323,6 +333,7 @@ class SchedulerCache:
             job = self.jobs.get(key)
             if job is not None:
                 job.pod_group = None
+                self.columns.sync_job_minres(job)
                 if not job.tasks and self.jobs.pop(key, None) is not None:
                     self.columns.free_job(job)
             self._status_next_write.pop(key, None)
@@ -435,6 +446,35 @@ class SchedulerCache:
             pod.node_name = hostname
         self.events.extend(("Scheduled", pod.key(), hostname)
                            for pod, hostname in pairs)
+
+    # ------------------------------------------------------------------
+    # egress: evict (cache.go:404-444)
+    # ------------------------------------------------------------------
+    def evict(self, task: TaskInfo, reason: str) -> None:
+        """Mark the task Releasing in the cache, then call the evictor.  In
+        an exclusive session the caller (Session / Statement) has already
+        moved this very task to Releasing and re-accounted its node;
+        charging it again here would count it twice.  A failed evict is
+        logged, like a failed bind: the task stays Releasing until its pod
+        is next updated or deleted."""
+        with self._lock:
+            if not self._session_active:
+                job = self.jobs.get(task.job)
+                own = job.tasks.get(task.key()) if job is not None else None
+                if own is not None:
+                    job.update_task_status(own, TaskStatus.RELEASING)
+                    node = self.nodes.get(own.node_name) if own.node_name else None
+                    if node is not None:
+                        node.update_task(own)
+            pod = self.pods.get(task.key())
+        if pod is None:
+            return
+        try:
+            self.evictor.evict(pod)
+        except Exception as e:  # noqa: BLE001 — the egress boundary
+            logger.error("evict of %s failed: %s", task.key(), e)
+            return
+        self.events.append(("Evict", task.key(), reason))
 
     # volume seams (cache.go:189-209; no-op fake by default)
     def allocate_volumes(self, task: TaskInfo, hostname: str) -> None:

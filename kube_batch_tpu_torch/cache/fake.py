@@ -25,6 +25,14 @@ class FakeBinder:
         self.channel.extend(keys)
 
 
+class FakeEvictor:
+    def __init__(self):
+        self.evicts: List[str] = []  # "ns/name", in eviction order
+
+    def evict(self, pod: Pod) -> None:
+        self.evicts.append(f"{pod.namespace}/{pod.name}")
+
+
 class FakeStatusUpdater:
     def __init__(self):
         self.pod_conditions: List[tuple] = []

@@ -22,6 +22,11 @@ class Binder(Protocol):
         """Place the pod; raise to signal failure."""
 
 
+class Evictor(Protocol):
+    def evict(self, pod: Pod) -> None:
+        """Delete or evict the pod; raise to signal failure."""
+
+
 class StatusUpdater(Protocol):
     def update_pod_condition(self, pod: Pod, condition: dict) -> None: ...
 

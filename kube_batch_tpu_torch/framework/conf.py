@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 from typing import List, Optional, Tuple
 
@@ -219,10 +220,9 @@ def parse_scheduler_conf(text_or_dict) -> SchedulerConfiguration:
     return SchedulerConfiguration(actions=actions, tiers=tiers)
 
 
-#: the shipped tier list (config/kube-batch-tpu-conf.yaml) with the one
-#: action the port has
+#: the built-in fallback conf, the JAX package's (pkg/scheduler/util.go:31-42)
 DEFAULT_CONF = """
-actions: "allocate"
+actions: "allocate, backfill"
 tiers:
 - plugins:
   - name: priority
@@ -233,16 +233,19 @@ tiers:
   - name: predicates
   - name: proportion
   - name: nodeorder
-    arguments:
-      leastrequested.weight: "1"
-      balancedresource.weight: "1"
-      nodeaffinity.weight: "1"
-      binpack.weight: "0"
 """
 
 
 def default_configuration() -> SchedulerConfiguration:
     return parse_scheduler_conf(DEFAULT_CONF)
+
+
+def shipped_conf_path() -> str:
+    """Absolute path of the shipped five-action conf
+    (``config/kube-batch-tpu-conf.yaml`` at the repository root)."""
+    return os.path.join(
+        os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+        "config", "kube-batch-tpu-conf.yaml")
 
 
 def load_scheduler_conf(path: Optional[str]) -> SchedulerConfiguration:

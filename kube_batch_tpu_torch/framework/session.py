@@ -4,15 +4,16 @@ session_plugins.go, statement.go, framework.go).
 Mirrors ``kube_batch_tpu/framework/session.py`` in its exclusive form: the
 session takes the cache's own objects for the cycle (the cache defers
 ingest until close), the tier-configured plugins register their callbacks,
-and the mutation verbs (Allocate / Pipeline) feed the binder.  The hot
-allocate path does not use the per-task verbs: it solves on the device and
-replays the assignment (``actions/allocate.py``); the verbs serve the
-replay's per-task Statement path.
+and the mutation verbs (Allocate / Pipeline / Evict) feed the binder and
+the evictor.  The hot allocate path does not use the per-task verbs: it
+solves on the device and replays the assignment (``actions/allocate.py``);
+the verbs serve the replay's per-task Statement path, backfill, reclaim
+and preempt.
 
 Not ported: isolated (deep-cloned) sessions for what-ifs, the delta open
 and close against the previous cycle (this open rescans every job, as the
-JAX package does with ``cache.delta_enabled = False``), the eviction verbs,
-the tracer and metrics.
+JAX package does with ``cache.delta_enabled = False``, so there is no
+fit-state bookkeeping for it either), the tracer and metrics.
 """
 
 from __future__ import annotations
@@ -150,6 +151,10 @@ class Session:
         self.gate_dropped_jobs: List[JobInfo] = []
         # jobs whose placements the allocate replay discarded host-side
         self.host_discards = 0
+        # the configured action names in order, set by the scheduler loop;
+        # None when actions are driven directly (reclaim's idle-fit gate
+        # then fails closed)
+        self.action_names: Optional[List[str]] = None
 
     def drop_job(self, uid: str) -> None:
         del self.jobs[uid]
@@ -202,12 +207,30 @@ class Session:
     def plugin_enabled(self, name: str) -> bool:
         return any(opt.name == name for tier in self.tiers for opt in tier.plugins)
 
+    def conf_flag(self, key: str, default: bool = False) -> bool:
+        """A boolean argument searched across every tier's plugin arguments
+        (arguments.go:26-66): the conf surface of action-level switches
+        (``reclaim.referenceExact``, ``preempt.referenceExact``,
+        ``backfill.realRequests``)."""
+        for tier in self.tiers:
+            for opt in tier.plugins:
+                v = opt.arguments.get(key)
+                if v is not None:
+                    return str(v).strip().lower() in ("1", "true", "yes")
+        return default
+
+    def ordered_enabled_plugins(self, kind: str) -> List[str]:
+        """Names of plugins with an enabled fn of ``kind``, in tiered
+        dispatch order — the significance order of enqueue's columnar
+        ordering keys."""
+        fns = self._fns.get(kind, {})
+        return [opt.name for tier in self.tiers for opt in tier.plugins
+                if opt.name in fns and self._enabled(kind, opt)]
+
     def enabled_plugin_names(self, kind: str) -> set:
         """Names of plugins with an enabled fn of ``kind`` — lets the allocate
         replay prove the gang arithmetic is the only JobReady veto."""
-        fns = self._fns.get(kind, {})
-        return {opt.name for tier in self.tiers for opt in tier.plugins
-                if opt.name in fns and self._enabled(kind, opt)}
+        return set(self.ordered_enabled_plugins(kind))
 
     # ---- tiered dispatch ------------------------------------------------
     def _order(self, kind: str, l, r, l_info: Tuple, r_info: Tuple) -> bool:
@@ -229,6 +252,16 @@ class Session:
     def task_order_fn(self, l: TaskInfo, r: TaskInfo) -> bool:
         return self._order(TASK_ORDER, l, r, (l.pod.creation_index, l.uid),
                            (r.pod.creation_index, r.uid))
+
+    def task_order_plugin_verdict(self, l: TaskInfo, r: TaskInfo) -> int:
+        """The tiered task-order verdict alone (< 0: ``l`` first, 0: no
+        plugin voted), without the creation fallback — preempt's phase-2
+        gate tells "a plugin prefers l" from a mere tie-break."""
+        for fn in self._iter_fns(TASK_ORDER):
+            v = fn(l, r)
+            if v != 0:
+                return v
+        return 0
 
     def _veto(self, kind: str, obj) -> bool:
         """Every enabled plugin must pass (session_plugins.go:202-220)."""
@@ -340,9 +373,15 @@ class Session:
     def dispatch(self, task: TaskInfo) -> None:
         self.cache.bind_volumes(task)
         self.cache.bind(task, task.node_name)
-        job = self.jobs.get(task.job)
-        if job is not None:
-            job.update_task_status(task, TaskStatus.BINDING)
+        _mark_binding(self, task)
+
+    def evict(self, task: TaskInfo, reason: str) -> None:
+        """Evict at once, outside any Statement (reclaim, reclaim.go:166-179):
+        the evictor is called, the task turns Releasing on its job and
+        node, and the deallocate events fire."""
+        self.cache.evict(task, reason)
+        _mark_releasing(self, task)
+        self._fire(False, task)
 
     def statement(self) -> "Statement":
         return Statement(self)
@@ -363,12 +402,19 @@ class Session:
 
 class Statement:
     """All-or-nothing op log (statement.go:29-337): the verbs mutate session
-    state at once and log an op; commit dispatches the allocations to the
-    binder, discard undoes in reverse."""
+    state at once and log an op; commit sends the evictions and allocations
+    out in order, discard undoes in reverse."""
 
     def __init__(self, ssn: Session):
         self.ssn = ssn
         self.operations: List[Tuple[str, tuple]] = []
+
+    def evict(self, task: TaskInfo, reason: str) -> None:
+        """Releasing in the session now; the evictor is called at commit."""
+        ssn = self.ssn
+        _mark_releasing(ssn, task)
+        ssn._fire(False, task)
+        self.operations.append(("evict", (task, reason)))
 
     def pipeline(self, task: TaskInfo, hostname: str) -> None:
         ssn = self.ssn
@@ -386,21 +432,41 @@ class Statement:
         self.operations.append(("allocate", (task, hostname)))
 
     def commit(self) -> None:
-        """Bind every allocation in one batch; a pipeline op is session-only
-        state and needs nothing here."""
-        allocs = [args for name, args in self.operations if name == "allocate"]
-        if allocs:
-            for task, _ in allocs:
-                self.ssn.cache.bind_volumes(task)
-            self.ssn.cache.bulk_bind([(task, task.node_name) for task, _ in allocs])
-            for task, _ in allocs:
-                job = self.ssn.jobs.get(task.job)
-                if job is not None:
-                    job.update_task_status(task, TaskStatus.BINDING)
+        """Send the operations out: without evictions every allocation
+        binds in one batch; with them, evictions and binds go out in
+        order.  A pipeline op is session-only state and needs nothing."""
+        ssn = self.ssn
+        if not any(name == "evict" for name, _ in self.operations):
+            allocs = [args for name, args in self.operations if name == "allocate"]
+            if allocs:
+                for task, _ in allocs:
+                    ssn.cache.bind_volumes(task)
+                ssn.cache.bulk_bind([(task, task.node_name) for task, _ in allocs])
+                for task, _ in allocs:
+                    _mark_binding(ssn, task)
+            self.operations = []
+            return
+        for name, (task, arg) in self.operations:
+            if name == "evict":
+                ssn.cache.evict(task, arg)
+            elif name == "allocate":
+                ssn.cache.bind_volumes(task)
+                ssn.cache.bind(task, task.node_name)
+                _mark_binding(ssn, task)
         self.operations = []
 
     def discard(self) -> None:
         for name, (task, _) in reversed(self.operations):
+            if name == "evict":
+                # unevict: Running again on its job and node
+                job = self.ssn.jobs.get(task.job)
+                if job is not None:
+                    job.update_task_status(task, TaskStatus.RUNNING)
+                node = self.ssn.nodes.get(task.node_name)
+                if node is not None:
+                    node.update_task(task)
+                self.ssn._fire(True, task)
+                continue
             # an allocate frees its volume reservation; a pipeline held none
             _undo_placement(self.ssn, task, release_volumes=(name == "allocate"))
             self.ssn._fire(False, task)
@@ -466,6 +532,22 @@ def open_session(cache, tiers: List[Tier], device=None) -> Session:
         cache.end_exclusive_session()
         raise
     return ssn
+
+
+def _mark_releasing(ssn: Session, task: TaskInfo) -> None:
+    """Releasing on the task's job and re-accounted on its node."""
+    job = ssn.jobs.get(task.job)
+    if job is not None:
+        job.update_task_status(task, TaskStatus.RELEASING)
+    node = ssn.nodes.get(task.node_name)
+    if node is not None:
+        node.update_task(task)
+
+
+def _mark_binding(ssn: Session, task: TaskInfo) -> None:
+    job = ssn.jobs.get(task.job)
+    if job is not None:
+        job.update_task_status(task, TaskStatus.BINDING)
 
 
 def _undo_placement(ssn: Session, task: TaskInfo, release_volumes: bool) -> None:

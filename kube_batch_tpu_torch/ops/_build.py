@@ -10,7 +10,7 @@ plain C interface, loaded with ctypes:
 
 into ``kube_batch_tpu_torch/build/``.  ``--use_fast_math`` is never
 passed: it would fold K2's ``x + 0.0f`` (the -0.0 canonicalisation) and
-relax the IEEE compares both kernels rely on.  The library is rebuilt
+relax the IEEE compares the kernels rely on.  The library is rebuilt
 when the hash of the sources and flags changes; a failed build raises
 with nvcc's output.
 """
@@ -110,7 +110,8 @@ def build(force: bool = False) -> BuildInfo:
 
 def _kernel_name(mangled: str) -> str:
     """``name<args>`` of a mangled kernel in a namespace whose template
-    arguments are integers; the mangled name itself if it does not read so."""
+    arguments are integers, ``name`` of one with no template arguments; the
+    mangled name itself if it does not read so."""
     if not mangled.startswith("_ZN"):
         return mangled
     i, name = 3, None
@@ -121,6 +122,8 @@ def _kernel_name(mangled: str) -> str:
         name = mangled[i:i + n]
         i += n
     args = re.match(r"I((?:Li-?\d+E)+)E", mangled[i:])
+    if name is not None and args is None and mangled[i:i + 1] == "E":
+        return name
     if name is None or args is None:
         return mangled
     values = re.findall(r"Li(-?\d+)E", args.group(1))
@@ -155,6 +158,8 @@ def load_library() -> ctypes.CDLL:
     lib.kbt_masked_best_node.restype = I
     lib.kbt_masked_topk_blocks.argtypes = [P] * 6 + [I] * 4 + [P] * 4 + [P]
     lib.kbt_masked_topk_blocks.restype = I
+    lib.kbt_enqueue_gate.argtypes = [P] * 4 + [I] * 2 + [P] * 2
+    lib.kbt_enqueue_gate.restype = I
     lib.kbt_error_string.argtypes = [I]
     lib.kbt_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,4 +1,5 @@
-"""The repo's two TPU kernels, written by hand in CUDA for Hopper.
+"""The repo's two TPU kernels, written by hand in CUDA for Hopper, and the
+launch bookkeeping every kernel wrapper of the port shares.
 
 Both replace Pallas kernels of ``kube_batch_tpu/ops/pallas_kernels.py``:
 
@@ -10,7 +11,8 @@ Both replace Pallas kernels of ``kube_batch_tpu/ops/pallas_kernels.py``:
 
 Each wrapper takes its plain PyTorch version (``*_plain``, beside it) for a
 tensor on the CPU, and only then; for a CUDA tensor it launches the kernel
-or raises.  Each launch adds one to ``launches[name]``.  The tie hash and
+or raises.  Each launch adds one to ``launches[name]`` (the enqueue gate,
+``ops/admission.py``, counts here too).  The tie hash and
 the f32 sort key live here, where both the kernels' plain versions and the
 solve (``ops/assignment.py``) read them.
 """
@@ -33,7 +35,8 @@ _H2 = 0x85EBCA77 - (1 << 32)
 _H3 = 0xCA87C3EB - (1 << 32)
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
-launches = {"masked_best_node_raw": 0, "masked_topk_blocks": 0}
+launches = {"masked_best_node_raw": 0, "masked_topk_blocks": 0,
+            "enqueue_gate": 0}
 
 
 def reset_launches() -> None:

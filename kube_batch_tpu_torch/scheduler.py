@@ -57,6 +57,9 @@ class Scheduler:
         cycle: Dict[str, float] = {}
         t0 = time.perf_counter()
         ssn = open_session(self.cache, self.conf.tiers, self.device)
+        # the configured pipeline, for actions whose behaviour depends on
+        # what runs after them (reclaim's idle-fit claimant gate)
+        ssn.action_names = [a.name for a in self.actions]
         t1 = time.perf_counter()
         cycle["open"] = (t1 - t0) * 1e3
         try:

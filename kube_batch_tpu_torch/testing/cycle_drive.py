@@ -3,33 +3,52 @@
     python -m kube_batch_tpu_torch.testing.cycle_drive [--tasks 50000]
         [--nodes 5000] [--arrivals 5000] [--host-ports-frac 0.0]
         [--device cuda|cpu] [--profile]
+    python -m kube_batch_tpu_torch.testing.cycle_drive --overcommit
+        [--running 40000] [--pending 20000] [--nodes 5000] [--device ...]
 
-Builds ``synthetic_cluster(tasks, nodes, gang_size=4, n_queues=3)`` through
-the port's cache handlers (timed apart as ingest), then runs three cycles
-of ``Scheduler.run_once`` with the shipped tier list and ``actions:
-"allocate"``:
+Both drives run three cycles of ``Scheduler.run_once`` under the shipped
+five-action conf (``enqueue, reclaim, allocate, backfill, preempt``,
+``config/kube-batch-tpu-conf.yaml``).  Before every cycle but the first a
+kubelet pass deletes the pods the last cycle evicted and starts the bound
+pods Running.
+
+The headline drive (:func:`drive`) builds ``synthetic_cluster(tasks,
+nodes, gang_size=4, n_queues=3)`` through the port's cache handlers (timed
+apart as ingest):
 
 1. every pod pending — the full program (K1 once per round);
-2. after a kubelet pass (bound pods start Running) and ``arrivals`` new
-   pending pods in gangs of 4 — the compacted program when they fit the
-   task capacity's pending bucket (K2 and the table rounds);
-3. after a second kubelet pass, with nothing pending — the idle path.
-   The bidding rounds are capped (6 × 3), so cycle 2 may leave arrivals
-   unplaced; their PodGroups turn Pending, which allocate skips until an
-   enqueue action (not ported yet) promotes them, and the second pass
-   deletes those jobs as a user cancels jobs that did not start.
+2. ``arrivals`` new pending pods in gangs of 4 whose PodGroups carry their
+   summed requests as MinResources, as Volcano's job controller sets them
+   — the compacted program when they fit the pending bucket (K2).  The
+   bidding rounds are capped (6 × 3), so part of them stays unplaced, and
+   their PodGroups turn Pending;
+3. enqueue promotes those PodGroups through the admission gate (its
+   kernel) and allocate retries them.
 
-After each cycle it checks the column store against the object model,
-every node's ``idle ≥ −quanta`` and ``used ≤ allocatable + quanta``, and
-that no pod was bound twice, and it records the cycle's stage times, kernel
-launches, (on the card) host syncs, and what stayed unplaced and why.  A
-cycle is timed with the cyclic garbage collector paused after a full
-collection, as the JAX package's ``bench.py`` times its cycles.  With
-``--profile`` each cycle runs under ``torch.profiler`` instead of the sync
-count, and its record adds the device's busy time and top kernels (the
-profiler slows the host several times over, so take wall and stage times
-from a run without it).  Prints one JSON line; any failed check raises.
-``device=None`` means CUDA.
+The overcommit drive (:func:`drive_overcommit`) builds
+``synthetic_overcommit_cluster(running, pending, nodes, gang_size=4)``:
+queue q0 (weight 1) fills every node's cpu and queue q1 (weight 3) waits.
+Cycle 1: reclaim evicts q0 pods and pipelines q1's claimants; allocate,
+backfill and preempt run.  Cycle 2: with the evicted pods deleted, the
+claimants bind.  Cycle 3: one more cycle.
+
+After each cycle the drive checks the column store against the object
+model, every node's ``idle ≥ −quanta`` and ``used ≤ allocatable +
+quanta``, that no pod was bound twice, and the evictions: every evicted
+pod is a victim of a claim that reclaim or preempt carried out, the
+victims cover their claimant's request, reclaim's victims are in another
+queue than their claimant, and no gang was evicted below its
+MinAvailable.  It records per cycle the stage times (open, each action,
+close), the allocate phases, the reclaim and preempt solves' rounds and
+ms, binds, evictions, pipelined claimants, kernel launches, (on the card)
+host syncs, and what stayed unplaced and why.  A cycle is timed with the
+cyclic garbage collector paused after a full collection, as the JAX
+package's ``bench.py`` times its cycles.  With ``--profile`` each cycle
+runs under ``torch.profiler`` instead of the sync count, and its record
+adds the device's busy time and top kernels (the profiler slows the host
+several times over, so take wall and stage times from a run without it).
+Prints one JSON line; any failed check raises.  ``device=None`` means
+CUDA.
 """
 
 from __future__ import annotations
@@ -41,17 +60,22 @@ import gc
 import json
 import time
 import warnings
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 import numpy as np
 import torch
 
 from kube_batch_tpu_torch.api.pod import GROUP_NAME_ANNOTATION, Pod, PodGroup
 from kube_batch_tpu_torch.api.types import PodGroupPhase, PodPhase, TaskStatus
-from kube_batch_tpu_torch.framework.conf import default_configuration
+from kube_batch_tpu_torch.framework.conf import load_scheduler_conf, shipped_conf_path
 from kube_batch_tpu_torch.ops import kernels
 from kube_batch_tpu_torch.scheduler import Scheduler
-from kube_batch_tpu_torch.testing.synthetic import CPU_CHOICES, MEM_CHOICES, synthetic_cluster
+from kube_batch_tpu_torch.testing.synthetic import (
+    CPU_CHOICES,
+    MEM_CHOICES,
+    synthetic_cluster,
+    synthetic_overcommit_cluster,
+)
 
 GANG = 4
 N_QUEUES = 3
@@ -112,83 +136,108 @@ def node_invariants(cache) -> Dict[str, int]:
     }
 
 
-def kubelet_start_bound(cache) -> int:
-    """Every bound pod that is still Pending starts Running."""
+def eviction_checks(cache, sched, new_evicts: List[str]) -> Dict[str, int]:
+    """Every pod evicted this cycle is a victim of a claim reclaim or
+    preempt carried out; the victims cover their claimant's InitResreq;
+    reclaim's victims sit in another queue than their claimant; no gang
+    (MinAvailable > 1) dropped below MinAvailable through eviction.
+    Raises on a violation; returns the counts checked."""
+    claims = []
+    for action in sched.actions:
+        for claimant, _node, victims in getattr(action, "last_evictions", ()):
+            claims.append((action.name, claimant, victims))
+    victim_keys = [v.key() for _, _, victims in claims for v in victims]
+    if sorted(victim_keys) != sorted(new_evicts):
+        fail(f"{len(new_evicts)} pods evicted but {len(victim_keys)} victims of "
+             "carried-out claims")
+    spec = cache.spec
+    for name, claimant, victims in claims:
+        got = spec.empty()
+        for v in victims:
+            got.add_(v.resreq)
+        if not claimant.init_resreq.less_equal(got):
+            fail(f"{name}: victims of {claimant.key()} do not cover its request")
+        if name == "reclaim":
+            queue = cache.jobs[claimant.job].queue
+            if any(cache.jobs[v.job].queue == queue for v in victims):
+                fail(f"reclaim evicted a victim of {claimant.key()}'s own queue")
+    short = [uid for uid in {v.job for _, _, victims in claims for v in victims}
+             if cache.jobs[uid].min_available > 1
+             and cache.jobs[uid].ready_task_num < cache.jobs[uid].min_available]
+    if short:
+        fail(f"eviction left gangs below MinAvailable: {short[:3]}")
+    return {"claims": len(claims), "victims": len(victim_keys)}
+
+
+def kubelet(cache, evicted: List[str]) -> Dict[str, int]:
+    """Delete the pods evicted since the last pass, then start every bound
+    pod that is still Pending."""
+    deleted = 0
+    for key in evicted:
+        pod = cache.pods.get(key)
+        if pod is not None:
+            cache.delete_pod(pod)
+            deleted += 1
     started = [dataclasses.replace(p, phase=PodPhase.RUNNING)
                for _k, p in sorted(cache.pods.items())
                if p.phase == PodPhase.PENDING and p.node_name is not None]
     for pod in started:
         cache.update_pod(pod)
-    return len(started)
+    return {"evicted_deleted": deleted, "started_running": len(started)}
 
 
 def add_arrivals(cache, n_pods: int, seed: int, tag: str) -> None:
     """``n_pods`` pending pods in new gangs of 4 over the cluster's
-    queues, requests drawn like ``synthetic_cluster``'s."""
+    queues, requests drawn like ``synthetic_cluster``'s; each PodGroup
+    carries its pods' summed requests as MinResources."""
     rng = np.random.default_rng(seed)
     queues = sorted(cache.queues)
+    cpu = rng.choice(CPU_CHOICES, n_pods)
+    mem = rng.choice(MEM_CHOICES, n_pods)
     n_jobs = -(-n_pods // GANG)
     for j in range(n_jobs):
+        lo, hi = j * GANG, min((j + 1) * GANG, n_pods)
         cache.add_pod_group(PodGroup(
-            name=f"{tag}{j}", namespace="bench",
-            min_member=min(GANG, n_pods - j * GANG),
-            queue=queues[j % len(queues)], creation_index=10**6 + j))
+            name=f"{tag}{j}", namespace="bench", min_member=hi - lo,
+            queue=queues[j % len(queues)], creation_index=10**6 + j,
+            min_resources={"cpu": float(cpu[lo:hi].sum()),
+                           "memory": float(mem[lo:hi].sum())}))
     for i in range(n_pods):
         cache.add_pod(Pod(
             name=f"{tag}-t{i}", namespace="bench",
-            requests={"cpu": float(rng.choice(CPU_CHOICES)),
-                      "memory": float(rng.choice(MEM_CHOICES))},
+            requests={"cpu": float(cpu[i]), "memory": float(mem[i])},
             annotations={GROUP_NAME_ANNOTATION: f"{tag}{i // GANG}"},
             phase=PodPhase.PENDING, creation_index=10**6 + i))
 
 
-def cancel_unplaced(cache) -> int:
-    """Delete every job that still has Pending pods, pods and PodGroup;
-    returns the number of pods deleted."""
-    doomed = [job for job in cache.jobs.values()
-              if job.pod_group is not None and job.task_status_index.get(TaskStatus.PENDING)]
-    n = 0
-    for job in doomed:
-        for task in list(job.tasks.values()):
-            cache.delete_pod(task.pod)
-            n += 1
-        cache.delete_pod_group(job.uid)
-    return n
-
-
 def observed(cache) -> dict:
-    """Binds and every task's (status, node): what two runs must share."""
+    """Binds, evictions and every task's (status, node): what two runs
+    must share."""
     return {
         "binds": dict(cache.binder.binds),
+        "evicts": list(cache.evictor.evicts),
         "tasks": {k: (int(t.status), t.node_name)
                   for job in cache.jobs.values() for k, t in job.tasks.items()},
     }
 
 
-def drive(n_tasks: int, n_nodes: int, arrivals: int, host_ports_frac: float = 0.0,
-          seed: int = 0, device=None, keep_states: bool = False,
-          profile: bool = False) -> dict:
-    """The three-cycle drive (module docstring).  Returns the report; with
-    ``keep_states`` it also carries each cycle's :func:`observed`, with
-    ``profile`` each cycle's :func:`device_profile`."""
-    t = time.perf_counter()
-    cache = synthetic_cluster(n_tasks, n_nodes, gang_size=GANG, n_queues=N_QUEUES,
-                              seed=seed, host_ports_frac=host_ports_frac)
-    ingest_s = time.perf_counter() - t
-    sched = Scheduler(cache, conf=default_configuration(), device=device)
-    action = sched.actions[0]
+def run_cycles(cache, device, churn: Callable[[int], dict], ingest_s: float,
+               keep_states: bool = False, profile: bool = False) -> dict:
+    """Three cycles of the shipped conf on ``cache``; ``churn(c)`` runs
+    before cycle ``c`` > 0 and returns what it did.  Returns the report."""
+    sched = Scheduler(cache, conf=load_scheduler_conf(shipped_conf_path()), device=device)
+    actions = {a.name: a for a in sched.actions}
+    allocate = actions["allocate"]
     cycles: List[dict] = []
     states: List[dict] = []
+    n_evicts = 0
     for c in range(3):
-        churn_s, started, cancelled = 0.0, 0, 0
+        t = time.perf_counter()
+        churned = kubelet(cache, cache.evictor.evicts[n_evicts:]) if c > 0 else {}
+        n_evicts = len(cache.evictor.evicts)
         if c > 0:
-            t = time.perf_counter()
-            started = kubelet_start_bound(cache)
-            if c == 1:
-                add_arrivals(cache, arrivals, seed + 1, "arrive")
-            else:
-                cancelled = cancel_unplaced(cache)
-            churn_s = time.perf_counter() - t
+            churned.update(churn(c))
+        churn_s = time.perf_counter() - t
         pending = int(cache.columns.schedulable_pending_mask().sum())
         binds_before = len(cache.binder.binds)
         kernels.reset_launches()
@@ -215,7 +264,9 @@ def drive(n_tasks: int, n_nodes: int, arrivals: int, host_ports_frac: float = 0.
         channel = cache.binder.channel
         if len(set(channel)) != len(channel):
             fail(f"cycle {c + 1}: a pod was bound twice")
-        topk = action.last_topk
+        new_evicts = cache.evictor.evicts[n_evicts:]
+        evict_check = eviction_checks(cache, sched, new_evicts)
+        topk = allocate.last_topk
         mode = ("idle" if pending == 0 else "compacted" if topk is not None else "full")
         gangs = sum(1 for j in cache.jobs.values()
                     if j.pod_group is not None and not j.pod_group.shadow
@@ -227,40 +278,87 @@ def drive(n_tasks: int, n_nodes: int, arrivals: int, host_ports_frac: float = 0.
                           for cond in j.pod_group.conditions
                           if cond.type == "Unschedulable"})
         cycles.append(dict(
-            cycle=c + 1, pending=pending, started_running=started,
-            cancelled_pods=cancelled, churn_s=churn_s, mode=mode, topk=topk, rounds=action.last_solve_rounds,
+            cycle=c + 1, pending=pending, **churned, churn_s=churn_s, mode=mode,
+            topk=topk, rounds=allocate.last_solve_rounds,
             new_binds=len(cache.binder.binds) - binds_before,
-            binds=len(cache.binder.binds), gangs_running=gangs,
+            binds=len(cache.binder.binds), new_evicts=len(new_evicts),
+            evicts=len(cache.evictor.evicts),
+            pipelined_claimants=actions["reclaim"].last_stats.get("pipelined", 0),
+            reclaim=dict(actions["reclaim"].last_stats),
+            preempt=dict(actions["preempt"].last_stats, committed=len(
+                actions["preempt"].last_evictions)),
+            enqueue=dict(path=actions["enqueue"].last_path,
+                         gate_rows=actions["enqueue"].last_gate_rows),
+            backfill=dict(actions["backfill"].last_placed),
+            eviction_checks=evict_check, gangs_running=gangs,
             unplaced=unplaced, unschedulable=reasons[:3],
-            fit_histogram=action.last_fit_histogram, fallback=action.last_fallback,
+            fit_histogram=allocate.last_fit_histogram, fallback=allocate.last_fallback,
             wall_ms=wall_ms, stages_ms=dict(sched.last_cycle_ms),
-            allocate_ms=dict(action.last_phase_ms), launches=launches,
+            allocate_ms=dict(allocate.last_phase_ms), launches=launches,
             syncs=seen[0] if sched.device.type == "cuda" and not profile else None,
             invariants=inv))
         if profile:
             cycles[-1].update(seen)
         if keep_states:
             states.append(observed(cache))
-    report = dict(tasks=n_tasks, nodes=n_nodes, arrivals=arrivals,
-                  host_ports_frac=host_ports_frac, device=str(sched.device),
-                  ingest_s=ingest_s, cycles=cycles)
+    report = dict(device=str(sched.device), ingest_s=ingest_s, cycles=cycles)
     if keep_states:
         report["states"] = states
     return report
 
 
+def drive(n_tasks: int, n_nodes: int, arrivals: int, host_ports_frac: float = 0.0,
+          seed: int = 0, device=None, keep_states: bool = False,
+          profile: bool = False) -> dict:
+    """The headline drive (module docstring).  Returns the report; with
+    ``keep_states`` it also carries each cycle's :func:`observed`, with
+    ``profile`` each cycle's :func:`device_profile`."""
+    t = time.perf_counter()
+    cache = synthetic_cluster(n_tasks, n_nodes, gang_size=GANG, n_queues=N_QUEUES,
+                              seed=seed, host_ports_frac=host_ports_frac)
+    ingest_s = time.perf_counter() - t
+
+    def churn(c: int) -> dict:
+        if c == 1:
+            add_arrivals(cache, arrivals, seed + 1, "arrive")
+        return {}
+
+    report = run_cycles(cache, device, churn, ingest_s, keep_states, profile)
+    return dict(tasks=n_tasks, nodes=n_nodes, arrivals=arrivals,
+                host_ports_frac=host_ports_frac, **report)
+
+
+def drive_overcommit(n_running: int, n_pending: int, n_nodes: int, seed: int = 0,
+                     device=None, keep_states: bool = False,
+                     profile: bool = False) -> dict:
+    """The overcommit drive (module docstring)."""
+    t = time.perf_counter()
+    cache = synthetic_overcommit_cluster(n_running=n_running, n_pending=n_pending,
+                                         n_nodes=n_nodes, gang_size=GANG, seed=seed)
+    ingest_s = time.perf_counter() - t
+    report = run_cycles(cache, device, lambda c: {}, ingest_s, keep_states, profile)
+    return dict(running=n_running, pending=n_pending, nodes=n_nodes, **report)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--overcommit", action="store_true")
     ap.add_argument("--tasks", type=int, default=50_000)
     ap.add_argument("--nodes", type=int, default=5_000)
     ap.add_argument("--arrivals", type=int, default=5_000)
     ap.add_argument("--host-ports-frac", type=float, default=0.0)
+    ap.add_argument("--running", type=int, default=40_000)
+    ap.add_argument("--pending", type=int, default=20_000)
     ap.add_argument("--device", default=None)
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
-    print(json.dumps(drive(args.tasks, args.nodes, args.arrivals,
-                           args.host_ports_frac, device=args.device,
-                           profile=args.profile)))
+    if args.overcommit:
+        out = drive_overcommit(args.running, args.pending, args.nodes,
+                               device=args.device, profile=args.profile)
+    else:
+        out = drive(args.tasks, args.nodes, args.arrivals, args.host_ports_frac,
+                    device=args.device, profile=args.profile)
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

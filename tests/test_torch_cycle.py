@@ -3,11 +3,13 @@
 The same cluster is built in a ``kube_batch_tpu`` cache and in a
 ``kube_batch_tpu_torch`` cache from one list of ingest events (the port's
 objects are field-for-field copies of the JAX package's), and both
-schedulers run three serial cycles of ``run_once`` with the shipped tier
-list and ``actions: "allocate"``.  Between cycles the same kubelet
-simulation feeds both: bound pods start Running, some running pods finish
-(deleted) or start terminating (Releasing), and new gangs arrive.  After
-every cycle the binds, every task's status and node, every PodGroup's
+schedulers run three serial cycles of ``run_once``, under the built-in
+default conf (``allocate, backfill``) and under the shipped five-action
+conf (``enqueue, reclaim, allocate, backfill, preempt``).  Between cycles
+the same kubelet simulation feeds both: evicted pods are deleted, bound
+pods start Running, some running pods finish (deleted) or start
+terminating (Releasing), and new gangs arrive.  After every cycle the
+binds, the evictions, every task's status and node, every PodGroup's
 phase, counts and conditions, the written pod conditions (the fit-error
 messages) and the queue statuses must be equal, and the port's column
 store must agree with its object model.  The JAX side runs at its
@@ -30,19 +32,26 @@ from kube_batch_tpu.api.pod import (
     Affinity,
     PodAffinityTerm,
     PodGroup,
+    PriorityClass,
     Queue,
     Taint,
     Toleration,
 )
 from kube_batch_tpu.api.resources import DEFAULT_SPEC as JAX_DEFAULT_SPEC
-from kube_batch_tpu.api.types import PodPhase
+from kube_batch_tpu.api.types import PodGroupPhase, PodPhase
 from kube_batch_tpu.cache.cache import SchedulerCache as JaxCache
+from kube_batch_tpu.framework.conf import load_scheduler_conf as jax_load_conf
 from kube_batch_tpu.framework.conf import parse_scheduler_conf as jax_parse_conf
 from kube_batch_tpu.scheduler import Scheduler as JaxScheduler
 from kube_batch_tpu.testing import synthetic as jax_synth
 from kube_batch_tpu_torch.api.resources import DEFAULT_SPEC
 from kube_batch_tpu_torch.cache.cache import SchedulerCache
-from kube_batch_tpu_torch.framework.conf import DEFAULT_CONF, parse_scheduler_conf
+from kube_batch_tpu_torch.framework.conf import (
+    DEFAULT_CONF,
+    load_scheduler_conf,
+    parse_scheduler_conf,
+    shipped_conf_path,
+)
 from kube_batch_tpu_torch.scheduler import Scheduler
 from kube_batch_tpu_torch.testing import synthetic as port_synth
 from fixtures import GiB, build_node, build_pod
@@ -151,6 +160,75 @@ def _gang_unmet():
     return _from_events(events)
 
 
+def _preempt():
+    """One queue's low-priority elastic jobs fill every node's cpu while
+    its high-priority gangs wait (preempt's work), and a heavier queue's
+    pending jobs starve (reclaim's)."""
+    events = [("add_queue", Queue(name="busy", weight=1)),
+              ("add_queue", Queue(name="starved", weight=3)),
+              ("add_priority_class", PriorityClass(name="high", value=100))]
+    for i in range(16):
+        events.append(("add_node", build_node(f"n{i}", cpu=8000, mem=32 * GiB)))
+    for j in range(32):
+        events.append(("add_pod_group", PodGroup(name=f"low{j}", namespace="ns",
+                                                 queue="busy", min_member=1)))
+        for k in range(2):
+            events.append(("add_pod", build_pod(
+                "ns", f"low{j}-{k}", f"n{(2 * j + k) % 16}", PodPhase.RUNNING,
+                {"cpu": 2000, "memory": 2 * GiB}, group_name=f"low{j}")))
+    for j in range(6):
+        events += _gang(f"high{j}", "busy", 2, {"cpu": 1000, "memory": GiB},
+                        priority=100)
+        events[-3] = ("add_pod_group", dataclasses.replace(events[-3][1],
+                                                           priority_class="high"))
+    for j in range(4):
+        events += _gang(f"starved{j}", "starved", 2, {"cpu": 2000, "memory": GiB})
+    return _from_events(events)
+
+
+def _minres():
+    """PodGroups created Pending with MinResources (as Volcano's job
+    controller creates them) over three queues, one with a capability,
+    against an overcommitted idle that admits only part of them."""
+    events = [("add_queue", Queue(name="q0", weight=1)),
+              ("add_queue", Queue(name="q1", weight=2, capability={"cpu": 20000})),
+              ("add_queue", Queue(name="q2", weight=1))]
+    for i in range(8):
+        events.append(("add_node", build_node(f"n{i}", cpu=8000, mem=16 * GiB)))
+    events.append(("add_pod_group", PodGroup(name="busy", namespace="ns", queue="q0",
+                                             min_member=1)))
+    for i in range(20):
+        events.append(("add_pod", build_pod("ns", f"busy-{i}", f"n{i % 8}", PodPhase.RUNNING,
+                                            {"cpu": 2000, "memory": 2 * GiB},
+                                            group_name="busy")))
+    for j in range(24):
+        cpu = float(500 * (1 + j % 4))
+        events += _gang(f"mr{j}", f"q{j % 3}", 3, {"cpu": cpu, "memory": GiB})
+        pg = events[-4][1]
+        events[-4] = ("add_pod_group", dataclasses.replace(
+            pg, phase=PodGroupPhase.PENDING,
+            min_resources={"cpu": 3 * cpu, "memory": 3.0 * GiB}))
+    return _from_events(events)
+
+
+def _best_effort():
+    """Nodes whose cpu is taken, pending pods with no requests (plain and in
+    a gang of two best-effort pods), and a gang whose second member can
+    never fit."""
+    events = [("add_queue", Queue(name="default", weight=1))]
+    for i in range(4):
+        events.append(("add_node", build_node(f"n{i}", cpu=1000, mem=4 * GiB)))
+        events.append(("add_pod", build_pod("ns", f"full-{i}", f"n{i}", PodPhase.RUNNING,
+                                            {"cpu": 1000, "memory": GiB})))
+    for i in range(5):
+        events.append(("add_pod", build_pod("ns", f"be-{i}", None, PodPhase.PENDING, {})))
+    events += _gang("begang", "default", 2, {})
+    events += _gang("unready", "default", 2, {})
+    events[-1] = ("add_pod", build_pod("ns", "unready-1", None, PodPhase.PENDING,
+                                       {"cpu": 64000, "memory": GiB}, group_name="unready"))
+    return _from_events(events)
+
+
 FIXTURES = {
     "homogeneous": lambda: _synthetic(n_tasks=256, n_nodes=48, n_queues=3, seed=0),
     "host_ports": lambda: _synthetic(n_tasks=384, n_nodes=160, n_queues=2, seed=1,
@@ -158,6 +236,17 @@ FIXTURES = {
     "overcommit": lambda: _overcommit(n_running=192, n_pending=96, n_nodes=48, seed=2),
     "constraints": _constraints,
     "gang_unmet": _gang_unmet,
+    "preempt": _preempt,
+    "minres": _minres,
+    "best_effort": _best_effort,
+}
+
+#: conf name → (JAX conf, port conf): the built-in default and the
+#: shipped five-action file
+CONFS = {
+    "default": lambda: (jax_parse_conf(DEFAULT_CONF), parse_scheduler_conf(DEFAULT_CONF)),
+    "shipped": lambda: (jax_load_conf(shipped_conf_path()),
+                        load_scheduler_conf(shipped_conf_path())),
 }
 
 
@@ -168,14 +257,16 @@ FIXTURES = {
 
 def kubelet(jcache, rng, cycle: int):
     """One round of cluster churn, decided on the JAX cache's state (the
-    two caches were just checked equal): bound pods start Running, one in
-    twenty running pods finishes and is deleted, one in seven starts
-    terminating,
-    and two jobs arrive: an elastic one (minMember 1, in the last queue,
-    whose members may pipeline onto terminating capacity) and a gang with fewer pods than its
-    minMember."""
-    events = []
+    two caches were just checked equal): evicted pods are deleted, bound
+    pods start Running, one in twenty running pods finishes and is deleted,
+    one in seven starts terminating, and two jobs arrive: an elastic one
+    (minMember 1, in the last queue, whose members may pipeline onto
+    terminating capacity) and a gang with fewer pods than its minMember."""
+    evicted = set(jcache.evictor.evicts)
+    events = [("delete_pod", jcache.pods[k]) for k in sorted(evicted) if k in jcache.pods]
     for key in sorted(jcache.pods):
+        if key in evicted:
+            continue
         pod = jcache.pods[key]
         if pod.phase == PodPhase.PENDING and pod.node_name is not None:
             events.append(("update_pod", dataclasses.replace(pod, phase=PodPhase.RUNNING)))
@@ -216,6 +307,7 @@ def observed(cache) -> dict:
             )
     return {
         "binds": dict(cache.binder.binds),
+        "evicts": list(cache.evictor.evicts),
         "tasks": tasks,
         "podgroups": groups,
         "pod_conditions": [(k, c["message"]) for k, c in cache.status_updater.pod_conditions],
@@ -233,34 +325,60 @@ def _assert_same(want: dict, got: dict, where: str) -> None:
         assert w == g, f"{where}: {field} differ"
 
 
+@pytest.mark.parametrize("conf", sorted(CONFS))
 @pytest.mark.parametrize("fixture", sorted(FIXTURES))
-def test_cycles_match_jax(fixture):
+def test_cycles_match_jax(fixture, conf):
     jcache, pcache = FIXTURES[fixture]()
-    jsched = JaxScheduler(jcache, conf=jax_parse_conf(DEFAULT_CONF))
-    psched = Scheduler(pcache, conf=parse_scheduler_conf(DEFAULT_CONF), device="cpu")
+    jconf, pconf = CONFS[conf]()
+    jsched = JaxScheduler(jcache, conf=jconf)
+    psched = Scheduler(pcache, conf=pconf, device="cpu")
+    actions = {a.name: a for a in psched.actions}
     rng = np.random.default_rng(7)
-    seen = {"binds": 0, "fit_histograms": 0, "pipelined": 0, "slow_jobs": 0}
+    seen = {"binds": 0, "fit_histograms": 0, "pipelined": 0, "slow_jobs": 0,
+            "evicts": 0, "reclaim_evicts": 0, "reclaim_pipelined": 0,
+            "preempt_claims": 0, "gate_rows": 0,
+            "best_effort": 0}
     for cycle in range(N_CYCLES):
         jsched.run_once()
         psched.run_once()
-        where = f"{fixture} cycle {cycle}"
+        where = f"{fixture} {conf} cycle {cycle}"
         _assert_same(observed(jcache), observed(pcache), where)
         assert pcache.columns.check_consistency(pcache) == [], where
-        action = psched.actions[0]
+        action = actions["allocate"]
         seen["binds"] = len(pcache.binder.binds)
+        seen["evicts"] = len(pcache.evictor.evicts)
         seen["fit_histograms"] += int(action.last_fit_histogram)
         seen["slow_jobs"] += action.last_fallback.get("slow_jobs", 0)
         # a pipelined placement records its node's fit shortfall
         seen["pipelined"] += sum(len(j.nodes_fit_delta) for j in pcache.jobs.values())
+        seen["best_effort"] += actions["backfill"].last_placed["best_effort"]
+        if conf == "shipped":
+            seen["reclaim_evicts"] += actions["reclaim"].last_stats.get("evicted", 0)
+            seen["reclaim_pipelined"] += actions["reclaim"].last_stats.get("pipelined", 0)
+            seen["preempt_claims"] += actions["preempt"].last_stats.get("claims", 0)
+            seen["gate_rows"] += actions["enqueue"].last_gate_rows
         apply(jcache, pcache, kubelet(jcache, rng, cycle))
     # each fixture exercises what it is for
     assert seen["binds"] > 0
     if fixture in ("overcommit", "constraints", "gang_unmet"):
         assert seen["fit_histograms"] > 0
     if fixture == "overcommit":
-        assert seen["pipelined"] > 0
+        # allocate pipelines onto terminating capacity; under the shipped
+        # conf reclaim's claimants take that capacity first
+        assert seen["pipelined" if conf == "default" else "reclaim_pipelined"] > 0
     if fixture in ("host_ports", "constraints"):
         assert seen["slow_jobs"] > 0
+    if fixture == "best_effort":
+        assert seen["best_effort"] > 0
+    if conf == "shipped" and fixture in ("overcommit", "preempt"):
+        assert seen["evicts"] > 0 and seen["reclaim_evicts"] > 0
+    if conf == "shipped" and fixture == "preempt":
+        assert seen["preempt_claims"] > 0
+    if conf == "shipped" and fixture == "minres":
+        assert seen["gate_rows"] > 0
+        phases = [j.pod_group.phase.value for uid, j in pcache.jobs.items()
+                  if uid.startswith("ns/mr")]
+        assert "Pending" in phases and len(set(phases)) > 1
     if fixture == "gang_unmet":
         conds = {uid: [c.reason for c in j.pod_group.conditions]
                  for uid, j in pcache.jobs.items() if j.pod_group is not None}
@@ -308,10 +426,10 @@ def test_failure_histograms_match_jax(fixture):
 
 
 def test_cycle_drive_on_the_cpu():
-    """chip_smoke's three-cycle drive, small and on the CPU: the full
-    program, then the compacted one once the arrivals fit the pending
-    bucket, then the idle path; every check inside the drive passes, and a
-    second run binds identically."""
+    """chip_smoke's three-cycle headline drive under the shipped conf,
+    small and on the CPU: the full program, then the compacted one once the
+    arrivals fit the pending bucket, then the idle path; every check inside
+    the drive passes, and a second run binds identically."""
     from kube_batch_tpu_torch.testing.cycle_drive import drive
 
     kw = dict(n_tasks=512, n_nodes=64, arrivals=64, host_ports_frac=0.1,
@@ -323,8 +441,28 @@ def test_cycle_drive_on_the_cpu():
     assert c1["fallback"]["promoted_ports_jobs"] > 0
     assert (c2["new_binds"], c2["gangs_running"]) == (64, 144)
     assert c3["new_binds"] == 0 and c3["allocate_ms"]["solve"] == 0.0
-    assert all(c["launches"] == {"masked_best_node_raw": 0, "masked_topk_blocks": 0}
-               for c in first["cycles"]), "a CPU cycle launched a CUDA kernel"
+    assert all(f"action:{a}" in c1["stages_ms"]
+               for a in ("enqueue", "reclaim", "allocate", "backfill", "preempt"))
+    assert not any(c["launches"][k] for c in first["cycles"] for k in c["launches"]), \
+        "a CPU cycle launched a CUDA kernel"
+    assert first["states"] == second["states"]
+
+
+def test_overcommit_drive_on_the_cpu():
+    """chip_smoke's overcommit drive, small and on the CPU: reclaim evicts
+    and pipelines in cycle 1 (every eviction check inside the drive
+    passes), the claimants bind in cycle 2 once the kubelet deleted the
+    victims, and a second run evicts and binds identically."""
+    from kube_batch_tpu_torch.testing.cycle_drive import drive_overcommit
+
+    kw = dict(n_running=512, n_pending=256, n_nodes=64, device="cpu", keep_states=True)
+    first, second = drive_overcommit(**kw), drive_overcommit(**kw)
+    c1, c2, c3 = first["cycles"]
+    assert c1["new_evicts"] > 0 and c1["pipelined_claimants"] > 0
+    assert c1["reclaim"]["rounds"] >= 1
+    assert c1["eviction_checks"]["victims"] == c1["new_evicts"]
+    assert c2["evicted_deleted"] == c1["new_evicts"]
+    assert c2["new_binds"] >= c1["pipelined_claimants"]
     assert first["states"] == second["states"]
 
 

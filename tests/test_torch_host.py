@@ -244,11 +244,21 @@ def test_conf_reader_matches_yaml(name):
 
 
 def test_default_conf_is_the_shipped_tiers_with_allocate():
-    shipped = jax_parse_conf(_CONFS["shipped"])
-    conf = default_configuration()
-    assert conf.actions == ["allocate"]
+    """The built-in default equals the JAX package's (``allocate,
+    backfill`` over the shipped tiers' plugins, without nodeorder's
+    arguments), and the shipped file is reachable by path."""
+    from kube_batch_tpu.framework.conf import default_configuration as jax_default
+    from kube_batch_tpu_torch.framework.conf import load_scheduler_conf, shipped_conf_path
+
+    conf, want = default_configuration(), jax_default()
+    assert conf.actions == want.actions == ["allocate", "backfill"]
     assert [dataclasses.asdict(t) for t in conf.tiers] == \
-        [dataclasses.asdict(t) for t in shipped.tiers]
+        [dataclasses.asdict(t) for t in want.tiers]
+    shipped = jax_parse_conf(_CONFS["shipped"])
+    assert [[o.name for o in t.plugins] for t in conf.tiers] == \
+        [[o.name for o in t.plugins] for t in shipped.tiers]
+    assert dataclasses.asdict(load_scheduler_conf(shipped_conf_path())) == \
+        dataclasses.asdict(shipped)
 
 
 def test_conf_reader_rejects_bad_indentation():
@@ -263,10 +273,15 @@ def test_conf_reader_rejects_bad_indentation():
 
 def test_unknown_action_raises_at_construction():
     cache = synthetic_cluster(8, 2)
-    for actions in ("enqueue, allocate", "allocate, backfill", "bogus"):
+    for actions in ("enqueue, bogus", "allocate, backfil", "bogus"):
         conf = parse_scheduler_conf(f'actions: "{actions}"\ntiers: []')
         with pytest.raises(KeyError):
             Scheduler(cache, conf=conf, device="cpu")
+    # every action of the shipped conf is known
+    conf = parse_scheduler_conf(
+        'actions: "enqueue, reclaim, allocate, backfill, preempt"\ntiers: []')
+    assert [a.name for a in Scheduler(cache, conf=conf, device="cpu").actions] == \
+        ["enqueue", "reclaim", "allocate", "backfill", "preempt"]
 
 
 def test_scheduler_needs_a_card_unless_asked_for_the_cpu(monkeypatch):

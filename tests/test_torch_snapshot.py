@@ -98,19 +98,33 @@ def test_config_from_fields_drops_use_pallas():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Importing every port module and running a CPU solve leaves no jax
-    and no kube_batch_tpu module loaded (kube_batch_tpu_torch itself
-    shares the prefix, so the match is exact on the package name)."""
+    """Importing every port module, running a CPU solve and a five-action
+    cycle under the shipped conf (reclaim evicting) leaves no jax and no
+    kube_batch_tpu module loaded (kube_batch_tpu_torch itself shares the
+    prefix, so the match is exact on the package name)."""
     code = textwrap.dedent("""
         import sys
         import kube_batch_tpu_torch.actions.allocate as A
         import kube_batch_tpu_torch.ops.kernels
         import kube_batch_tpu_torch.ops._build
+        import kube_batch_tpu_torch.testing.cycle_drive
+        import kube_batch_tpu_torch.testing.kernel_bench
+        from kube_batch_tpu_torch.framework.conf import (
+            load_scheduler_conf, shipped_conf_path)
         from kube_batch_tpu_torch.ops.assignment import AllocateConfig
-        from kube_batch_tpu_torch.testing.synthetic import synthetic_device_snapshot
+        from kube_batch_tpu_torch.scheduler import Scheduler
+        from kube_batch_tpu_torch.testing.synthetic import (
+            synthetic_device_snapshot, synthetic_overcommit_cluster)
         snap, meta = synthetic_device_snapshot(64, 8, device="cpu")
         res, mode, info = A.dispatch_allocate_solve(snap, AllocateConfig())
         assert len(A.result_binds(res, meta)) > 0
+        cache = synthetic_overcommit_cluster(n_running=64, n_pending=32, n_nodes=8)
+        sched = Scheduler(cache, conf=load_scheduler_conf(shipped_conf_path()),
+                          device="cpu")
+        assert [a.name for a in sched.actions] == [
+            "enqueue", "reclaim", "allocate", "backfill", "preempt"]
+        sched.run_once()
+        assert len(cache.evictor.evicts) > 0
         bad = sorted(n for n in sys.modules
                      if n in ("jax", "jaxlib") or n.startswith(("jax.", "jaxlib."))
                      or n == "kube_batch_tpu" or n.startswith("kube_batch_tpu."))
