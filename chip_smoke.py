@@ -29,10 +29,24 @@ after enqueue promotes the arrivals cycle 2 left Pending (the admission
 gate) — and the overcommitted 60 000-pod cluster, where reclaim evicts
 and pipelines and the claimants bind once the victims are gone; after
 each cycle the column store, the node ledgers, double binds and every
-eviction are checked.  The same drives at 4 096 × 1 024 (with host ports)
-and at 3 072 × 256 (overcommitted) run on the CPU and on the card, which
-must bind and evict identically.  Each phase prints one JSON line; any
-failure raises (non-zero exit).  The last three lines are the kernels'
+eviction are checked.  These drives run under the cross-cycle defaults:
+the delta session open and close, and device programs reading resident
+tensors refreshed by row scatters.
+
+The steady-state drive (``cycle_steady``, ``drive_steady``: the JAX
+package's ``bench.py`` ``multicycle_bench``) runs 2 + 8 back-to-back
+cycles on the 50 000-pod cluster — 2 % of the bound gangs complete and
+arrivals refill the pod count within ±10 % before each — twice: with the
+defaults (the delta leg, every resident swap held against a fresh upload
+of its host snapshot) and with the three mechanisms switched off (the
+oracle leg).  Every cycle's decisions must be equal between the legs,
+and the delta leg must take the delta open and the scatter path; one
+JSON line per cycle and leg, then the p50s of open + snapshot build and
+of the cycle's wall for both.  The headline and overcommit drives at
+4 096 × 1 024 (with host ports) and 2 048 / 1 024 / 256 run with the
+defaults on the card and as the oracle on the CPU, and must bind and
+evict identically.  Each phase prints one JSON line; any failure raises
+(non-zero exit).  The last three lines are the kernels'
 summary, the card's name and power limit, and ``{"ok": true, "device":
 ...}``.
 
@@ -64,6 +78,8 @@ ARRIVALS, MID_ARRIVALS, MID_PORTS = 5_000, 408, 0.1
 # small size for the CPU <-> CUDA comparison
 OC_RUNNING, OC_PENDING = 40_000, 20_000
 MID_OC = dict(n_running=2048, n_pending=1024, n_nodes=256)
+# the steady-state drive: warmup and measured cycles (bench.py:151)
+STEADY_WARMUP, STEADY_CYCLES = 2, 8
 KERNELS = ("masked_best_node_raw", "masked_topk_blocks", "enqueue_gate")
 
 
@@ -473,12 +489,65 @@ def phase_cycle_overcommit():
     return r
 
 
+def phase_cycle_steady():
+    """The steady-state drive at 50k × 5k on the card, delta leg against
+    oracle leg (module docstring)."""
+    from kube_batch_tpu_torch.api.resident import scatter_summary
+    from kube_batch_tpu_torch.testing.cycle_drive import drive_steady
+
+    legs = {leg: drive_steady(N_TASKS, N_NODES, cycles=STEADY_CYCLES,
+                              warmup_cycles=STEADY_WARMUP, device="cuda",
+                              oracle=leg == "oracle", check_swaps=leg == "delta")
+            for leg in ("delta", "oracle")}
+    delta, oracle = legs["delta"], legs["oracle"]
+    for a, b in zip(delta["cycles"], oracle["cycles"]):
+        if a["digest"] != b["digest"]:
+            fail(f"cycle_steady: cycle {a['cycle']} decided differently "
+                 f"({a['digest']} / {b['digest']})")
+        if a["swaps_checked"] != a["swaps"]:
+            fail(f"cycle_steady: cycle {a['cycle']} checked {a['swaps_checked']} "
+                 f"of {a['swaps']} swaps")
+    steady = delta["cycles"][STEADY_WARMUP:]
+    if "delta" not in [c["open_path"] for c in steady]:
+        fail("cycle_steady: the delta leg never took the delta open")
+    if not sum(c["resident"]["scatter_updates"] for c in steady if c["resident"]):
+        fail("cycle_steady: the delta leg never scattered")
+    for leg, r in legs.items():
+        for c in r["cycles"]:
+            emit("cycle_steady_cycle", leg=leg, cycle=c["cycle"], mode=c["mode"],
+                 open_path=c["open_path"], snapshot_path=c["snapshot_path"],
+                 churn=c["churn"], pending=c["pending"],
+                 completed_gangs=c.get("completed_gangs"), arrived=c.get("arrived"),
+                 new_binds=c["new_binds"], wall_ms=c["wall_ms"],
+                 stages_ms=c["stages_ms"], allocate_ms=c["allocate_ms"],
+                 syncs=c["syncs"], launches=c["launches"], swaps=c["swaps"],
+                 swap_check_ms=c["swap_check_ms"], resident=c["resident"],
+                 digest=c["digest"])
+    totals = {}
+    for c in steady:
+        for k, v in (c["resident"] or {}).items():
+            if isinstance(v, int) and k != "version":
+                totals[k] = totals.get(k, 0) + v
+    summary = {leg: dict(r["steady"], syncs=[c["syncs"] for c in r["cycles"][STEADY_WARMUP:]],
+                         ingest_s=r["ingest_s"])
+               for leg, r in legs.items()}
+    emit("cycle_steady", conf="shipped", tasks=N_TASKS, nodes=N_NODES,
+         warmup_cycles=STEADY_WARMUP, cycles=STEADY_CYCLES,
+         equal="decisions every cycle; every delta-leg swap equals a fresh upload",
+         resident_steady=scatter_summary({"single": totals})["single"] if totals else None,
+         **summary)
+    return legs
+
+
 def phase_cycle_cross_device():
     """The headline drive at 4 096 × 1 024 with host ports and the
-    overcommit drive at 3 072 × 256, on the CPU (plain versions) and on the
-    card (kernels): identical binds, evictions and task statuses after
-    every cycle."""
-    from kube_batch_tpu_torch.testing.cycle_drive import drive, drive_overcommit
+    overcommit drive at 2 048 / 1 024 / 256, on the card with the
+    cross-cycle defaults and on the CPU as the oracle (the three switched
+    off, plain kernel versions): identical binds, evictions, task statuses
+    and PodGroup phases after every cycle."""
+    from kube_batch_tpu_torch.testing.cycle_drive import (
+        drive, drive_overcommit, oracle_switches,
+    )
 
     runs = {
         "headline": lambda dev: drive(MID_TASKS, MID_NODES, MID_ARRIVALS,
@@ -489,7 +558,9 @@ def phase_cycle_cross_device():
     }
     out = {}
     for name, run in runs.items():
-        cpu, gpu = run("cpu"), run("cuda")
+        with oracle_switches(True):
+            cpu = run("cpu")
+        gpu = run("cuda")
         for c, (a, b) in enumerate(zip(cpu.pop("states"), gpu.pop("states"))):
             for key in a:
                 if a[key] != b[key]:
@@ -497,13 +568,15 @@ def phase_cycle_cross_device():
         out[name] = [dict(cycle=g["cycle"], mode=g["mode"], binds=g["binds"],
                           evicts=g["evicts"], cpu_wall_ms=c_["wall_ms"],
                           gpu_wall_ms=g["wall_ms"], gpu_launches=g["launches"],
+                          gpu_open_path=g["open_path"], gpu_resident=g["resident"],
                           fallback=g["fallback"])
                      for c_, g in zip(cpu["cycles"], gpu["cycles"])]
     if not out["headline"][0]["gpu_launches"]["masked_best_node_raw"]:
         fail("cycle_cross_device: the card's cycle 1 launched no K1")
     if not out["overcommit"][0]["evicts"]:
         fail("cycle_cross_device: the overcommit drive evicted nothing")
-    emit("cycle_cross_device", conf="shipped", equal="binds, evictions and task statuses",
+    emit("cycle_cross_device", conf="shipped", cpu="oracle", gpu="defaults",
+         equal="binds, evictions, task statuses and PodGroup phases",
          headline_shape=[MID_TASKS, MID_NODES], host_ports_frac=MID_PORTS,
          overcommit=MID_OC, cycles=out)
 
@@ -537,6 +610,7 @@ def main() -> int:
     del snap, snaps, full
     cycle = phase_cycle()
     overcommit = phase_cycle_overcommit()
+    steady = phase_cycle_steady()
     phase_cycle_cross_device()
     cycle_launches = {name: {f"cycle{c['cycle']}": c["launches"][name]
                              for c in cycle["cycles"]}
@@ -544,6 +618,8 @@ def main() -> int:
     overcommit_launches = {name: {f"cycle{c['cycle']}": c["launches"][name]
                                   for c in overcommit["cycles"]}
                            for name in KERNELS}
+    steady_launches = {name: sum(c["launches"][name] for c in steady["delta"]["cycles"])
+                       for name in KERNELS}
 
     src = "kube_batch_tpu_torch/csrc/"
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -560,21 +636,24 @@ def main() -> int:
              late_round_bound_ms=k1_late["bound_ms"],
              late_round_pending_rows=k1_late["pending_rows"],
              cycle_launches=cycle_launches["masked_best_node_raw"],
-             overcommit_launches=overcommit_launches["masked_best_node_raw"]),
+             overcommit_launches=overcommit_launches["masked_best_node_raw"],
+             steady_launches=steady_launches["masked_best_node_raw"]),
         dict(name="masked_topk_blocks", route="cuda",
              source=src + "topk_blocks.cu",
              replaces="kube_batch_tpu/ops/pallas_kernels.py:216",
              launches=topk_launches["masked_topk_blocks"],
              **{f: k2[f] for f in fields}, library_ms=None,
              cycle_launches=cycle_launches["masked_topk_blocks"],
-             overcommit_launches=overcommit_launches["masked_topk_blocks"]),
+             overcommit_launches=overcommit_launches["masked_topk_blocks"],
+             steady_launches=steady_launches["masked_topk_blocks"]),
         dict(name="enqueue_gate", route="cuda",
              source=src + "enqueue_gate.cu",
              replaces="kube_batch_tpu/ops/admission.py:48",
              launches=sum(cycle_launches["enqueue_gate"].values()),
              **{f: g[f] for f in fields}, library_ms=None,
              cycle_launches=cycle_launches["enqueue_gate"],
-             overcommit_launches=overcommit_launches["enqueue_gate"]),
+             overcommit_launches=overcommit_launches["enqueue_gate"],
+             steady_launches=steady_launches["enqueue_gate"]),
     ]
     print(json.dumps({"kernels": summary}))
     print(smi)

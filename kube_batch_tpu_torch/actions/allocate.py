@@ -1,7 +1,9 @@
 """allocate action — the placement pass, solved on the device.
 
 Mirrors ``kube_batch_tpu/actions/allocate.py``: build the session's
-snapshot from the cache's column store, upload it, run the allocate solve
+snapshot from the cache's column store, swap it for its device-resident
+tensors (``api/columns.resident_snap``: only what changed since the last
+swap is uploaded), run the allocate solve
 (predicates, scoring, fairness, ordering, gang commit/discard) on the
 device, read the result back in one transfer, and replay it into host
 state.  The replay is vectorized: jobs whose readiness gate is the gang
@@ -13,9 +15,11 @@ through the per-task Statement path with the sequential semantics
 
 The dispatch is the single-device cold branch of the JAX package's: the
 compacted solve when the pending rows fit the task capacity's one pending
-bucket, the full [T, N] solve otherwise.  Not ported: the sharded solve,
-the warm carry (``KB_WARM``), the guard sentinel and shadow audit, the
-query lease, the resident snapshot cache, and the tracer and metrics.
+bucket, the full [T, N] solve otherwise.  The fit-error histogram reads
+the same resident tensors as the solve, launched before the host replay
+and read after it, with no swap in between.  Not ported: the sharded
+solve, the warm carry (``KB_WARM``), the guard sentinel and shadow audit,
+the query lease, and the tracer and metrics.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from kube_batch_tpu_torch.api.convert import snapshot_from_numpy
+from kube_batch_tpu_torch.api.columns import resident_snap
 from kube_batch_tpu_torch.api.snapshot import DeviceSnapshot, SnapshotMeta
 from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.framework.interface import Action
@@ -219,7 +223,7 @@ class AllocateAction(Action):
         t0 = time.perf_counter()
         snap, meta = build_session_snapshot(ssn)
         t1 = time.perf_counter()
-        dev = snapshot_from_numpy(snap, ssn.device)
+        dev = resident_snap(cols, snap, ssn.device)
         t_up = time.perf_counter()
         config = session_allocate_config(ssn)
         # the bucket plan from the host's own pending mask: no device read
@@ -426,11 +430,16 @@ class AllocateAction(Action):
         jc[:, PENDING_I] -= n_alloc_applied + n_pipe_applied
         jc[:, BINDING_I] += n_alloc_applied
         jc[:, PIPELINED_I] += n_pipe_applied
+        # the count choke point: the delta close visits these rows
+        cols.j_touched[(n_alloc_applied + n_pipe_applied) > 0] = True
         cols.n_idle -= node_alloc_sum
         np.maximum(cols.n_idle, 0.0, out=cols.n_idle)
         cols.n_used += node_alloc_sum + node_pipe_sum
         cols.n_rel -= node_pipe_sum
         np.maximum(cols.n_rel, 0.0, out=cols.n_rel)
+        # the ledger choke point: the float32 twins refresh these rows
+        cols.note_node_ledger_rows(np.any(node_alloc_sum != 0.0, axis=1)
+                                   | np.any(node_pipe_sum != 0.0, axis=1))
         ssn.fire_columnar_allocations(cols, job_total_sum)
         _mark("replay_columns")
 
@@ -487,6 +496,7 @@ class AllocateAction(Action):
                         pnode = ssn.nodes.get(name)
                         if pnode is not None:
                             job.nodes_fit_delta[name] = t.init_resreq.fit_delta(pnode.idle)
+                            ssn.note_fit_state(job)
                         pipe_tasks.append(t)
                         slot[1].append(t)
                     else:
@@ -550,6 +560,7 @@ class AllocateAction(Action):
                 if pipe:
                     if node is not None:
                         job.nodes_fit_delta[node_name] = task.init_resreq.fit_delta(node.idle)
+                        ssn.note_fit_state(job)
                     stmt.pipeline(task, node_name)
                 else:
                     stmt.allocate(task, node_name)
@@ -591,6 +602,7 @@ class AllocateAction(Action):
             fe = FitErrors()
             fe.set_histogram(counts, n_nodes)
             job.nodes_fit_errors[task.uid] = fe
+            ssn.note_fit_state(job)
 
     def _port_rows(self, cols) -> Dict[int, list]:
         """port → [task rows] of every ported task, built once per execute;
@@ -676,6 +688,7 @@ class AllocateAction(Action):
                 node = ssn.nodes.get(name)
                 if job is not None and node is not None:
                     job.nodes_fit_delta[name] = task.init_resreq.fit_delta(node.idle)
+                    ssn.note_fit_state(job)
                 stmt.pipeline(task, name)
         except FitFailure as e:
             logger.info("columns host placement %s→%s failed: %s",
@@ -717,6 +730,7 @@ class AllocateAction(Action):
                 job = ssn.jobs.get(task.job)
                 if job is not None:
                     job.nodes_fit_delta[best.name] = task.init_resreq.fit_delta(best.idle)
+                    ssn.note_fit_state(job)
                 stmt.pipeline(task, best.name)
         except FitFailure as e:
             logger.info("host placement %s→%s failed: %s", task.key(), best.name, e.reason)

@@ -28,7 +28,7 @@ from kube_batch_tpu_torch.actions.allocate import (
     resolve_topk,
     session_allocate_config,
 )
-from kube_batch_tpu_torch.api.convert import snapshot_from_numpy
+from kube_batch_tpu_torch.api.columns import resident_snap
 from kube_batch_tpu_torch.api.job_info import FitError, FitErrors
 from kube_batch_tpu_torch.api.types import PodGroupPhase, TaskStatus
 from kube_batch_tpu_torch.framework.interface import Action
@@ -72,6 +72,7 @@ class BackfillAction(Action):
                     break
                 else:
                     job.nodes_fit_errors[task.uid] = fit_errors
+                    ssn.note_fit_state(job)
         return placed
 
     # ---- beyond the reference: the stranded-capacity pass ----------------
@@ -99,7 +100,7 @@ class BackfillAction(Action):
         if not eligible.any():
             return 0
         snap = snap._replace(job_schedulable=safe)
-        dev = snapshot_from_numpy(snap, ssn.device)
+        dev = resident_snap(ssn.columns, snap, ssn.device)
         plan = plan_topk_bucket(snap, resolve_topk())
         result, _mode, _topk = dispatch_allocate_solve(
             dev, session_allocate_config(ssn), plan=plan)

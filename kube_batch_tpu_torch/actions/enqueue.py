@@ -70,11 +70,13 @@ class EnqueueAction(Action):
     def _promote(cols, job) -> None:
         """Pending → Inqueue, written through to the job-row columns: the
         snapshot's schedulability row was synced at session open, so this
-        cycle's allocate would otherwise still skip the job."""
+        cycle's allocate would otherwise still skip the job; the phase and
+        touched rows keep the delta close exact."""
         job.pod_group.phase = PodGroupPhase.INQUEUE
         if job._cols is cols and job._row >= 0:
             cols.j_sched[job._row] = True
             cols.j_phase[job._row] = PHASE_CODE[PodGroupPhase.INQUEUE]
+            cols.j_touched[job._row] = True
 
     def _promote_rows(self, cols, rows) -> None:
         job_by_row = cols.job_by_row

@@ -27,7 +27,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from kube_batch_tpu_torch.api.convert import snapshot_from_numpy
+from kube_batch_tpu_torch.api.columns import resident_snap
 from kube_batch_tpu_torch.framework.interface import Action
 from kube_batch_tpu_torch.framework.session import FitFailure
 from kube_batch_tpu_torch.ops.eviction import EvictConfig, evict_solve
@@ -97,7 +97,7 @@ def solve_claims(ssn, mode: str):
         return [], {}
     t0 = time.perf_counter()
     snap, meta = cols.device_snapshot(ssn)
-    dev = snapshot_from_numpy(snap, ssn.device)
+    dev = resident_snap(cols, snap, ssn.device)
     result, rounds = evict_solve(dev, evict_config(ssn, mode))
     T = meta.n_tasks
     packed = torch.stack([result.claim_node, result.evicted.to(torch.int32),

@@ -15,13 +15,30 @@ Mirrors ``kube_batch_tpu/api/columns.py``:
   session-open validity gate are matrix expressions.
 - TaskInfo.status / .node_name write through to t_status / t_node.
 
-The per-cycle snapshot is then a job-row scan, a few casts and derived
-masks (``device_snapshot``), returned as numpy arrays in the port's
-``DeviceSnapshot`` layout for ``api/convert.snapshot_from_numpy`` to
-upload.  Capacities grow in the same buckets the snapshot pads to, so the
-row space IS the padded device axis.  The JAX package's device-resident
-half (the feature and per-cycle caches, the warm tables) is not ported:
-the port uploads the whole snapshot once per cycle.
+The per-cycle snapshot is then a few casts and derived masks
+(``device_snapshot``), returned as numpy arrays in the port's
+``DeviceSnapshot`` layout.  Capacities grow in the same buckets the
+snapshot pads to, so the row space IS the padded device axis.
+
+Across cycles:
+
+- The session job rows are re-derived at open for the dirty jobs only
+  when the open takes the delta path (``sync_session_rows(ssn,
+  dirty_uids=...)``); ``j_touched`` marks every row whose close-pass
+  inputs may have moved, so the delta close visits only those.
+- The node ledgers' float32 twins are refreshed at the rows the ledger
+  choke points marked (``node_ledgers32``).
+- The device half: ``resident_snap`` hands the device programs tensors
+  that stay on the device between cycles — the ingest-static columns
+  re-uploaded when their axis's feature version moves
+  (``resident_features``), the per-cycle columns refreshed by row
+  scatters (``per_cycle_resident``, ``api/resident.py``).  The host-backed
+  numpy snapshot stays what the host reads.  ``KB_DEVICE_CACHE=0``
+  uploads the whole snapshot on every call instead (the oracle).
+
+Not ported: the JAX package's mesh-sharded residency, its warm candidate
+tables and its swap guard (ROADMAP items 3, 6 and 8), and the job-alloc
+float32 twin (``job_allocated`` is cast whole each snapshot).
 """
 
 from __future__ import annotations
@@ -30,6 +47,7 @@ import logging
 from typing import Dict, List, Optional, Set
 
 import numpy as np
+import torch
 
 from kube_batch_tpu_torch.api.resources import ResourceSpec
 from kube_batch_tpu_torch.api.snapshot import (
@@ -48,6 +66,8 @@ from kube_batch_tpu_torch.api.types import (
     PodGroupPhase,
     TaskStatus,
 )
+from kube_batch_tpu_torch.device import resolve_device
+from kube_batch_tpu_torch.utils.switches import switch_on
 
 logger = logging.getLogger("kube_batch_tpu_torch")
 
@@ -66,6 +86,44 @@ VALID_STATUSES = READY_STATUSES + (
 PHASE_CODE: Dict[PodGroupPhase, int] = {p: i for i, p in enumerate(PodGroupPhase)}
 CODE_PHASE: List[PodGroupPhase] = list(PodGroupPhase)
 N_PHASES = len(CODE_PHASE)
+
+
+def resident_snap(cols, snap, device):
+    """The device snapshot a device program reads: resident tensors when a
+    ColumnStore backs the session and ``KB_DEVICE_CACHE`` is on (the
+    ingest-static features by version, the per-cycle columns by scatter),
+    else (``KB_DEVICE_CACHE=0``) a full upload of ``snap``.  ``snap`` stays the host's copy; only
+    the returned tensors feed the solve.  A repeat call with the same
+    ``snap`` object returns the same tensors."""
+    from kube_batch_tpu_torch.api.convert import host_field, snapshot_from_numpy
+    from kube_batch_tpu_torch.api.resident import StagedUpload
+
+    dev = resolve_device(device)
+    if cols is None or not switch_on("KB_DEVICE_CACHE"):
+        return snapshot_from_numpy(snap, dev)
+    cache = cols.per_cycle_cache(dev)
+    out = cache.memo(snap)
+    if out is not None:
+        return out
+    upload = StagedUpload(dev)
+    made = cols.resident_features(snap, upload)
+    made.update(cols.per_cycle_resident(snap, upload))
+    for name in DeviceSnapshot._fields:
+        if name not in made:
+            handle = upload.add(host_field(name, getattr(snap, name)))
+            made[name] = lambda h=handle: upload.tensor(h)
+    try:
+        upload.run()
+        out = DeviceSnapshot(**{name: made[name]() for name in DeviceSnapshot._fields})
+    except BaseException:
+        # the mirrors already describe this swap: after a failed transfer
+        # or scatter the next swap must start cold, not trust them
+        cols.drop_resident()
+        raise
+    cache.remember(snap, out)
+    if cols.on_swap is not None:
+        cols.on_swap(snap, out)
+    return out
 
 
 def _grow(arr: np.ndarray, cap: int) -> np.ndarray:
@@ -162,6 +220,12 @@ class ColumnStore:
         # MinResources (budgeted, zero) from none (promoted unconditionally)
         self.j_has_minres = np.zeros(capJ, bool)
         self.j_minres = np.zeros((capJ, R), np.float32)
+        self.j_has_conds = np.zeros(capJ, bool)
+        # rows whose close-pass inputs may have moved since the last status
+        # pass: every j_counts write, the session row sync and mid-cycle
+        # phase / condition writes stamp it; the delta close visits these
+        # rows (plus the standing need-record set) and clears it
+        self.j_touched = np.zeros(capJ, bool)
 
         # ---- node axis --------------------------------------------------
         self.nodes = _Axis()
@@ -171,6 +235,14 @@ class ColumnStore:
         self.n_used = np.zeros((capN, R), np.float64)
         self.n_alloc = np.zeros((capN, R), np.float64)
         self.n_cap = np.zeros((capN, R), np.float64)
+        # float32 twins of the ledgers, refreshed at the rows the ledger
+        # choke points marked (NodeInfo's task algebra and set_node, the
+        # allocate replay's matrix updates, bind / free)
+        self.n_idle32 = np.zeros((capN, R), np.float32)
+        self.n_rel32 = np.zeros((capN, R), np.float32)
+        self.n_used32 = np.zeros((capN, R), np.float32)
+        self.n_alloc32 = np.zeros((capN, R), np.float32)
+        self._node_ledger_dirty = np.ones(capN, bool)
         self.n_valid = np.zeros(capN, bool)   # Ready
         self.n_sched = np.zeros(capN, bool)   # not Unschedulable
         self.n_label_bits = np.zeros((capN, 1), np.uint32)
@@ -195,6 +267,22 @@ class ColumnStore:
         # set when the label/taint universe grew: the next device_snapshot
         # re-packs the sparse task rows
         self._task_bits_dirty = False
+
+        # ---- device residency ---------------------------------------------
+        # the ingest-static columns (FEATURE_FIELDS) change only where these
+        # per-axis versions are bumped; resident_features re-uploads a
+        # column only when its version moved
+        self.task_feature_version = 0
+        self.node_feature_version = 0
+        self._dev_cache: Dict = {}
+        # the per-cycle resident cache (api/resident.py) by device; at most
+        # one is kept
+        self._per_cycle_dev: Dict = {}
+        # called as on_swap(snap, tensors) after every swap that was not a
+        # repeat (drives use it to check the tensors against a full upload)
+        self.on_swap = None
+        # which path the most recent session row sync took
+        self.last_snapshot_path = "full"
 
     # ==================================================================
     # task axis
@@ -239,6 +327,7 @@ class ColumnStore:
         # row and store are attached; job.add_task already counted the task
         task._row = row
         task._store = self
+        self.task_feature_version += 1
 
     def free_task(self, task) -> None:
         row = task._row
@@ -262,6 +351,7 @@ class ColumnStore:
         self._ported_rows.discard(row)
         self.task_by_row[row] = None
         self.tasks.free(row)
+        self.task_feature_version += 1
 
     def _grow_tasks(self) -> None:
         cap = self.tasks.grown_cap()
@@ -331,6 +421,7 @@ class ColumnStore:
         self.job_by_row[row] = job
         job._row = row
         job._cols = self
+        self.j_touched[row] = True
 
     def free_job(self, job) -> None:
         row = job._row
@@ -346,6 +437,8 @@ class ColumnStore:
         self.j_phase[row] = -1
         self.j_has_minres[row] = False
         self.j_minres[row] = 0.0
+        self.j_has_conds[row] = False
+        self.j_touched[row] = True
         # give the job private buffers (copies of its final state)
         job.allocated.vec = self.j_alloc[row].copy()
         job.total_request.vec = self.j_total[row].copy()
@@ -379,7 +472,8 @@ class ColumnStore:
         cap = self.jobs.grown_cap()
         for name in ("j_alloc", "j_total", "j_pend", "j_counts", "j_min",
                      "j_queue", "j_prio", "j_creation", "j_sess", "j_sched",
-                     "j_has_pg", "j_shadow", "j_has_minres", "j_minres"):
+                     "j_has_pg", "j_shadow", "j_has_minres", "j_minres",
+                     "j_has_conds", "j_touched"):
             setattr(self, name, _grow(getattr(self, name), cap))
         j_phase = np.full(cap, -1, np.int8)
         j_phase[: self.j_phase.shape[0]] = self.j_phase
@@ -416,6 +510,8 @@ class ColumnStore:
         node.used.vec = self.n_used[row]
         node.allocatable.vec = self.n_alloc[row]
         node.capability.vec = self.n_cap[row]
+        self.node_feature_version += 1  # fresh n_alloc and bit rows on this row
+        self._node_ledger_dirty[row] = True
         self.sync_node_meta(node)
         # resident tasks bound before their node resolve to -1; repoint them
         for t in node.tasks.values():
@@ -435,6 +531,7 @@ class ColumnStore:
         node.capability.vec = self.n_cap[row].copy()
         for arr in (self.n_idle, self.n_rel, self.n_used, self.n_alloc, self.n_cap):
             arr[row] = 0.0
+        self._node_ledger_dirty[row] = True
         self.n_valid[row] = False
         self.n_sched[row] = False
         self.n_label_bits[row] = 0
@@ -445,12 +542,17 @@ class ColumnStore:
         # tasks still pointing at the freed row must not alias its next tenant
         self.t_node[self.t_node == row] = -1
         self.nodes.free(row)
+        self.node_feature_version += 1
 
     def _grow_nodes(self) -> None:
         cap = self.nodes.grown_cap()
         for name in ("n_idle", "n_rel", "n_used", "n_alloc", "n_cap",
-                     "n_valid", "n_sched", "n_label_bits", "n_taint_bits"):
+                     "n_valid", "n_sched", "n_label_bits", "n_taint_bits",
+                     "n_idle32", "n_rel32", "n_used32", "n_alloc32"):
             setattr(self, name, _grow(getattr(self, name), cap))
+        dirty = np.ones(cap, bool)
+        dirty[: self._node_ledger_dirty.shape[0]] = self._node_ledger_dirty
+        self._node_ledger_dirty = dirty
         self.node_by_row.extend([None] * (cap - self.nodes.cap))
         self.node_names.extend([""] * (cap - self.nodes.cap))
         self.nodes.on_grown(cap)
@@ -465,7 +567,9 @@ class ColumnStore:
     def sync_node_meta(self, node) -> None:
         """Refresh validity / schedulability / label and taint bits after
         set_node (or bind).  New label pairs and taints are interned; a
-        grown universe marks the task bitsets for re-packing."""
+        grown universe marks the task bitsets for re-packing.  The node
+        feature version moves only when a bit row actually changed, so a
+        heartbeat with unchanged content keeps the resident columns."""
         row = node._row
         self.n_valid[row] = node.ready
         obj = node.node
@@ -491,13 +595,18 @@ class ColumnStore:
         if (len(self.label_pair_bit) != before_labels
                 or len(self.taint_bit) != before_taints):
             self._task_bits_dirty = True
-        self.n_label_bits[row] = _pack_bits(
+        label_row = _pack_bits(
             [self.label_pair_bit[kv] for kv in obj.labels.items()],
             self.n_label_bits.shape[1])
-        self.n_taint_bits[row] = _pack_bits(
+        taint_row = _pack_bits(
             [self.taint_bit[(t.key, t.value, t.effect)]
              for t in obj.taints if t.effect in HARD_TAINT_EFFECTS],
             self.n_taint_bits.shape[1])
+        if not (np.array_equal(self.n_label_bits[row], label_row)
+                and np.array_equal(self.n_taint_bits[row], taint_row)):
+            self.node_feature_version += 1
+        self.n_label_bits[row] = label_row
+        self.n_taint_bits[row] = taint_row
 
     # ==================================================================
     # queue axis
@@ -560,13 +669,31 @@ class ColumnStore:
         self.queues.on_grown(cap)
 
     # ==================================================================
-    # per-session job-row sync
+    # capacity reservation
+    # ==================================================================
+    def reserve(self, n_tasks: int = 0, n_nodes: int = 0, n_jobs: int = 0,
+                n_queues: int = 0) -> None:
+        """Pre-grow the axes to an expected peak, so a wobbling workload
+        stays in one shape bucket (and the resident columns keep their
+        shapes).  Capacity never shrinks."""
+        while self.tasks.cap < n_tasks:
+            self._grow_tasks()
+        while self.nodes.cap < n_nodes:
+            self._grow_nodes()
+        while self.jobs.cap < n_jobs:
+            self._grow_jobs()
+        while self.queues.cap < n_queues:
+            self._grow_queues()
+
+    # ==================================================================
+    # per-session job-row sync (delta or full)
     # ==================================================================
     def _sync_job_row(self, job, queue_rows_get) -> None:
-        """Derive one session job's row state."""
+        """Derive one session job's row state (both sync forms run it)."""
         row = job._row
         if row < 0 or job._cols is not self:
             return
+        self.j_touched[row] = True  # re-synced: the close pass must visit
         qi = queue_rows_get(job.queue, -1)
         if qi < 0:
             self.j_sess[row] = False
@@ -582,19 +709,48 @@ class ColumnStore:
         if pg is None:
             self.j_shadow[row] = False
             self.j_phase[row] = -1
+            self.j_has_conds[row] = False
             return
         self.j_shadow[row] = pg.shadow
         self.j_phase[row] = PHASE_CODE[pg.phase] if pg.phase is not None else -1
+        self.j_has_conds[row] = bool(pg.conditions)
 
-    def sync_session_rows(self, ssn) -> None:
+    def sync_session_rows(self, ssn, dirty_uids=None, restore_rows=()) -> None:
         """Fill the session-scoped job rows (j_sess membership, j_min,
-        j_queue, j_prio, j_creation, j_sched and the PodGroup metadata) by
-        one pass over the session's jobs — the JAX package's full rescan
-        (its delta form is not ported)."""
+        j_queue, j_prio, j_creation, j_sched and the PodGroup metadata).
+
+        ``dirty_uids=None`` is the full rescan, one pass over every session
+        job.  A set re-derives only those uids: rows of jobs that left the
+        session clear, dirty members re-fill, and every other row keeps
+        last cycle's values, which are still exact because each input
+        moves only through choke points that stamp the dirty set.
+        ``restore_rows`` re-admits the rows the previous gate dropped; this
+        cycle's gate re-votes on them right after."""
         queue_rows_get = self.queue_rows.get
-        self.j_sess[:] = False
-        self.j_sched[:] = False
-        for job in ssn.jobs.values():
+        if dirty_uids is None:
+            self.last_snapshot_path = "full"
+            self.j_sess[:] = False
+            self.j_sched[:] = False
+            for job in ssn.jobs.values():
+                self._sync_job_row(job, queue_rows_get)
+            return
+        self.last_snapshot_path = "delta"
+        jobs_get = ssn.jobs.get
+        job_by_row = self.job_by_row
+        for row in restore_rows:
+            job = job_by_row[row]
+            if job is not None and jobs_get(job.uid) is job:
+                self.j_sess[row] = True
+        cache_jobs_get = ssn.cache.jobs.get
+        for uid in dirty_uids:
+            job = jobs_get(uid)
+            if job is None:
+                # left the session (deleted, or membership lost): clear the
+                # row it may still hold
+                job = cache_jobs_get(uid)
+                if job is not None and job._cols is self and job._row >= 0:
+                    self.j_sess[job._row] = False
+                continue
             self._sync_job_row(job, queue_rows_get)
 
     # ==================================================================
@@ -631,10 +787,127 @@ class ColumnStore:
         if not self._task_bits_dirty:
             return
         self._task_bits_dirty = False
+        self.task_feature_version += 1
         for row in self._sel_rows:
             self._fill_sel_bits(row, self.task_by_row[row])
         for row in self._tol_rows:
             self._fill_tol_bits(row, self.task_by_row[row])
+
+    # ---- node-ledger dirty rows (the float32 cast's choke point) ---------
+    def note_node_ledger(self, row: int) -> None:
+        """Mark one node row's ledgers changed; every ledger write path
+        calls this or ``note_node_ledger_rows``."""
+        self._node_ledger_dirty[row] = True
+
+    def note_node_ledger_rows(self, rows) -> None:
+        self._node_ledger_dirty[rows] = True
+
+    def bump_node_features(self) -> None:
+        self.node_feature_version += 1
+
+    def node_ledgers32(self):
+        """(idle32, rel32, used32, alloc32): the float32 ledger twins,
+        refreshed at exactly the dirty rows."""
+        dirty = self._node_ledger_dirty
+        if dirty.any():
+            rows = np.flatnonzero(dirty)
+            self.n_idle32[rows] = self.n_idle[rows]
+            self.n_rel32[rows] = self.n_rel[rows]
+            self.n_used32[rows] = self.n_used[rows]
+            self.n_alloc32[rows] = self.n_alloc[rows]
+            dirty[:] = False
+        return self.n_idle32, self.n_rel32, self.n_used32, self.n_alloc32
+
+    # ==================================================================
+    # device residency
+    # ==================================================================
+    # snapshot field → (backing column, version axis): per-axis versions
+    # keep pod churn from re-uploading the node columns and back
+    FEATURE_FIELDS = {
+        "task_req": ("t_init32", "task"),
+        "task_resreq": ("t_res32", "task"),
+        "task_job": ("t_job", "task"),
+        "task_prio": ("t_prio", "task"),
+        "task_creation": ("t_creation", "task"),
+        "task_best_effort": ("t_best_effort", "task"),
+        "task_critical": ("t_critical", "task"),
+        "task_needs_host": ("t_needs_host", "task"),
+        "task_sel_bits": ("t_sel_bits", "task"),
+        "task_sel_impossible": ("t_sel_impossible", "task"),
+        "task_tol_bits": ("t_tol_bits", "task"),
+        # the float32 twin, refreshed by device_snapshot before any swap
+        "node_alloc": ("n_alloc32", "node"),
+        "node_label_bits": ("n_label_bits", "node"),
+        "node_taint_bits": ("n_taint_bits", "node"),
+    }
+
+    def resident_features(self, snap, upload) -> Dict:
+        """Stage into ``upload`` the feature columns whose axis version
+        moved since the last call (or whose shape changed); returns
+        field → what yields its device tensor once ``upload`` ran.  The
+        columns are read from the store, not from ``snap``, as the JAX
+        package's cache does."""
+        from kube_batch_tpu_torch.api.convert import host_field
+
+        cache = self._dev_cache.setdefault(upload.device, {})
+        versions = {"task": self.task_feature_version,
+                    "node": self.node_feature_version}
+        made = {}
+        for field, (col, axis) in self.FEATURE_FIELDS.items():
+            version = versions[axis]
+            host = host_field(field, getattr(self, col))
+            ver, tensor = cache.get(field, (-1, None))
+            if ver != version or tensor.shape != host.shape:
+                handle = upload.add(host)
+
+                def done(field=field, version=version, handle=handle):
+                    t = upload.tensor(handle).clone()
+                    cache[field] = (version, t)
+                    return t
+
+                made[field] = done
+            else:
+                made[field] = lambda t=tensor: t
+        return made
+
+    def per_cycle_cache(self, device: torch.device):
+        """The per-cycle resident cache for ``device``, made on first use.
+        A device change drops the other device's cache, so the fresh one
+        uploads in full once and scatters resume."""
+        from kube_batch_tpu_torch.api.resident import PerCycleDeviceCache
+
+        cache = self._per_cycle_dev.get(device)
+        if cache is None:
+            for stale in [k for k in self._per_cycle_dev if k != device]:
+                del self._per_cycle_dev[stale]
+                self._dev_cache.pop(stale, None)
+            cache = self._per_cycle_dev[device] = PerCycleDeviceCache(device)
+        return cache
+
+    def per_cycle_resident(self, snap, upload) -> Dict:
+        """Stage into ``upload`` a swap of ``snap``'s per-cycle fields on
+        ``upload.device``'s resident cache (``api/resident.py``); returns
+        field → what yields its device tensor once ``upload`` ran."""
+        return self.per_cycle_cache(upload.device).stage(snap, upload)
+
+    def resident_counters(self) -> Dict[str, Dict[str, int]]:
+        """The per-cycle cache's counters under its path name ("single":
+        the port has no sharded residency)."""
+        return {"single": cache.counters() for cache in self._per_cycle_dev.values()}
+
+    def export_delta_record(self, device=None):
+        """The last swap's delta record and the cache's swap version, or
+        ``(None, 0)`` when ``device`` has no resident cache."""
+        cache = self._per_cycle_dev.get(torch.device("cuda" if device is None else device))
+        if cache is None:
+            return None, 0
+        return dict(cache.delta_record), int(cache.version)
+
+    def drop_resident(self) -> None:
+        """Cold-start the device residency: the next swap uploads every
+        column in full."""
+        self._per_cycle_dev.clear()
+        self._dev_cache.clear()
 
     def device_snapshot(self, ssn):
         """(DeviceSnapshot of numpy arrays, SnapshotMeta) for an exclusive
@@ -708,6 +981,8 @@ class ColumnStore:
             node_sched[excluded_rows] = False
         total = (self.n_alloc[node_valid].sum(axis=0).astype(np.float32)
                  if node_valid.any() else np.zeros(self.R, np.float32))
+        # node ledgers: the float32 twins, refreshed at the dirty rows only
+        idle32, rel32, used32, alloc32 = self.node_ledgers32()
 
         snap = DeviceSnapshot(
             task_req=self.t_init32,
@@ -730,10 +1005,10 @@ class ColumnStore:
             task_pref_idx=task_pref_idx,
             task_pref_node=task_pref_node,
             task_pref_pod=task_pref_pod,
-            node_idle=self.n_idle.astype(np.float32),
-            node_releasing=self.n_rel.astype(np.float32),
-            node_used=self.n_used.astype(np.float32),
-            node_alloc=self.n_alloc.astype(np.float32),
+            node_idle=idle32,
+            node_releasing=rel32,
+            node_used=used32,
+            node_alloc=alloc32,
             node_valid=node_valid,
             node_sched=node_sched,
             node_label_bits=self.n_label_bits,
@@ -846,4 +1121,16 @@ class ColumnStore:
         for name in cache.queues:
             if self.queue_rows.get(name) is None:
                 errs.append(f"queue {name} unbound")
+        # the float32 ledger twins must equal the float64 ledgers once the
+        # dirty rows are flushed: a ledger write that missed its choke point
+        # shows up here
+        self.node_ledgers32()
+        for label, f32, f64 in (("idle32", self.n_idle32, self.n_idle),
+                                ("rel32", self.n_rel32, self.n_rel),
+                                ("used32", self.n_used32, self.n_used),
+                                ("alloc32", self.n_alloc32, self.n_alloc)):
+            stale = np.flatnonzero(np.any(f32 != f64.astype(np.float32), axis=1))
+            if stale.size:
+                errs.append(f"node ledger twin {label} stale at rows "
+                            f"{stale[:8].tolist()} (missed note_node_ledger)")
         return errs

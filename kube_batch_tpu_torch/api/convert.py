@@ -29,15 +29,20 @@ def snapshot_from_numpy(fields, device=None) -> DeviceSnapshot:
     every other dtype is kept."""
     dev = resolve_device(device)
     src = _as_mapping(fields)
-    out = {}
-    for name in DeviceSnapshot._fields:
-        arr = np.asarray(src[name])
-        if name in BITSET_FIELDS:
-            if arr.dtype not in (np.uint32, np.int32):
-                raise TypeError(f"{name}: expected u32 bitsets, got {arr.dtype}")
-            arr = arr.view(np.int32)
-        out[name] = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
-    return DeviceSnapshot(**out)
+    return DeviceSnapshot(**{
+        name: torch.from_numpy(host_field(name, src[name])).to(dev)
+        for name in DeviceSnapshot._fields})
+
+
+def host_field(name: str, value) -> np.ndarray:
+    """One snapshot field as the contiguous numpy array its tensor is made
+    from: u32 bitsets as int32 views, every other dtype kept."""
+    arr = np.asarray(value)
+    if name in BITSET_FIELDS:
+        if arr.dtype not in (np.uint32, np.int32):
+            raise TypeError(f"{name}: expected u32 bitsets, got {arr.dtype}")
+        arr = arr.view(np.int32)
+    return np.ascontiguousarray(arr)
 
 
 def snapshot_to_numpy(snap: DeviceSnapshot) -> DeviceSnapshot:

@@ -104,6 +104,7 @@ class JobInfo:
         self.task_status_index[task.status][task.key()] = task
         if self._cols is not None:
             self._cols.j_counts[self._row, int(task.status)] += 1
+            self._cols.j_touched[self._row] = True
 
     def _index_remove(self, task: TaskInfo) -> None:
         bucket = self.task_status_index.get(task.status)
@@ -113,6 +114,7 @@ class JobInfo:
                 del self.task_status_index[task.status]
             if popped is not None and self._cols is not None:
                 self._cols.j_counts[self._row, int(task.status)] -= 1
+                self._cols.j_touched[self._row] = True
 
     def add_task(self, task: TaskInfo) -> None:
         key = task.key()
@@ -149,9 +151,9 @@ class JobInfo:
 
     def rebucket_moved(self, tasks, status: TaskStatus) -> None:
         """Status-index bucket moves only, for the columnar allocate replay:
-        ledgers, counts and the t_status column were already updated by
-        whole-matrix ops, so this touches the bucket dicts and the raw
-        ``_status`` attributes."""
+        ledgers, counts, ``j_touched`` and the t_status column were already
+        updated by whole-matrix ops, so this touches the bucket dicts and
+        the raw ``_status`` attributes."""
         if not tasks:
             return
         idx = self.task_status_index

@@ -112,7 +112,11 @@ class NodeInfo:
             self.used = Resource(used_v, self.spec)
             self.releasing = Resource(rel_v, self.spec)
         else:
-            # column-bound: write through the ledger views in place
+            # column-bound: write through the ledger views in place; an
+            # actual allocatable change invalidates the resident n_alloc
+            if not np.array_equal(self.allocatable.vec, alloc.vec):
+                self._cols.bump_node_features()
+            self._note_ledger()
             self.allocatable.vec[:] = alloc.vec
             self.capability.vec[:] = cap.vec
             self.idle.vec[:] = idle_v
@@ -138,9 +142,20 @@ class NodeInfo:
             for res in (self.idle, self.used, self.releasing,
                         self.allocatable, self.capability):
                 res.vec[:] = 0.0
+            # n_alloc is a resident feature column, and sync_node_meta
+            # returns early without a Node object
+            self._cols.bump_node_features()
+            self._note_ledger()
         self._set_state()
         if self._cols is not None:
             self._cols.sync_node_meta(self)
+
+    def _note_ledger(self) -> None:
+        """The ledger choke point: every (Idle, Used, Releasing,
+        Allocatable) write marks this node's row, so the snapshot's float32
+        twins refresh exactly the touched rows (``columns.node_ledgers32``)."""
+        if self._cols is not None:
+            self._cols.note_node_ledger(self._row)
 
     # -- task algebra (node_info.go:165-222) ------------------------------
     def add_task(self, task: TaskInfo) -> None:
@@ -148,6 +163,7 @@ class NodeInfo:
         graft_assert(key not in self.tasks, f"duplicate task {key} on node {self.name}")
         status = task.status
         if self.node is not None:
+            self._note_ledger()
             r = task.resreq
             if status == TaskStatus.RELEASING:
                 self.releasing.add_(r)
@@ -170,6 +186,7 @@ class NodeInfo:
         if existing is not None:
             status = self._acct.pop(key, existing.status)
             if self.node is not None:
+                self._note_ledger()
                 r = existing.resreq
                 if status == TaskStatus.RELEASING:
                     self.releasing.sub_(r)

@@ -13,12 +13,20 @@ While a scheduling cycle holds the exclusive session gate
 ``end_exclusive_session`` — the once-per-cycle staleness an informer
 snapshot has, without a deep clone.
 
+Every ingest handler and the close-time status staging stamp the dirty
+tracker (``cache/dirty.py``); ``take_dirty``, ``session_view_delta`` and
+``rebuild_open_cache`` give ``open_session`` its delta form, which
+re-derives only the jobs that changed since the last open
+(``KB_SNAPSHOT_DELTA=0`` or ``cache.delta_enabled = False`` keeps the full
+``session_view`` every cycle, the oracle).
+
 What the JAX package has and this port does not (each is later work in
 ROADMAP.md): the async binder pool (binds run inline here, which leaves
 the state ``flush_binds`` leaves), the failed-write resync queue and
-repair loop (a failed bind or evict is logged and left for the pod's next
-update or delete), staged ingest and the dirty tracker behind the delta
-session open, PodDisruptionBudgets, the volume ledger (the fake binder
+repair loop with its ``rebuild_from_pod_store`` (a failed bind or evict is
+logged and left for the pod's next update or delete), staged and batched
+ingest (so nothing holds the tracker's version), isolated sessions'
+``snapshot()``, PodDisruptionBudgets, the volume ledger (the fake binder
 seam stays), and the egress breakers.  The cache starts no thread.
 """
 
@@ -26,6 +34,7 @@ from __future__ import annotations
 
 import collections
 import logging
+import os
 import threading
 import time
 from typing import Dict, List
@@ -45,6 +54,7 @@ from kube_batch_tpu_torch.api.types import (
     TaskStatus,
     queue_phase_counts,
 )
+from kube_batch_tpu_torch.cache.dirty import DirtyTracker, OpenCache
 from kube_batch_tpu_torch.cache.fake import (
     FakeBinder,
     FakeEvictor,
@@ -52,6 +62,7 @@ from kube_batch_tpu_torch.cache.fake import (
     FakeVolumeBinder,
 )
 from kube_batch_tpu_torch.utils.assertions import graft_assert
+from kube_batch_tpu_torch.utils.switches import switch_on
 
 logger = logging.getLogger("kube_batch_tpu_torch")
 
@@ -91,6 +102,24 @@ class SchedulerCache:
         # the persistent columnar host model: rows assigned at ingest,
         # ledgers shared as views, snapshots built from columns
         self.columns = ColumnStore(spec)
+        # cross-cycle churn bookkeeping (cache/dirty.py): ingest handlers
+        # stamp a version and per-kind dirty sets, so a low-churn session
+        # open hands out a delta against the previous cycle's open state
+        self.dirty = DirtyTracker()
+        self.open_cache = OpenCache()
+        # jobs carrying per-session fit diagnostics (Session.note_fit_state):
+        # the delta open clears exactly these
+        self.fit_state_jobs: set = set()
+        self.delta_enabled = switch_on("KB_SNAPSHOT_DELTA")
+        # fraction of session jobs dirty above which the open falls back to
+        # the full rebuild
+        self.delta_churn_threshold = float(
+            os.environ.get("KB_DELTA_CHURN_THRESHOLD", "0.25"))
+        # which path the most recent open took, its churn, and the tracker
+        # version it consumed
+        self.last_open_path = "full"
+        self.last_churn = 0.0
+        self.last_open_version = 0
         # --priority-class toggle (options.go:30, consumed cache.go:352,378)
         self.resolve_priority = resolve_priority
         self.binder = binder if binder is not None else FakeBinder()
@@ -205,6 +234,8 @@ class SchedulerCache:
 
     def _add_task(self, task: TaskInfo, pod: Pod) -> None:
         job = self._get_or_create_job(task, pod)
+        self.dirty.note_pod(task._key)
+        self.dirty.note_job(job.uid)
         job.add_task(task)
         self.columns.bind_task(task, job)
         if task.node_name:
@@ -244,6 +275,8 @@ class SchedulerCache:
     def _delete_pod_locked(self, pod: Pod, retire_placeholder: bool = True) -> None:
         self.pods.pop(pod.key(), None)
         self.pod_conditions.pop(pod.key(), None)  # fresh pod ⇒ fresh dedup
+        self.dirty.note_pod(pod.key())
+        self.dirty.note_job(job_id_for_pod(pod))
         release = getattr(self.volume_binder, "release_task", None)
         if release is not None:
             release(pod.uid)  # free assumed-but-unbound volume reservations
@@ -269,6 +302,7 @@ class SchedulerCache:
         tasks and no real (non-shadow) PodGroup."""
         if not job.tasks and (job.pod_group is None or job.pod_group.shadow):
             if self.jobs.pop(job.uid, None) is not None:
+                self.dirty.note_job(job.uid)
                 self.columns.free_job(job)
             self._status_next_write.pop(job.uid, None)
 
@@ -279,6 +313,7 @@ class SchedulerCache:
         with self._lock:
             if self._gate(self.add_node, node):
                 return
+            self.dirty.note_node(node.name)
             existing = self.nodes.get(node.name)
             if existing is None:
                 info = NodeInfo(node, self.spec)
@@ -297,6 +332,7 @@ class SchedulerCache:
             node = self.nodes.get(name)
             if node is None:
                 return
+            self.dirty.note_node(name)
             if node.tasks:
                 # resident pods outlive the Node object: demote to the
                 # nodeless placeholder, and a re-add replays their accounting
@@ -315,6 +351,7 @@ class SchedulerCache:
             if not pg.queue:
                 pg.queue = self.default_queue
             job_id = pg.key()
+            self.dirty.note_job(job_id)
             job = self.jobs.get(job_id)
             if job is None:
                 job = JobInfo(job_id, self.spec)
@@ -330,6 +367,7 @@ class SchedulerCache:
         with self._lock:
             if self._gate(self.delete_pod_group, key):
                 return
+            self.dirty.note_job(key)
             job = self.jobs.get(key)
             if job is not None:
                 job.pod_group = None
@@ -345,6 +383,7 @@ class SchedulerCache:
         with self._lock:
             if self._gate(self.add_queue, queue):
                 return
+            self.dirty.mark_queues()
             qinfo = QueueInfo(queue)
             self.queues[queue.name] = qinfo
             self.columns.bind_queue(qinfo)
@@ -356,6 +395,7 @@ class SchedulerCache:
         with self._lock:
             if self._gate(self.delete_queue, name):
                 return
+            self.dirty.mark_queues()
             self.queues.pop(name, None)
             # a recreated queue gets a fresh status write
             self._queue_status_written.pop(name, None)
@@ -367,6 +407,7 @@ class SchedulerCache:
         with self._lock:
             if self._gate(self.add_priority_class, pc):
                 return
+            self.dirty.mark_priority_classes()
             self.priority_classes[pc.name] = pc
             if pc.global_default:
                 self.default_priority = pc.value
@@ -375,6 +416,7 @@ class SchedulerCache:
         with self._lock:
             if self._gate(self.delete_priority_class, name):
                 return
+            self.dirty.mark_priority_classes()
             pc = self.priority_classes.pop(name, None)
             if pc is not None and pc.global_default:
                 self.default_priority = 0
@@ -545,16 +587,20 @@ class SchedulerCache:
         [(job, changed, need_record)].  A changed PodGroup is written; a
         condition-only update is rate-limited to one write per 60 s plus
         jitter (job_updater.go:20-31); events and conditions are rendered
-        for every job that needs a record."""
+        for every job that needs a record.  A changed job is marked dirty:
+        the next delta open re-reads exactly these jobs' open state."""
         to_write, ops = [], []
         with self._lock:
             now = time.monotonic()
             next_write = self._status_next_write
             jitter = self._jitter.uniform(60.0, 90.0, size=len(updates)).tolist()
+            note_job = self.dirty.note_job
             for i, (job, changed, need_record) in enumerate(updates):
                 pg = job.pod_group
                 if pg is None or self.jobs.get(job.uid) is None:
                     continue  # deleted mid-cycle: no write, no events
+                if changed:
+                    note_job(job.uid)
                 if need_record:
                     ops.extend(self._render_job_status_ops(job))
                 if not changed and now < next_write.get(job.uid, 0.0):
@@ -635,3 +681,54 @@ class SchedulerCache:
                 job.priority = pc.value if pc is not None else self.default_priority
                 ci.jobs[uid] = job
             return ci
+
+    def take_dirty(self):
+        """Consume the accumulated ingest churn (one session open's input).
+        During the session the gate defers ingest, so no stamp lands
+        mid-cycle except the cache's own status staging at close."""
+        with self._lock:
+            delta = self.dirty.take()
+            self.last_open_version = delta.version
+            return delta
+
+    def session_view_delta(self, delta) -> ClusterInfo:
+        """``session_view`` by delta: refresh only the dirty jobs in the
+        persistent open cache (``cache/dirty.py``), then hand the session
+        shallow copies.  The same membership filter and priority resolution
+        run, only for the jobs whose inputs could have moved since the last
+        open, so the result equals ``session_view``'s."""
+        oc = self.open_cache
+        with self._lock:
+            ci = ClusterInfo(self.spec)
+            ci.nodes = {name: n for name, n in self.nodes.items() if n.ready}
+            ci.queues = dict(self.queues)
+            jobs, pg_status = oc.jobs, oc.pg_status
+            pcs_get = self.priority_classes.get
+            for uid in delta.jobs:
+                job = self.jobs.get(uid)
+                member = job is not None and job.pod_group is not None
+                if member and job.queue not in self.queues:
+                    logger.warning("job %s queue %s not found, skipped", uid, job.queue)
+                    member = False
+                if not member:
+                    jobs.pop(uid, None)
+                    pg_status.pop(uid, None)
+                    continue
+                pg = job.pod_group
+                pc = pcs_get(pg.priority_class) if pg.priority_class else None
+                job.priority = pc.value if pc is not None else self.default_priority
+                jobs[uid] = job
+                pg_status[uid] = (pg.phase, pg.running, pg.failed, pg.succeeded)
+            ci.jobs = dict(jobs)
+            return ci
+
+    def rebuild_open_cache(self, cluster: ClusterInfo, pg_status) -> None:
+        """Reseed the open cache after a full session open: ``cluster.jobs``
+        and ``pg_status`` are what the session was just handed."""
+        oc = self.open_cache
+        oc.jobs = dict(cluster.jobs)
+        oc.pg_status = dict(pg_status)
+        oc.gate_dropped_rows = set()
+        oc.valid = True
+        # the full open cleared every session job's fit diagnostics
+        self.fit_state_jobs.clear()

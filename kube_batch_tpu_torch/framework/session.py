@@ -10,10 +10,17 @@ solves on the device and replays the assignment (``actions/allocate.py``);
 the verbs serve the replay's per-task Statement path, backfill, reclaim
 and preempt.
 
-Not ported: isolated (deep-cloned) sessions for what-ifs, the delta open
-and close against the previous cycle (this open rescans every job, as the
-JAX package does with ``cache.delta_enabled = False``, so there is no
-fit-state bookkeeping for it either), the tracer and metrics.
+Across cycles, as the JAX package's defaults do: when churn is low the
+open is a delta against the previous cycle's open state (``cache/dirty.py``):
+only dirty jobs are re-derived, and only jobs recorded by
+``note_fit_state`` have last cycle's fit diagnostics cleared.  The close's
+status pass visits only rows whose inputs moved (``j_touched``) plus the
+jobs that must report.  The full forms stay as the oracles behind the JAX
+package's switches: ``cache.delta_enabled = False`` (``KB_SNAPSHOT_DELTA=0``)
+and ``KB_DELTA_CLOSE=0``.
+
+Not ported: isolated (deep-cloned) sessions for what-ifs, the tracer and
+metrics.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from kube_batch_tpu_torch.api.types import (
 from kube_batch_tpu_torch.device import resolve_device
 from kube_batch_tpu_torch.framework.conf import Tier
 from kube_batch_tpu_torch.ops.scoring import ScoreWeights
+from kube_batch_tpu_torch.utils.switches import switch_on
 
 # fn-kind names used in the per-plugin registries
 JOB_ORDER, QUEUE_ORDER, TASK_ORDER = "job_order", "queue_order", "task_order"
@@ -99,7 +107,7 @@ class FitFailure(Exception):
 
 class Session:
     def __init__(self, cache, cluster: ClusterInfo, tiers: List[Tier],
-                 device: torch.device):
+                 device: torch.device, open_reuse=None, dirty_jobs=frozenset()):
         self.uid = str(uuid.uuid4())
         self.cache = cache
         # where the session's device programs run
@@ -131,16 +139,27 @@ class Session:
         self.session_excluded_nodes: set = set()
         # PodGroup statuses at open (session.go:102-105): the status pass
         # compares against them, since the session mutates the PodGroup in
-        # place.  The same pass clears last cycle's fit diagnostics.
+        # place.  The same pass clears last cycle's fit diagnostics, or the
+        # stale fit errors would replay forever.  ``open_reuse`` (the
+        # cache's OpenCache) is its delta form: the cache kept the at-open
+        # statuses across cycles, and only jobs recorded by note_fit_state,
+        # or dirty, pay the clearing visit.
         self.pod_group_status_at_open: Dict[str, tuple] = {}
-        for job in self.jobs.values():
-            job.nodes_fit_delta = {}
-            job.nodes_fit_errors = {}
-            job.job_fit_errors = ""
-            pg = job.pod_group
-            if pg is not None:
-                self.pod_group_status_at_open[job.uid] = (
-                    pg.phase, pg.running, pg.failed, pg.succeeded)
+        if open_reuse is not None:
+            fit_jobs = cache.fit_state_jobs
+            for uid in fit_jobs | set(dirty_jobs):
+                job = self.jobs.get(uid)
+                if job is not None:
+                    _clear_fit_state(job)
+            fit_jobs.clear()
+            self.pod_group_status_at_open = dict(open_reuse.pg_status)
+        else:
+            at_open = self.pod_group_status_at_open
+            for job in self.jobs.values():
+                _clear_fit_state(job)
+                pg = job.pod_group
+                if pg is not None:
+                    at_open[job.uid] = (pg.phase, pg.running, pg.failed, pg.succeeded)
         # set once the ColumnStore's session job rows are synced
         self.rows_synced = False
         self._total_alloc_cache = None
@@ -158,6 +177,12 @@ class Session:
 
     def drop_job(self, uid: str) -> None:
         del self.jobs[uid]
+
+    def note_fit_state(self, job: JobInfo) -> None:
+        """Record that ``job`` now carries fit diagnostics (nodes_fit_delta,
+        nodes_fit_errors, job_fit_errors): the delta open clears exactly
+        these jobs.  Every write site of those fields calls this."""
+        self.cache.fit_state_jobs.add(job.uid)
 
     def session_rows(self):
         """(rows, jobs) of the session job set, from the synced j_sess
@@ -393,6 +418,12 @@ class Session:
         if (condition.type == "Unschedulable" and condition.status == "True"
                 and condition.transition_id == self.uid):
             self.unschedulable_marked.add(job.uid)
+        cols = self.columns
+        if job._cols is cols and job._row >= 0:
+            # conditions feed the close pass's need-record set and its
+            # touched-row visit: the delta close must see this write
+            cols.j_has_conds[job._row] = True
+            cols.j_touched[job._row] = True
         for i, c in enumerate(job.pod_group.conditions):
             if c.type == condition.type:
                 job.pod_group.conditions[i] = condition
@@ -473,6 +504,15 @@ class Statement:
         self.operations = []
 
 
+def _clear_fit_state(job: JobInfo) -> None:
+    if job.nodes_fit_delta:
+        job.nodes_fit_delta = {}
+    if job.nodes_fit_errors:
+        job.nodes_fit_errors = {}
+    if job.job_fit_errors:
+        job.job_fit_errors = ""
+
+
 # ---- session lifecycle (framework/framework.go:30-62) -------------------
 
 def open_session(cache, tiers: List[Tier], device=None) -> Session:
@@ -480,18 +520,51 @@ def open_session(cache, tiers: List[Tier], device=None) -> Session:
     its live objects, sync the column job rows, run every plugin's
     OnSessionOpen, then drop gang-invalid jobs, marking them Unschedulable
     (session.go:107-124).  ``device`` is where the session's device
-    programs run (None means CUDA; see ``kube_batch_tpu_torch.device``)."""
+    programs run (None means CUDA; see ``kube_batch_tpu_torch.device``).
+
+    The open is incremental when churn allows: with the delta enabled, a
+    valid open cache, no queue or priority-class change and at most
+    ``max(32, threshold × jobs)`` dirty jobs, the membership view, the
+    at-open statuses, the fit-state clears and the column job rows are
+    deltas keyed on the cache's dirty sets; otherwise the full rebuild
+    runs and reseeds the open cache.  Any exception invalidates the open
+    cache, so the next open is full."""
     from kube_batch_tpu_torch.framework.interface import get_plugin_builder
 
     dev = resolve_device(device)
     cache.begin_exclusive_session()
+    oc = cache.open_cache
     try:
-        ssn = Session(cache, cache.session_view(), tiers, dev)
+        delta = cache.take_dirty()
+        use_delta = (cache.delta_enabled and oc.valid
+                     and not (delta.full or delta.queues_changed
+                              or delta.priority_classes_changed)
+                     and len(delta.jobs) <= max(
+                         32, cache.delta_churn_threshold * len(oc.jobs)))
+        if use_delta:
+            cache.last_open_path = "delta"
+            cache.last_churn = delta.churn_fraction(len(oc.jobs))
+            cluster = cache.session_view_delta(delta)
+        else:
+            cache.last_open_path = "full"
+            cache.last_churn = delta.churn_fraction(len(cache.jobs))
+            cluster = cache.session_view()
+        ssn = Session(cache, cluster, tiers, dev,
+                      open_reuse=oc if use_delta else None,
+                      dirty_jobs=delta.jobs if use_delta else frozenset())
+        if not use_delta:
+            # reseed the open cache from this full rebuild, before the gate
+            # mutates ssn.jobs (the same dict as cluster.jobs)
+            cache.rebuild_open_cache(cluster, ssn.pod_group_status_at_open)
         cols = ssn.columns
         # the job rows (j_sess membership, j_min, j_queue, ...) before the
         # plugin opens: proportion's open, the gang gate, the snapshot and
         # the close status pass all read them
-        cols.sync_session_rows(ssn)
+        if use_delta:
+            cols.sync_session_rows(ssn, dirty_uids=delta.jobs,
+                                   restore_rows=oc.gate_dropped_rows)
+        else:
+            cols.sync_session_rows(ssn)
         ssn.rows_synced = True
         for tier in tiers:
             for opt in tier.plugins:
@@ -513,6 +586,7 @@ def open_session(cache, tiers: List[Tier], device=None) -> Session:
                              for i in np.flatnonzero(valid_num < cols.j_min[rows])]
         else:
             gate_jobs = list(ssn.jobs.items())
+        dropped_rows = set()
         for uid, job in gate_jobs:
             reason = ssn.job_valid(job)
             if reason is not None:
@@ -527,8 +601,16 @@ def open_session(cache, tiers: List[Tier], device=None) -> Session:
                 ssn.gate_dropped_jobs.append(job)
                 ssn.drop_job(uid)
                 if job._cols is cols and job._row >= 0:
+                    # the dropped job leaves the snapshot too; its row is
+                    # kept so the next delta open re-admits it to the vote
                     cols.j_sess[job._row] = False
+                    dropped_rows.add(job._row)
+        oc.gate_dropped_rows = dropped_rows
     except BaseException:
+        # a half-opened session may have consumed dirty marks without
+        # refreshing the open cache: the next open rebuilds from scratch
+        oc.invalidate()
+        cache.dirty.mark_full()
         cache.end_exclusive_session()
         raise
     return ssn
@@ -580,9 +662,31 @@ def _close_status_columnar(ssn: Session):
     """The close-session status pass over the counts matrix: the phase
     derivation of job_status (session.go:151-189) as arithmetic, and a
     per-job visit only for jobs that changed or have something to report.
-    Returns ([(job, changed, need_record)], per-queue phase counts)."""
+    Returns ([(job, changed, need_record)], per-queue phase counts).
+
+    Delta form: every count write, session row re-sync and mid-cycle phase
+    or condition write stamps ``cols.j_touched``.  A row not stamped since
+    the last close has the same derivation inputs (counts, phase,
+    min_member, unschedulable marks), so its phase and count writes would
+    be no-ops and its at-open compare would read unchanged: the visit
+    covers the touched rows plus the standing need-record set (stuck
+    tasks, Pending or Unknown phases, jobs with conditions), and the
+    per-queue counts are one bincount over every session row's j_phase.
+    ``KB_DELTA_CLOSE=0`` visits every row."""
     cols = ssn.columns
-    rows = np.flatnonzero(cols.j_sess)
+    rows_all = np.flatnonzero(cols.j_sess)
+    if switch_on("KB_DELTA_CLOSE") and rows_all.size:
+        jc = cols.j_counts
+        phase_codes = cols.j_phase[rows_all]
+        visit = (cols.j_touched[rows_all]
+                 | ((jc[rows_all, int(TaskStatus.PENDING)]
+                     + jc[rows_all, int(TaskStatus.ALLOCATED)]) > 0)
+                 | (phase_codes == PHASE_CODE[PodGroupPhase.PENDING])
+                 | (phase_codes == PHASE_CODE[PodGroupPhase.UNKNOWN])
+                 | cols.j_has_conds[rows_all])
+        rows = rows_all[visit]
+    else:
+        rows = rows_all
     jobs_list = [cols.job_by_row[r] for r in rows.tolist()]
     counts = cols.j_counts[rows]
     running_l = counts[:, int(TaskStatus.RUNNING)].tolist()
@@ -628,10 +732,11 @@ def _close_status_columnar(ssn: Session):
         need_record = bool(stuck_l[i]) or phase is PENDING or phase is UNKNOWN
         if changed or need_record or pg.conditions:
             updates.append((job, changed, need_record))
-    # per-queue podgroup-phase counts (QueueStatus): one bincount over the
-    # session rows' phase codes
+    # per-queue podgroup-phase counts (QueueStatus): one bincount over every
+    # session row's phase code — visited rows were just rewritten, and an
+    # unvisited row's phase could not move this cycle
     qcounts: Dict[str, dict] = {}
-    sel = rows[cols.j_has_pg[rows] & ~cols.j_shadow[rows]]
+    sel = rows_all[cols.j_has_pg[rows_all] & ~cols.j_shadow[rows_all]]
     pcodes = cols.j_phase[sel]
     ok = pcodes >= 0
     sel, pcodes = sel[ok], pcodes[ok]
@@ -645,6 +750,9 @@ def _close_status_columnar(ssn: Session):
                 qc[CODE_PHASE[code].value.lower()] = int(bc[qi, code])
             qcounts[cols.queue_names[qi]] = qc
     _count_gate_dropped(ssn, qcounts)
+    # consumed: ingest applied after this point (deferred mutations, the
+    # residue reverts) stamps rows for the next cycle's visit
+    cols.j_touched[:] = False
     return updates, qcounts
 
 

@@ -83,6 +83,7 @@ class GangPlugin(Plugin):
             fit_errors = [fe.error() for fe in job.nodes_fit_errors.values()]
             message = job.fit_error() + (f"; {fit_errors[0]}" if fit_errors else "")
             job.job_fit_errors = message  # read by record_job_status_event
+            ssn.note_fit_state(job)
             ssn.update_job_condition(job, PodGroupCondition(
                 type="Unschedulable",
                 status="True",

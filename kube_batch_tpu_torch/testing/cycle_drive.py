@@ -5,12 +5,15 @@
         [--device cuda|cpu] [--profile]
     python -m kube_batch_tpu_torch.testing.cycle_drive --overcommit
         [--running 40000] [--pending 20000] [--nodes 5000] [--device ...]
+    python -m kube_batch_tpu_torch.testing.cycle_drive --steady [--oracle]
+        [--tasks 50000] [--nodes 5000] [--cycles 8] [--warmup 2]
+        [--device ...]
 
-Both drives run three cycles of ``Scheduler.run_once`` under the shipped
-five-action conf (``enqueue, reclaim, allocate, backfill, preempt``,
-``config/kube-batch-tpu-conf.yaml``).  Before every cycle but the first a
-kubelet pass deletes the pods the last cycle evicted and starts the bound
-pods Running.
+The first two drives run three cycles of ``Scheduler.run_once`` under
+the shipped five-action conf (``enqueue, reclaim, allocate, backfill,
+preempt``, ``config/kube-batch-tpu-conf.yaml``).  Before every cycle but
+the first a kubelet pass deletes the pods the last cycle evicted and
+starts the bound pods Running.
 
 The headline drive (:func:`drive`) builds ``synthetic_cluster(tasks,
 nodes, gang_size=4, n_queues=3)`` through the port's cache handlers (timed
@@ -32,6 +35,18 @@ Cycle 1: reclaim evicts q0 pods and pipelines q1's claimants; allocate,
 backfill and preempt run.  Cycle 2: with the evicted pods deleted, the
 claimants bind.  Cycle 3: one more cycle.
 
+The steady-state drive (:func:`drive_steady`) is the counterpart of the
+JAX package's ``bench.py`` ``multicycle_bench`` (and, delta leg against
+oracle leg, ``run_multicycle_pair``): one cache built by
+``synthetic_cluster(tasks, nodes, gang_size=4, n_queues=3)``, its axes
+reserved for the wobble's ceiling, ``warmup`` + ``cycles`` back-to-back
+cycles.  Before every cycle but the first the kubelet pass runs, then
+2 % of the gangs whose pods are all bound complete (their pods and
+PodGroup are deleted) and arrivals in gangs of 4 refill the pod count to
+``tasks × (1 + 0.1·U(−1, 1))``.  ``--oracle`` turns the three cross-cycle
+mechanisms off together (``KB_SNAPSHOT_DELTA=0``, ``KB_DEVICE_CACHE=0``,
+``KB_DELTA_CLOSE=0``), which must decide identically.
+
 After each cycle the drive checks the column store against the object
 model, every node's ``idle ≥ −quanta`` and ``used ≤ allocatable +
 quanta``, that no pod was bound twice, and the evictions: every evicted
@@ -41,7 +56,10 @@ queue than their claimant, and no gang was evicted below its
 MinAvailable.  It records per cycle the stage times (open, each action,
 close), the allocate phases, the reclaim and preempt solves' rounds and
 ms, binds, evictions, pipelined claimants, kernel launches, (on the card)
-host syncs, and what stayed unplaced and why.  A cycle is timed with the
+host syncs, what stayed unplaced and why, the open and snapshot paths,
+the churn, the resident cache's counters for the cycle, and a digest of
+the decisions (binds, evictions, pipelined claimants, task statuses,
+PodGroup phases).  A cycle is timed with the
 cyclic garbage collector paused after a full collection, as the JAX
 package's ``bench.py`` times its cycles.  With ``--profile`` each cycle
 runs under ``torch.profiler`` instead of the sync count, and its record
@@ -57,7 +75,10 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import hashlib
+import itertools
 import json
+import os
 import time
 import warnings
 from typing import Callable, Dict, List
@@ -65,7 +86,10 @@ from typing import Callable, Dict, List
 import numpy as np
 import torch
 
+from kube_batch_tpu_torch.api.convert import host_field
 from kube_batch_tpu_torch.api.pod import GROUP_NAME_ANNOTATION, Pod, PodGroup
+from kube_batch_tpu_torch.api.resident import scatter_summary
+from kube_batch_tpu_torch.api.snapshot import DeviceSnapshot
 from kube_batch_tpu_torch.api.types import PodGroupPhase, PodPhase, TaskStatus
 from kube_batch_tpu_torch.framework.conf import load_scheduler_conf, shipped_conf_path
 from kube_batch_tpu_torch.ops import kernels
@@ -79,6 +103,9 @@ from kube_batch_tpu_torch.testing.synthetic import (
 
 GANG = 4
 N_QUEUES = 3
+#: the switches of the three cross-cycle mechanisms (delta open, resident
+#: snapshot, delta close); all "0" is the oracle
+ORACLE_SWITCHES = ("KB_SNAPSHOT_DELTA", "KB_DEVICE_CACHE", "KB_DELTA_CLOSE")
 
 
 def fail(msg: str) -> None:
@@ -211,27 +238,89 @@ def add_arrivals(cache, n_pods: int, seed: int, tag: str) -> None:
 
 
 def observed(cache) -> dict:
-    """Binds, evictions and every task's (status, node): what two runs
-    must share."""
+    """Binds, evictions, every task's (status, node) and every PodGroup's
+    phase: what two runs must share."""
     return {
         "binds": dict(cache.binder.binds),
         "evicts": list(cache.evictor.evicts),
         "tasks": {k: (int(t.status), t.node_name)
                   for job in cache.jobs.values() for k, t in job.tasks.items()},
+        "podgroups": {uid: None if job.pod_group.phase is None else job.pod_group.phase.value
+                      for uid, job in cache.jobs.items() if job.pod_group is not None},
     }
 
 
+def digest(state: dict, pipelined: int) -> str:
+    """A short hash of :func:`observed`'s state and the cycle's pipelined
+    claimants: two legs that decide alike print the same digest."""
+    text = json.dumps([state, pipelined], sort_keys=True)
+    return hashlib.sha256(text.encode()).hexdigest()[:16]
+
+
+@contextlib.contextmanager
+def oracle_switches(oracle: bool):
+    """With ``oracle``, set the three cross-cycle switches to 0 for the
+    block (the cache reads ``KB_SNAPSHOT_DELTA`` when it is made), and
+    restore the environment after it."""
+    saved = {k: os.environ.get(k) for k in ORACLE_SWITCHES}
+    if oracle:
+        os.environ.update({k: "0" for k in ORACLE_SWITCHES})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class SwapCheck:
+    """Holds every swap of a cycle against a fresh upload of its host
+    snapshot: ``on_swap`` (the column store's hook) keeps a copy of every
+    host field and of every swapped tensor, and ``verify`` compares them
+    after the cycle with ``torch.equal`` and raises on a difference."""
+
+    def __init__(self):
+        self.pending: List[tuple] = []
+        self.swaps = 0
+        self.ms = 0.0
+
+    def on_swap(self, snap, out) -> None:
+        t = time.perf_counter()
+        self.pending.append(({n: host_field(n, getattr(snap, n)).copy()
+                              for n in DeviceSnapshot._fields},
+                             {n: getattr(out, n).clone() for n in DeviceSnapshot._fields}))
+        self.swaps += 1
+        self.ms += (time.perf_counter() - t) * 1e3
+
+    def verify(self, where: str) -> int:
+        for host, dev in self.pending:
+            for name, arr in host.items():
+                t = dev[name]
+                if not torch.equal(t, torch.from_numpy(arr).to(t.device)):
+                    fail(f"{where}: resident {name} differs from a fresh upload")
+        n, self.pending = len(self.pending), []
+        return n
+
+
 def run_cycles(cache, device, churn: Callable[[int], dict], ingest_s: float,
-               keep_states: bool = False, profile: bool = False) -> dict:
-    """Three cycles of the shipped conf on ``cache``; ``churn(c)`` runs
-    before cycle ``c`` > 0 and returns what it did.  Returns the report."""
+               keep_states: bool = False, profile: bool = False,
+               n_cycles: int = 3, check_swaps: bool = False) -> dict:
+    """``n_cycles`` cycles of the shipped conf on ``cache``; ``churn(c)``
+    runs before cycle ``c`` > 0 and returns what it did.  With
+    ``check_swaps`` every resident swap is held against a fresh upload
+    (:class:`SwapCheck`).  Returns the report."""
     sched = Scheduler(cache, conf=load_scheduler_conf(shipped_conf_path()), device=device)
     actions = {a.name: a for a in sched.actions}
     allocate = actions["allocate"]
+    cols = cache.columns
+    check = SwapCheck()
+    cols.on_swap = check.on_swap if check_swaps else None
     cycles: List[dict] = []
     states: List[dict] = []
     n_evicts = 0
-    for c in range(3):
+    for c in range(n_cycles):
         t = time.perf_counter()
         churned = kubelet(cache, cache.evictor.evicts[n_evicts:]) if c > 0 else {}
         n_evicts = len(cache.evictor.evicts)
@@ -240,6 +329,8 @@ def run_cycles(cache, device, churn: Callable[[int], dict], ingest_s: float,
         churn_s = time.perf_counter() - t
         pending = int(cache.columns.schedulable_pending_mask().sum())
         binds_before = len(cache.binder.binds)
+        resident_before = cols.resident_counters().get("single", {})
+        check.ms, check.swaps = 0.0, 0
         kernels.reset_launches()
         gc.collect()
         gc.disable()
@@ -255,6 +346,7 @@ def run_cycles(cache, device, churn: Callable[[int], dict], ingest_s: float,
         finally:
             gc.enable()
         launches = dict(kernels.launches)
+        swaps_checked = check.verify(f"cycle {c + 1}") if check_swaps else None
         errs = cache.columns.check_consistency(cache)
         if errs:
             fail(f"cycle {c + 1}: column store disagrees with objects: {errs[:5]}")
@@ -277,13 +369,23 @@ def run_cycles(cache, device, churn: Callable[[int], dict], ingest_s: float,
                           if j.pod_group is not None and j.task_status_index.get(TaskStatus.PENDING)
                           for cond in j.pod_group.conditions
                           if cond.type == "Unschedulable"})
+        resident = cols.resident_counters().get("single")
+        if resident is not None:
+            resident = scatter_summary({"single": {
+                k: v - resident_before.get(k, 0) for k, v in resident.items()}})["single"]
+        state = observed(cache)
+        pipelined = actions["reclaim"].last_stats.get("pipelined", 0)
         cycles.append(dict(
             cycle=c + 1, pending=pending, **churned, churn_s=churn_s, mode=mode,
+            open_path=cache.last_open_path, snapshot_path=cols.last_snapshot_path,
+            churn=cache.last_churn, resident=resident, swaps=check.swaps,
+            swaps_checked=swaps_checked, swap_check_ms=check.ms,
+            digest=digest(state, pipelined),
             topk=topk, rounds=allocate.last_solve_rounds,
             new_binds=len(cache.binder.binds) - binds_before,
             binds=len(cache.binder.binds), new_evicts=len(new_evicts),
             evicts=len(cache.evictor.evicts),
-            pipelined_claimants=actions["reclaim"].last_stats.get("pipelined", 0),
+            pipelined_claimants=pipelined,
             reclaim=dict(actions["reclaim"].last_stats),
             preempt=dict(actions["preempt"].last_stats, committed=len(
                 actions["preempt"].last_evictions)),
@@ -300,7 +402,8 @@ def run_cycles(cache, device, churn: Callable[[int], dict], ingest_s: float,
         if profile:
             cycles[-1].update(seen)
         if keep_states:
-            states.append(observed(cache))
+            states.append(state)
+    cols.on_swap = None
     report = dict(device=str(sched.device), ingest_s=ingest_s, cycles=cycles)
     if keep_states:
         report["states"] = states
@@ -340,9 +443,84 @@ def drive_overcommit(n_running: int, n_pending: int, n_nodes: int, seed: int = 0
     return dict(running=n_running, pending=n_pending, nodes=n_nodes, **report)
 
 
+def drive_steady(n_tasks: int, n_nodes: int, cycles: int = 8, warmup_cycles: int = 2,
+                 churn_frac: float = 0.02, wobble: float = 0.1, seed: int = 0,
+                 device=None, oracle: bool = False, check_swaps: bool = False,
+                 keep_states: bool = False, profile: bool = False) -> dict:
+    """The steady-state drive (module docstring).  ``oracle`` turns the
+    three cross-cycle mechanisms off; ``check_swaps`` holds every resident
+    swap against a fresh upload; ``profile`` adds each cycle's
+    :func:`device_profile`.  The report's ``steady`` holds the p50s over
+    the cycles after the warmup."""
+    with oracle_switches(oracle):
+        t = time.perf_counter()
+        cache = synthetic_cluster(n_tasks, n_nodes, gang_size=GANG, n_queues=N_QUEUES,
+                                  seed=seed)
+        # the wobble's ceiling, reserved so the axes never grow mid-drive
+        cache.columns.reserve(n_tasks=int(n_tasks * 1.15),
+                              n_jobs=int(n_tasks / GANG * 1.15) + 8)
+        ingest_s = time.perf_counter() - t
+        rng = np.random.default_rng(seed)
+        serial = itertools.count(1_000_000)
+
+        def churn(c: int) -> dict:
+            """bench.py's churn_step: complete churn_frac of the gangs
+            whose pods are all bound, then refill to the wobbled count."""
+            k = max(1, int(len(cache.jobs) * churn_frac))
+            done = 0
+            for uid, job in list(cache.jobs.items()):
+                if done >= k:
+                    break
+                pods = [cache.pods.get(key) for key in job.tasks]
+                if not pods or any(p is None or p.node_name is None for p in pods):
+                    continue
+                for p in sorted(pods, key=lambda p: p.name):
+                    cache.delete_pod(p)
+                cache.delete_pod_group(uid)
+                done += 1
+            want = int(n_tasks * (1.0 + wobble * float(rng.uniform(-1, 1))))
+            arrived = 0
+            while len(cache.pods) + GANG <= want:
+                j = next(serial)
+                cache.add_pod_group(PodGroup(name=f"mc{j}", namespace="bench",
+                                             min_member=GANG, queue=f"q{j % N_QUEUES}",
+                                             creation_index=j))
+                for i in range(GANG):
+                    cache.add_pod(Pod(
+                        name=f"mc{j}-{i}", namespace="bench",
+                        requests={"cpu": float(rng.choice(CPU_CHOICES)),
+                                  "memory": float(rng.choice(MEM_CHOICES))},
+                        annotations={GROUP_NAME_ANNOTATION: f"mc{j}"},
+                        phase=PodPhase.PENDING, creation_index=j * 10 + i))
+                arrived += GANG
+            return {"completed_gangs": done, "arrived": arrived}
+
+        report = run_cycles(cache, device, churn, ingest_s, keep_states, profile,
+                            n_cycles=warmup_cycles + cycles, check_swaps=check_swaps)
+    steady = report["cycles"][warmup_cycles:]
+
+    def p50(values) -> float:
+        return float(np.percentile(values, 50)) if values else 0.0
+
+    report["steady"] = {
+        "open_plus_snapshot_build_ms_p50": p50(
+            [c["stages_ms"]["open"] + c["allocate_ms"].get("snapshot_build", 0.0)
+             for c in steady]),
+        "wall_ms_p50": p50([c["wall_ms"] for c in steady]),
+        "close_ms_p50": p50([c["stages_ms"]["close"] for c in steady]),
+        "open_paths": [c["open_path"] for c in steady],
+    }
+    return dict(tasks=n_tasks, nodes=n_nodes, oracle=oracle, warmup_cycles=warmup_cycles,
+                **report)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--overcommit", action="store_true")
+    ap.add_argument("--steady", action="store_true")
+    ap.add_argument("--oracle", action="store_true")
+    ap.add_argument("--cycles", type=int, default=8)
+    ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--tasks", type=int, default=50_000)
     ap.add_argument("--nodes", type=int, default=5_000)
     ap.add_argument("--arrivals", type=int, default=5_000)
@@ -352,7 +530,10 @@ def main() -> None:
     ap.add_argument("--device", default=None)
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
-    if args.overcommit:
+    if args.steady:
+        out = drive_steady(args.tasks, args.nodes, args.cycles, args.warmup,
+                           device=args.device, oracle=args.oracle, profile=args.profile)
+    elif args.overcommit:
         out = drive_overcommit(args.running, args.pending, args.nodes,
                                device=args.device, profile=args.profile)
     else:

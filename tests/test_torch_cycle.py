@@ -14,7 +14,10 @@ phase, counts and conditions, the written pod conditions (the fit-error
 messages) and the queue statuses must be equal, and the port's column
 store must agree with its object model.  The JAX side runs at its
 defaults: delta open, warm carry, the guard, and the sharded solve on the
-8-device CPU mesh from 129 nodes.
+8-device CPU mesh from 129 nodes.  The port runs each case twice: at its
+defaults (the delta open and close, the resident snapshot) and as the
+oracle, with those three switched off, so both forms are held against
+the JAX package.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ from kube_batch_tpu_torch.framework.conf import (
 )
 from kube_batch_tpu_torch.scheduler import Scheduler
 from kube_batch_tpu_torch.testing import synthetic as port_synth
+from kube_batch_tpu_torch.testing.cycle_drive import oracle_switches
 from fixtures import GiB, build_node, build_pod
 
 N_CYCLES = 3
@@ -325,11 +329,21 @@ def _assert_same(want: dict, got: dict, where: str) -> None:
         assert w == g, f"{where}: {field} differ"
 
 
-@pytest.mark.parametrize("conf", sorted(CONFS))
+#: (conf, the port's path): "defaults" runs the port's cross-cycle forms,
+#: "oracle" switches them off (KB_SNAPSHOT_DELTA, KB_DEVICE_CACHE and
+#: KB_DELTA_CLOSE at 0) around the port's cycles only — the JAX side keeps
+#: its defaults
+PATHS = [pytest.param(conf, path, id=conf if path == "defaults" else f"{conf}-{path}")
+         for path in ("defaults", "oracle") for conf in sorted(CONFS)]
+
+
+@pytest.mark.parametrize("conf,path", PATHS)
 @pytest.mark.parametrize("fixture", sorted(FIXTURES))
-def test_cycles_match_jax(fixture, conf):
+def test_cycles_match_jax(fixture, conf, path):
     jcache, pcache = FIXTURES[fixture]()
     jconf, pconf = CONFS[conf]()
+    oracle = path == "oracle"
+    pcache.delta_enabled = not oracle
     jsched = JaxScheduler(jcache, conf=jconf)
     psched = Scheduler(pcache, conf=pconf, device="cpu")
     actions = {a.name: a for a in psched.actions}
@@ -340,10 +354,16 @@ def test_cycles_match_jax(fixture, conf):
             "best_effort": 0}
     for cycle in range(N_CYCLES):
         jsched.run_once()
-        psched.run_once()
-        where = f"{fixture} {conf} cycle {cycle}"
+        with oracle_switches(oracle):
+            psched.run_once()
+        where = f"{fixture} {conf} {path} cycle {cycle}"
         _assert_same(observed(jcache), observed(pcache), where)
         assert pcache.columns.check_consistency(pcache) == [], where
+        # every job left carrying fit diagnostics was recorded for the next
+        # delta open's clearing (note_fit_state at every write site)
+        carrying = {uid for uid, j in pcache.jobs.items()
+                    if j.nodes_fit_delta or j.nodes_fit_errors or j.job_fit_errors}
+        assert carrying <= pcache.fit_state_jobs, where
         action = actions["allocate"]
         seen["binds"] = len(pcache.binder.binds)
         seen["evicts"] = len(pcache.evictor.evicts)
@@ -503,3 +523,25 @@ def test_round_cap_leaves_correlated_arrivals_unplaced_like_jax():
     assert action.last_topk is not None
     assert 0 < placed < n_arrivals
     assert pcache.columns.check_consistency(pcache) == []
+
+
+def test_steady_drive_on_the_cpu():
+    """chip_smoke's steady-state drive, small and on the CPU: the delta leg
+    (delta open and close, resident snapshot, every swap held against a
+    fresh upload) and the oracle leg decide identically in every cycle, and
+    the delta leg takes the delta open and the scatter path."""
+    from kube_batch_tpu_torch.testing.cycle_drive import drive_steady
+
+    kw = dict(n_tasks=2048, n_nodes=256, cycles=4, device="cpu", keep_states=True)
+    delta = drive_steady(**kw, check_swaps=True)
+    oracle = drive_steady(**kw, oracle=True)
+    assert [c["digest"] for c in delta["cycles"]] == [c["digest"] for c in oracle["cycles"]]
+    assert delta["states"] == oracle["states"]
+    steady = delta["cycles"][delta["warmup_cycles"]:]
+    assert "delta" in delta["steady"]["open_paths"]
+    assert set(oracle["steady"]["open_paths"]) == {"full"}
+    assert sum(c["resident"]["scatter_updates"] for c in steady if c["resident"]) > 0
+    assert all(c["swaps_checked"] == c["swaps"] for c in delta["cycles"])
+    assert sum(c["swaps"] for c in delta["cycles"]) > 0
+    assert all(c["resident"] is None for c in oracle["cycles"])
+    assert sum(c["completed_gangs"] for c in steady) > 0

@@ -98,13 +98,16 @@ def test_config_from_fields_drops_use_pallas():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Importing every port module, running a CPU solve and a five-action
-    cycle under the shipped conf (reclaim evicting) leaves no jax and no
-    kube_batch_tpu module loaded (kube_batch_tpu_torch itself shares the
+    """Importing every port module, running a CPU solve and two five-action
+    cycles under the shipped conf (reclaim evicting; the second open a
+    delta, its device programs reading resident tensors) leaves no jax and
+    no kube_batch_tpu module loaded (kube_batch_tpu_torch itself shares the
     prefix, so the match is exact on the package name)."""
     code = textwrap.dedent("""
         import sys
         import kube_batch_tpu_torch.actions.allocate as A
+        import kube_batch_tpu_torch.api.resident
+        import kube_batch_tpu_torch.cache.dirty
         import kube_batch_tpu_torch.ops.kernels
         import kube_batch_tpu_torch.ops._build
         import kube_batch_tpu_torch.testing.cycle_drive
@@ -125,6 +128,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "enqueue", "reclaim", "allocate", "backfill", "preempt"]
         sched.run_once()
         assert len(cache.evictor.evicts) > 0
+        for key in list(cache.evictor.evicts):
+            cache.delete_pod(cache.pods[key])
+        sched.run_once()
+        assert cache.last_open_path == "delta"
+        assert cache.columns.resident_counters()["single"]["version"] > 0
         bad = sorted(n for n in sys.modules
                      if n in ("jax", "jaxlib") or n.startswith(("jax.", "jaxlib."))
                      or n == "kube_batch_tpu" or n.startswith("kube_batch_tpu."))
