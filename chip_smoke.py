@@ -36,17 +36,27 @@ tensors refreshed by row scatters.
 The steady-state drive (``cycle_steady``, ``drive_steady``: the JAX
 package's ``bench.py`` ``multicycle_bench``) runs 2 + 8 back-to-back
 cycles on the 50 000-pod cluster — 2 % of the bound gangs complete and
-arrivals refill the pod count within ±10 % before each — twice: with the
-defaults (the delta leg, every resident swap held against a fresh upload
-of its host snapshot) and with the three mechanisms switched off (the
-oracle leg).  Every cycle's decisions must be equal between the legs,
-and the delta leg must take the delta open and the scatter path; one
-JSON line per cycle and leg, then the p50s of open + snapshot build and
-of the cycle's wall for both.  The headline and overcommit drives at
-4 096 × 1 024 (with host ports) and 2 048 / 1 024 / 256 run with the
-defaults on the card and as the oracle on the CPU, and must bind and
-evict identically.  Each phase prints one JSON line; any failure raises
-(non-zero exit).  The last three lines are the kernels'
+arrivals refill the pod count within ±10 % before each — four times: with
+the defaults (delta open and close, resident snapshot, the warm
+candidate-table carry, the guard plane), with ``KB_WARM=0`` (cold), with
+``KB_GUARD=0`` (noguard) and with the four cross-cycle mechanisms off (the
+oracle); every resident swap of the first three is held against a fresh
+upload of its host snapshot.  Every cycle's decisions must be equal
+across the legs, the defaults leg must take the delta open, the scatter
+path and the warm merge in every plan after its first, and every guarded
+leg's sentinel verdicts must be clean; one JSON line per cycle and leg
+(the warm plan, the table's rungs, exhaustion, solve ms, syncs, K2
+launches), then the p50s of each leg and the guard's overhead (defaults
+less noguard).  K2 is also timed at the warm path's re-rank rungs.  The
+guard phase (``drive_guard``, 4 096 × 1 024) audits clean cycles against
+the full solve, zeroes a resident capacity word in place (the cycle must
+fail closed, heal, and the demoted paths re-promote after the cooldown),
+sets a Running row's resident pending bit (the host checksum must trip),
+and replays the trip's bundle on the card and the CPU.  The headline and
+overcommit drives at 4 096 × 1 024 (with host ports) and 2 048 / 1 024 /
+256 run with the defaults on the card and as the oracle on the CPU, and
+must bind and evict identically.  Each phase prints one JSON line; any
+failure raises (non-zero exit).  The last three lines are the kernels'
 summary, the card's name and power limit, and ``{"ok": true, "device":
 ...}``.
 
@@ -59,6 +69,7 @@ import json
 import sys
 import time
 
+import numpy as np
 import torch
 
 from kube_batch_tpu_torch.testing.kernel_bench import (
@@ -78,8 +89,12 @@ ARRIVALS, MID_ARRIVALS, MID_PORTS = 5_000, 408, 0.1
 # small size for the CPU <-> CUDA comparison
 OC_RUNNING, OC_PENDING = 40_000, 20_000
 MID_OC = dict(n_running=2048, n_pending=1024, n_nodes=256)
-# the steady-state drive: warmup and measured cycles (bench.py:151)
+# the steady-state drive: warmup and measured cycles (bench.py:151), and its
+# legs (cycle_drive.LEGS: defaults, KB_WARM=0, KB_GUARD=0, the oracle)
 STEADY_WARMUP, STEADY_CYCLES = 2, 8
+STEADY_LEGS = ("defaults", "cold", "noguard", "oracle")
+# the warm path's re-rank rungs below the 8 192-row bucket (K2's rows there)
+WARM_RERANK_RUNGS = (128, 256, 512, 1024, 2048, 4096)
 KERNELS = ("masked_best_node_raw", "masked_topk_blocks", "enqueue_gate")
 
 
@@ -171,8 +186,9 @@ def phase_kernels(snap):
             dict(k1n, static_ok=torch.zeros_like(k1n["static_ok"])))
     del k1r, k1u, k1n, score, static_ok
 
-    # K2 at the compacted solve's bucket sizes, plus ragged node blocks
-    for P in (8192, T):
+    # K2 at the compacted solve's bucket sizes and at the warm path's
+    # re-rank rungs (128 up to the bucket), plus ragged node blocks
+    for P in WARM_RERANK_RUNGS + (8192, T):
         timed(f"K2_P{P}", k2_kernel, k2_case(snap, P), 10, 2, k2_bound)
     k2r = k2_case(snap, 1000, n_cols=1000)
     k2r["rows"] = k2r["rows"] + 17
@@ -360,6 +376,30 @@ def invariants(snap, res):
     return found
 
 
+def sentinel_cost(snap, res, config):
+    """The guard's added work on one allocate result at this size: the
+    sentinel's device time (``allocate_invariants`` + the eligibility
+    checksum, CUDA events) and the host checksum's time (host clock), with
+    the verdict, which must be 0 on a lawful solve."""
+    from kube_batch_tpu_torch.api.convert import snapshot_to_numpy
+    from kube_batch_tpu_torch.ops.invariants import (
+        allocate_invariants, eligibility_checksum, host_eligibility_checksum,
+    )
+    from kube_batch_tpu_torch.testing.kernel_bench import time_ms
+
+    verdict, _hist = allocate_invariants(snap, res, config)
+    check = int(eligibility_checksum(snap)) & 0xFFFFFFFF
+    host = snapshot_to_numpy(snap)
+    t = time.perf_counter()
+    host_check = host_eligibility_checksum(host)
+    host_ms = (time.perf_counter() - t) * 1e3
+    if int(verdict) != 0 or check != host_check:
+        fail(f"sentinel: verdict {int(verdict)}, checksum {check} / host {host_check}")
+    device_ms = time_ms(lambda: (allocate_invariants(snap, res, config),
+                                 eligibility_checksum(snap)), reps=20)
+    return dict(verdict=int(verdict), device_ms=device_ms, host_checksum_ms=host_ms)
+
+
 def phase_solve_full(snaps, config):
     from kube_batch_tpu_torch.actions.allocate import dispatch_allocate_solve
     from kube_batch_tpu_torch.ops import kernels
@@ -372,7 +412,7 @@ def phase_solve_full(snaps, config):
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         t = time.perf_counter()
-        res, mode, info = dispatch_allocate_solve(snap, config)
+        res, mode, info, _g = dispatch_allocate_solve(snap, config)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
         counts = dict(kernels.launches)
@@ -388,13 +428,14 @@ def phase_solve_full(snaps, config):
         inv = invariants(snap, res)
         # determinism: the same solve again, bit-identical
         t = time.perf_counter()
-        again, _, _ = dispatch_allocate_solve(snap, config)
+        again, _, _, _ = dispatch_allocate_solve(snap, config)
         torch.cuda.synchronize()
         again_ms = (time.perf_counter() - t) * 1e3
         bad = [f for f, x, y in zip(res._fields, res, again) if not same([x], [y])]
         if bad:
             fail(f"{label}: a second run differs in {bad}")
         placed = res.assigned >= 0
+        sentinel = sentinel_cost(snap, res, config)
         out[label] = dict(
             mode="full", placed=int(placed.sum()),
             pending=int(snap.task_pending.sum()),
@@ -402,7 +443,7 @@ def phase_solve_full(snaps, config):
             committed_jobs=int(res.committed.sum()),
             rounds_run=int(res.rounds_run), wall_ms=wall_ms,
             wall_ms_second_run=again_ms, peak_mem_gib=peak / 2**30,
-            launches=counts, invariants=inv, deterministic=True,
+            launches=counts, invariants=inv, deterministic=True, sentinel=sentinel,
         )
         results[label] = res
     emit("solve_full", shape=[N_TASKS, N_NODES], gang=GANG,
@@ -490,53 +531,122 @@ def phase_cycle_overcommit():
 
 
 def phase_cycle_steady():
-    """The steady-state drive at 50k × 5k on the card, delta leg against
-    oracle leg (module docstring)."""
+    """The steady-state drive at 50k × 5k on the card, four legs (module
+    docstring): equal decisions in every cycle, the defaults leg warm after
+    its first plan, every guarded leg's verdicts clean."""
     from kube_batch_tpu_torch.api.resident import scatter_summary
     from kube_batch_tpu_torch.testing.cycle_drive import drive_steady
 
     legs = {leg: drive_steady(N_TASKS, N_NODES, cycles=STEADY_CYCLES,
-                              warmup_cycles=STEADY_WARMUP, device="cuda",
-                              oracle=leg == "oracle", check_swaps=leg == "delta")
-            for leg in ("delta", "oracle")}
-    delta, oracle = legs["delta"], legs["oracle"]
-    for a, b in zip(delta["cycles"], oracle["cycles"]):
-        if a["digest"] != b["digest"]:
-            fail(f"cycle_steady: cycle {a['cycle']} decided differently "
-                 f"({a['digest']} / {b['digest']})")
-        if a["swaps_checked"] != a["swaps"]:
-            fail(f"cycle_steady: cycle {a['cycle']} checked {a['swaps_checked']} "
-                 f"of {a['swaps']} swaps")
-    steady = delta["cycles"][STEADY_WARMUP:]
+                              warmup_cycles=STEADY_WARMUP, device="cuda", leg=leg,
+                              check_swaps=leg != "oracle")
+            for leg in STEADY_LEGS}
+    base = legs["defaults"]
+    for leg, r in legs.items():
+        for a, b in zip(base["cycles"], r["cycles"]):
+            if a["digest"] != b["digest"]:
+                fail(f"cycle_steady: cycle {a['cycle']} of leg {leg} decided "
+                     f"differently ({a['digest']} / {b['digest']})")
+            if b["swaps_checked"] is not None and b["swaps_checked"] != b["swaps"]:
+                fail(f"cycle_steady: {leg} cycle {b['cycle']} checked "
+                     f"{b['swaps_checked']} of {b['swaps']} swaps")
+        guarded = leg != "noguard"
+        for c in r["cycles"]:
+            g = c["guard"]
+            if guarded and (g["trips"] or g["failed_closed"]
+                            or (c["mode"] != "idle" and not g["verdicts"])):
+                fail(f"cycle_steady: {leg} cycle {c['cycle']} guard {g}")
+            if not guarded and (g["enabled"] or g["verdicts"]):
+                fail(f"cycle_steady: the noguard leg read verdicts: {g}")
+        if leg in ("cold", "oracle") and any(c["warm"] for c in r["cycles"]):
+            fail(f"cycle_steady: the {leg} leg ran the carried table")
+    steady = base["cycles"][STEADY_WARMUP:]
+    planned = [c for c in base["cycles"] if c["warm"] is not None]
+    if not planned or not planned[0]["warm"]["cold"]:
+        fail("cycle_steady: the defaults leg never planned the warm carry")
+    late_cold = [c["cycle"] for c in planned[1:] if c["warm"]["cold"]]
+    if late_cold:
+        fail(f"cycle_steady: the defaults leg planned cold again in cycles {late_cold}")
+    if any(c["mode"] == "compacted" and c["warm"] is None for c in steady):
+        fail("cycle_steady: a compacted steady cycle of the defaults leg ran cold")
     if "delta" not in [c["open_path"] for c in steady]:
-        fail("cycle_steady: the delta leg never took the delta open")
+        fail("cycle_steady: the defaults leg never took the delta open")
     if not sum(c["resident"]["scatter_updates"] for c in steady if c["resident"]):
-        fail("cycle_steady: the delta leg never scattered")
+        fail("cycle_steady: the defaults leg never scattered")
+    k2 = "masked_topk_blocks"
     for leg, r in legs.items():
         for c in r["cycles"]:
+            topk = c["topk"] or {}
             emit("cycle_steady_cycle", leg=leg, cycle=c["cycle"], mode=c["mode"],
                  open_path=c["open_path"], snapshot_path=c["snapshot_path"],
                  churn=c["churn"], pending=c["pending"],
                  completed_gangs=c.get("completed_gangs"), arrived=c.get("arrived"),
                  new_binds=c["new_binds"], wall_ms=c["wall_ms"],
-                 stages_ms=c["stages_ms"], allocate_ms=c["allocate_ms"],
-                 syncs=c["syncs"], launches=c["launches"], swaps=c["swaps"],
-                 swap_check_ms=c["swap_check_ms"], resident=c["resident"],
-                 digest=c["digest"])
+                 solve_ms=c["allocate_ms"].get("solve"), stages_ms=c["stages_ms"],
+                 allocate_ms=c["allocate_ms"], syncs=c["syncs"],
+                 k2_launches=c["launches"][k2], launches=c["launches"],
+                 warm=c["warm"], rungs=topk.get("rungs"),
+                 topk_exhausted=topk.get("exhausted"), reentries=topk.get("reentries"),
+                 guard=c["guard"], swaps=c["swaps"], swap_check_ms=c["swap_check_ms"],
+                 resident=c["resident"], digest=c["digest"])
     totals = {}
     for c in steady:
         for k, v in (c["resident"] or {}).items():
             if isinstance(v, int) and k != "version":
                 totals[k] = totals.get(k, 0) + v
-    summary = {leg: dict(r["steady"], syncs=[c["syncs"] for c in r["cycles"][STEADY_WARMUP:]],
-                         ingest_s=r["ingest_s"])
-               for leg, r in legs.items()}
+
+    def p50(values):
+        values = sorted(v for v in values if v is not None)
+        return float(np.percentile(values, 50)) if values else None
+
+    summary = {}
+    for leg, r in legs.items():
+        cyc = r["cycles"][STEADY_WARMUP:]
+        summary[leg] = dict(
+            r["steady"],
+            wall_less_swap_check_ms_p50=p50([c["wall_ms"] - c["swap_check_ms"] for c in cyc]),
+            syncs=[c["syncs"] for c in cyc], k2_launches=[c["launches"][k2] for c in cyc],
+            ingest_s=r["ingest_s"])
+    d, ng, cold = summary["defaults"], summary["noguard"], summary["cold"]
+    overhead = {key: d[key] - ng[key] for key in
+                ("solve_ms_p50", "wall_ms_p50", "wall_less_swap_check_ms_p50")}
+    overhead["share_of_steady_wall_p50"] = overhead["wall_less_swap_check_ms_p50"] / ng[
+        "wall_less_swap_check_ms_p50"]
+    rungs = [c["topk"]["rungs"]["rerank"] for c in steady
+             if c["topk"] and c["topk"].get("rungs")]
     emit("cycle_steady", conf="shipped", tasks=N_TASKS, nodes=N_NODES,
-         warmup_cycles=STEADY_WARMUP, cycles=STEADY_CYCLES,
-         equal="decisions every cycle; every delta-leg swap equals a fresh upload",
+         warmup_cycles=STEADY_WARMUP, cycles=STEADY_CYCLES, legs=list(STEADY_LEGS),
+         equal="decisions every cycle, all legs; every non-oracle swap equals a fresh upload",
          resident_steady=scatter_summary({"single": totals})["single"] if totals else None,
-         **summary)
-    return legs
+         guard_overhead=overhead,
+         warm_minus_cold_solve_ms_p50=d["solve_ms_p50"] - cold["solve_ms_p50"],
+         rerank_rungs=rungs, **summary)
+    return legs, rungs
+
+
+def phase_guard():
+    """The guard plane on the card at 4 096 × 1 024, shipped conf
+    (``cycle_drive.drive_guard``): audited clean cycles, a zeroed resident
+    capacity word failing closed and healing, re-promotion after the
+    cooldown, a phantom pending bit caught by the host checksum, and the
+    trip bundle replayed on the card and the CPU."""
+    import shutil
+    import tempfile
+
+    from kube_batch_tpu_torch.testing.cycle_drive import drive_guard
+
+    bundles = tempfile.mkdtemp(prefix="guard-bundles-")
+    try:
+        r = drive_guard(MID_TASKS, MID_NODES, MID_ARRIVALS, bundles, device="cuda")
+    finally:
+        shutil.rmtree(bundles, ignore_errors=True)
+    emit("guard", conf="shipped", shape=[MID_TASKS, MID_NODES], arrivals=MID_ARRIVALS,
+         cooldown=r["cooldown"], audits_clean=r["audits_clean"], cycles=r["cycles"],
+         trips=[{k: t[k] for k in ("cycle", "action", "reason", "demoted", "detail")}
+                for t in r["trip_log"]],
+         state={k: v for k, v in r["guard"].items() if k != "bundles"},
+         replay={k: v for k, v in r["replay"].items() if k != "original_report"},
+         restored_verdict=r["restored_verdict"])
 
 
 def phase_cycle_cross_device():
@@ -610,7 +720,8 @@ def main() -> int:
     del snap, snaps, full
     cycle = phase_cycle()
     overcommit = phase_cycle_overcommit()
-    steady = phase_cycle_steady()
+    steady, rerank_rungs = phase_cycle_steady()
+    phase_guard()
     phase_cycle_cross_device()
     cycle_launches = {name: {f"cycle{c['cycle']}": c["launches"][name]
                              for c in cycle["cycles"]}
@@ -618,8 +729,15 @@ def main() -> int:
     overcommit_launches = {name: {f"cycle{c['cycle']}": c["launches"][name]
                                   for c in overcommit["cycles"]}
                            for name in KERNELS}
-    steady_launches = {name: sum(c["launches"][name] for c in steady["delta"]["cycles"])
+    steady_launches = {name: sum(c["launches"][name] for c in steady["defaults"]["cycles"])
                        for name in KERNELS}
+    # K2 on the warm path: launches per steady cycle of the defaults and
+    # cold legs, and its time against its bound at the commonest re-rank rung
+    k2_per_cycle = {leg: [c["launches"]["masked_topk_blocks"]
+                          for c in steady[leg]["cycles"][STEADY_WARMUP:]]
+                    for leg in ("defaults", "cold")}
+    rung = max(set(rerank_rungs), key=rerank_rungs.count) if rerank_rungs else None
+    k2_rerank = kern.get(f"K2_P{rung}") if rung else None
 
     src = "kube_batch_tpu_torch/csrc/"
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -645,7 +763,15 @@ def main() -> int:
              **{f: k2[f] for f in fields}, library_ms=None,
              cycle_launches=cycle_launches["masked_topk_blocks"],
              overcommit_launches=overcommit_launches["masked_topk_blocks"],
-             steady_launches=steady_launches["masked_topk_blocks"]),
+             steady_launches=steady_launches["masked_topk_blocks"],
+             warm_launches_per_steady_cycle=k2_per_cycle["defaults"],
+             cold_launches_per_steady_cycle=k2_per_cycle["cold"],
+             fresh_keys="plain ops (the releasing fit masked on the view, as the JAX package)",
+             rerank_shape=None if k2_rerank is None else k2_rerank["shape"],
+             rerank_ms=None if k2_rerank is None else k2_rerank["ms"],
+             rerank_bound_ms=None if k2_rerank is None else k2_rerank["bound_ms"],
+             rung_ms={P: kern[f"K2_P{P}"]["ms"] for P in WARM_RERANK_RUNGS},
+             rung_bound_ms={P: kern[f"K2_P{P}"]["bound_ms"] for P in WARM_RERANK_RUNGS}),
         dict(name="enqueue_gate", route="cuda",
              source=src + "enqueue_gate.cu",
              replaces="kube_batch_tpu/ops/admission.py:48",

@@ -13,13 +13,23 @@ bulk bind); jobs that need host predicates (ports, rich affinity) replay
 through the per-task Statement path with the sequential semantics
 (statement.go:29-337).
 
-The dispatch is the single-device cold branch of the JAX package's: the
-compacted solve when the pending rows fit the task capacity's one pending
-bucket, the full [T, N] solve otherwise.  The fit-error histogram reads
-the same resident tensors as the solve, launched before the host replay
-and read after it, with no swap in between.  Not ported: the sharded
-solve, the warm carry (``KB_WARM``), the guard sentinel and shadow audit,
-the query lease, and the tracer and metrics.
+The dispatch is the single-device branch of the JAX package's default:
+the compacted solve when the pending rows fit the task capacity's one
+pending bucket, the full [T, N] solve otherwise.  The compacted solve runs
+warm-started by default (``KB_WARM``): its [P, W] candidate table is
+carried on the device across cycles and repaired from the resident
+swaps' delta records (``api/resident.WarmTableState`` plans on the host,
+``ops/assignment.warm_allocate_solve`` refreshes on the device);
+``KB_WARM=0`` rebuilds it cold every solve, the oracle.  The guard plane
+(``KB_GUARD``, ``kube_batch_tpu_torch/guard``) follows every solve with
+its invariant sentinel, read back with the result: a nonzero verdict
+fails the action closed before any bind.  A demoted ``topk`` runs the
+full solve, a demoted ``warm`` the cold build, and every
+``KB_AUDIT_EVERY``-th engaged dispatch is compared with the full solve
+after the host replay.  The fit-error histogram reads the same resident
+tensors as the solve, launched before the host replay and read after it,
+with no swap in between.  Not ported: the sharded solve, the query lease,
+and the tracer and metrics.
 """
 
 from __future__ import annotations
@@ -37,6 +47,12 @@ from kube_batch_tpu_torch.api.snapshot import DeviceSnapshot, SnapshotMeta
 from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.framework.interface import Action
 from kube_batch_tpu_torch.framework.session import JOB_READY, NODE_ORDER, FitFailure
+from kube_batch_tpu_torch.guard import (
+    consume_assignment_sentinel,
+    guard_of,
+    make_heal,
+    sentinel_bundle_thunk,
+)
 from kube_batch_tpu_torch.ops.assignment import (
     AllocateConfig,
     AllocateResult,
@@ -104,19 +120,140 @@ def plan_topk_bucket(snap: DeviceSnapshot, k: int):
     return pend_rows, k
 
 
+def resolve_warm() -> bool:
+    """KB_WARM: carry the candidate table across cycles (default on
+    whenever compaction runs); KB_WARM=0 builds it cold every solve, the
+    oracle.  Any value other than empty, 1, true, on or yes turns it OFF
+    (a mistyped attempt to disable it must not leave it on), unlike the
+    kill switches of ``utils/switches``."""
+    raw = os.environ.get("KB_WARM", "").strip().lower()
+    if not raw:
+        return True
+    return raw in ("1", "true", "on", "yes")
+
+
+def warm_k_min(k: int) -> int:
+    """The erosion floor of the carried table: a row re-ranks when its
+    valid prefix thins below (a per-row staggered threshold above) K/4.
+    A thin table still answers exactly; the floor trades re-rank traffic
+    against fallback probability (``topk_exhausted``)."""
+    return max(4, k // 4)
+
+
+def dispatch_topk(guard) -> int:
+    """The candidate width the dispatch may use: KB_TOPK, or 0 (the full
+    solve) while the guard has ``topk`` demoted."""
+    if guard is not None and not guard.allow("topk"):
+        return 0
+    return resolve_topk()
+
+
+def _warm_state(cols, device, config, guard, warm: bool, k: int):
+    """The carried-table state for this dispatch, or None when the warm
+    path must not run: an explicitly cold caller (backfill's pass solves a
+    mid-cycle snapshot and must not consume allocate's deltas), no column
+    store, no compaction, KB_WARM off, a custom score row (it may read
+    state the invalidation does not track), or the guard's demotion.
+    Called before the resident swap, so a fresh state absorbs this
+    cycle's delta record and plans a cold build."""
+    if (not warm or cols is None or k <= 0 or not resolve_warm()
+            or config.weights.extra_rows
+            or (guard is not None and not guard.allow("warm"))):
+        return None
+    return cols.warm_table_state(device)
+
+
+def _warm_commit(wstate, call):
+    """Run one warm solve and adopt its refreshed table (the last two
+    outputs).  Any failure drops the carried state and raises: plan()
+    already consumed the invalidation accumulators."""
+    try:
+        out = call()
+    except BaseException:
+        wstate.drop()
+        raise
+    wstate.commit(out[-2], out[-1])
+    return out
+
+
+def _upload_i32(device, *arrays):
+    """int32 numpy arrays as tensors on ``device``, in one pinned,
+    non-blocking transfer (no host sync)."""
+    from kube_batch_tpu_torch.api.resident import StagedUpload
+
+    up = StagedUpload(device)
+    handles = [up.add(np.ascontiguousarray(a, np.int32)) for a in arrays]
+    up.run()
+    return [up.tensor(h) for h in handles]
+
+
 def dispatch_allocate_solve(snap: DeviceSnapshot, config: AllocateConfig,
-                            plan=None) -> Tuple[AllocateResult, str, Optional[dict]]:
-    """``(result, mode, topk_info)`` for one allocate pass over ``snap``,
-    on the device its tensors lie on.  ``mode`` is "single" (one device);
-    ``topk_info`` is ``{"k", "bucket"}`` when the compacted solve ran,
+                            plan=None, cols=None, guard=None, wstate=None):
+    """``(result, mode, topk_info, ginfo)`` for one allocate pass over the
+    device snapshot ``snap``, on the device its tensors lie on.  ``mode``
+    is "single"; ``topk_info`` is ``{"k", "bucket"}`` (plus ``"warm"``,
+    the plan's record, when the warm program ran) for the compacted solve,
     None for the full solve.  ``plan`` is :func:`plan_topk_bucket`'s
-    answer when the caller already has it."""
-    pend_rows, k = plan if plan is not None else plan_topk_bucket(snap, resolve_topk())
+    answer when the caller has it; ``wstate`` the carried-table state
+    (:func:`_warm_state`, taken before the swap) that lets the compacted
+    solve run warm when its plan allows.
+
+    ``guard`` (a :class:`GuardPlane`) makes the dispatch guarded: the
+    sentinel variants run and ``ginfo["sentinel"]`` holds their (verdict,
+    hist, checksum) tensors for the caller's readback, which must feed
+    them to the guard before acting on the result.  ``ginfo`` also holds
+    the engaged fast paths, the bucket rows, the snapshot and the
+    effective config (what a trip bundle replays)."""
+    sentinel_on = guard is not None and guard.enabled
+    pend_rows, k = plan if plan is not None else plan_topk_bucket(snap, dispatch_topk(guard))
+
+    def ginfo(engaged, sentinel, cfg):
+        return {"engaged": engaged, "sentinel": sentinel, "pend_rows": pend_rows,
+                "dev": snap, "config": cfg}
+
+    dev = snap.task_req.device
     if pend_rows is not None:
-        rows = torch.from_numpy(pend_rows).to(snap.task_req.device)
-        res = allocate_topk_solve(snap, rows, config._replace(topk=k))
-        return res, "single", {"k": k, "bucket": int(pend_rows.shape[0])}
-    return allocate_solve(snap, config), "single", None
+        info = {"k": k, "bucket": int(pend_rows.shape[0])}
+        cfg = config._replace(topk=k)
+        wplan = wstate.plan(cols, pend_rows, k, config) if wstate is not None else None
+        if wplan is not None:
+            from kube_batch_tpu_torch.ops.assignment import warm_allocate_solve
+            from kube_batch_tpu_torch.ops.invariants import warm_allocate_sentinel_solve
+
+            info["warm"] = dict(wstate.last)
+            # the plan's rungs: the merge prefix M, the changed-node block C
+            # and the re-rank sub-bucket (K2's rows on this path)
+            info["rungs"] = {"merge": int(wplan["row_map"].shape[0]),
+                             "changed": int(wplan["changed"].shape[0]),
+                             "rerank": int(wplan["rerank_rows"].shape[0])}
+            cfg_w = config._replace(topk=wplan["w"])
+            rows, *ptuple = _upload_i32(dev, pend_rows, wplan["row_map"], wplan["changed"],
+                                        wplan["rerank_rows"], wplan["rerank_slots"])
+            if sentinel_on:
+                res, v, h, e, _t, _er = _warm_commit(
+                    wstate, lambda: warm_allocate_sentinel_solve(
+                        snap, rows, wplan["table"], ptuple, cfg_w, warm_k_min(k)))
+                # the effective config (topk = W): a bundle replays the
+                # cold compacted program at the condemned width
+                return res, "single", info, ginfo(["topk", "warm"], (v, h, e), cfg_w)
+            res, _t, _er = _warm_commit(
+                wstate, lambda: warm_allocate_solve(
+                    snap, rows, wplan["table"], ptuple, cfg_w, warm_k_min(k)))
+            return res, "single", info, ginfo(["topk", "warm"], None, cfg_w)
+        rows = torch.from_numpy(pend_rows).to(dev)
+        if sentinel_on:
+            from kube_batch_tpu_torch.ops.invariants import allocate_topk_sentinel_solve
+
+            res, v, h, e = allocate_topk_sentinel_solve(snap, rows, cfg)
+            return res, "single", info, ginfo(["topk"], (v, h, e), cfg)
+        return (allocate_topk_solve(snap, rows, cfg), "single", info,
+                ginfo(["topk"], None, cfg))
+    if sentinel_on:
+        from kube_batch_tpu_torch.ops.invariants import allocate_sentinel_solve
+
+        res, v, h, e = allocate_sentinel_solve(snap, config)
+        return res, "single", None, ginfo([], (v, h, e), config)
+    return allocate_solve(snap, config), "single", None, ginfo([], None, config)
 
 
 def result_binds(res: AllocateResult, meta: SnapshotMeta) -> List[Tuple[str, str]]:
@@ -169,15 +306,24 @@ def session_allocate_config(ssn) -> AllocateConfig:
     )
 
 
-def _read_back(res: AllocateResult, T: int):
+def _read_back(res: AllocateResult, T: int, sentinel=None):
     """(assigned [T] i32, pipelined [T] bool, rounds_run, topk_exhausted,
-    topk_reentries) in ONE device-to-host transfer."""
-    counters = torch.stack([res.rounds_run, res.topk_exhausted,
-                            res.topk_reentries]).to(torch.int32)
-    packed = torch.cat([res.assigned, res.pipelined.to(torch.int32),
-                        counters]).cpu().numpy()
-    return (packed[:T], packed[T:2 * T].astype(bool), int(packed[2 * T]),
-            int(packed[2 * T + 1]), int(packed[2 * T + 2]))
+    topk_reentries, verdict, hist, checksum) in ONE device-to-host
+    transfer; the sentinel's (verdict, hist, checksum) ride it (0, None, 0
+    without a sentinel), so the guard adds no transfer."""
+    parts = [res.assigned, res.pipelined.to(torch.int32),
+             torch.stack([res.rounds_run, res.topk_exhausted,
+                          res.topk_reentries]).to(torch.int32)]
+    if sentinel is not None:
+        verdict, hist, check = sentinel
+        parts += [verdict.reshape(1), hist, check.reshape(1)]
+    packed = torch.cat(parts).cpu().numpy()
+    out = (packed[:T], packed[T:2 * T].astype(bool), int(packed[2 * T]),
+           int(packed[2 * T + 1]), int(packed[2 * T + 2]))
+    if sentinel is None:
+        return out + (0, None, 0)
+    tail = packed[2 * T + 3:]
+    return out + (int(tail[0]), tail[1:-1].copy(), int(tail[-1]))
 
 
 class AllocateAction(Action):
@@ -192,6 +338,10 @@ class AllocateAction(Action):
         # {"k", "bucket", "exhausted", "reentries"} when the compacted
         # program ran, None for the full program
         self.last_topk = None
+        # the warm plan's record ({"cold", "reranked", "changed",
+        # "bucket_live", "w", "new", "dirty", "eroded"}) when the carried
+        # table program ran, None otherwise
+        self.last_warm = None
         # whether the last execute dispatched the fit-error histogram
         self.last_fit_histogram = False
         # fallback pressure: slow-replay jobs, host-ports jobs promoted back
@@ -208,6 +358,7 @@ class AllocateAction(Action):
         self.last_host_discards = 0
         self.last_solve_rounds = 0
         self.last_topk = None
+        self.last_warm = None
         self.last_fit_histogram = False
         self._host_place_count = 0
         self._ports_by_node = None
@@ -223,18 +374,43 @@ class AllocateAction(Action):
         t0 = time.perf_counter()
         snap, meta = build_session_snapshot(ssn)
         t1 = time.perf_counter()
-        dev = resident_snap(cols, snap, ssn.device)
-        t_up = time.perf_counter()
+        gp = guard_of(ssn.cache)
         config = session_allocate_config(ssn)
         # the bucket plan from the host's own pending mask: no device read
-        plan = plan_topk_bucket(snap, resolve_topk())
-        result, _mode, topk_info = dispatch_allocate_solve(dev, config, plan=plan)
+        plan = plan_topk_bucket(snap, dispatch_topk(gp))
+        # the carried-table state is taken before the swap, so a fresh one
+        # absorbs this swap's delta record
+        wstate = (_warm_state(cols, ssn.device, config, gp, True, plan[1])
+                  if plan[0] is not None else None)
+        dev = resident_snap(cols, snap, ssn.device)
+        t_up = time.perf_counter()
+        result, _mode, topk_info, ginfo = dispatch_allocate_solve(
+            dev, config, plan=plan, cols=cols, guard=gp, wstate=wstate)
+        # the shadow-oracle audit: every KB_AUDIT_EVERY-th engaged dispatch
+        # runs the full solve (no compaction, no carry) on the same tensors
+        # now, before any swap, and is compared after the host replay
+        audit_dev = None
+        if ginfo["engaged"] and gp.audit_due("allocate"):
+            audit_dev = allocate_solve(dev, config._replace(topk=0))
+        sentinel = ginfo["sentinel"]
         T = meta.n_tasks
-        assigned, pipelined, rounds, exhausted, reentries = _read_back(result, T)
+        (assigned, pipelined, rounds, exhausted, reentries, verdict, vhist,
+         echeck) = _read_back(result, T, sentinel)
         self.last_solve_rounds = rounds
         if topk_info is not None:
             topk_info = dict(topk_info, exhausted=exhausted, reentries=reentries)
         self.last_topk = topk_info
+        self.last_warm = (topk_info or {}).get("warm")
+        if sentinel is not None and not consume_assignment_sentinel(
+                gp, "allocate", ssn, snap, meta, ginfo, verdict, vhist, echeck,
+                assigned, extra_report={"mode": "single"}):
+            # the solve is condemned: fail closed — no replay, no binds, no
+            # fit errors (the guard demoted, healed and dumped already)
+            self.last_phase_ms.update(
+                snapshot_build=(t1 - t0) * 1e3, upload=(t_up - t1) * 1e3,
+                solve=(time.perf_counter() - t_up) * 1e3, fit_errors=0.0,
+                replay=0.0)
+            return
         t2 = time.perf_counter()
         task_job = snap.task_job[:T]
         # fit errors only for tasks of jobs that are in this session (the row
@@ -267,6 +443,27 @@ class AllocateAction(Action):
             fit_errors=((t_fit1 - t2) + (t4 - t3)) * 1e3,
             replay=(t3 - t_fit1) * 1e3,
         )
+        if audit_dev is not None:
+            self._compare_audit(ssn, gp, ginfo, audit_dev, assigned, pipelined, T)
+
+    # ------------------------------------------------------------------
+    def _compare_audit(self, ssn, gp, ginfo, audit_dev, assigned, pipelined,
+                       T: int) -> None:
+        """Compare the committed fast-path result with the shadow oracle
+        (read back after the host replay)."""
+        Ta = audit_dev.assigned.shape[0]
+        a = torch.cat([audit_dev.assigned, audit_dev.pipelined.to(torch.int32)]
+                      ).cpu().numpy()
+        mism = int(np.sum(a[:T] != assigned)
+                   + np.sum(a[Ta:Ta + T].astype(bool) != pipelined))
+        report = {"audit_mismatches": mism, "engaged": ginfo["engaged"],
+                  "mode": "single"}
+        gp.note_audit(
+            "allocate", ginfo["engaged"], mism == 0,
+            detail=f"fast-vs-oracle mismatch at {mism} task rows",
+            dump=sentinel_bundle_thunk(gp, "allocate", ginfo["dev"], ginfo["config"],
+                                       report, pend_rows=ginfo.get("pend_rows")),
+            heal=make_heal(ssn))
 
     # ------------------------------------------------------------------
     def _replay(self, ssn, snap, meta, assigned, pipelined, task_job) -> None:

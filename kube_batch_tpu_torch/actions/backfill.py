@@ -11,8 +11,9 @@ Mirrors ``kube_batch_tpu/actions/backfill.py``.  Two passes:
   live session snapshot — K1 or K2 on the card, as allocate dispatches —
   restricted to gang-safe jobs (at or above MinAvailable, or not gangs),
   so no partial gang can commit, and replays the result through a
-  throwaway ``AllocateAction``.  ``backfill.realRequests: "false"`` on any
-  tier turns it off.
+  throwaway ``AllocateAction``.  The solve is cold (no carried table) and
+  guarded like allocate's: a condemned result binds nothing.
+  ``backfill.realRequests: "false"`` on any tier turns it off.
 """
 
 from __future__ import annotations
@@ -24,8 +25,8 @@ from kube_batch_tpu_torch.actions.allocate import (
     _read_back,
     build_session_snapshot,
     dispatch_allocate_solve,
+    dispatch_topk,
     plan_topk_bucket,
-    resolve_topk,
     session_allocate_config,
 )
 from kube_batch_tpu_torch.api.columns import resident_snap
@@ -33,6 +34,7 @@ from kube_batch_tpu_torch.api.job_info import FitError, FitErrors
 from kube_batch_tpu_torch.api.types import PodGroupPhase, TaskStatus
 from kube_batch_tpu_torch.framework.interface import Action
 from kube_batch_tpu_torch.framework.session import FitFailure
+from kube_batch_tpu_torch.guard import consume_assignment_sentinel, guard_of
 
 logger = logging.getLogger("kube_batch_tpu_torch")
 
@@ -100,11 +102,22 @@ class BackfillAction(Action):
         if not eligible.any():
             return 0
         snap = snap._replace(job_schedulable=safe)
+        gp = guard_of(ssn.cache)
+        plan = plan_topk_bucket(snap, dispatch_topk(gp))
         dev = resident_snap(ssn.columns, snap, ssn.device)
-        plan = plan_topk_bucket(snap, resolve_topk())
-        result, _mode, _topk = dispatch_allocate_solve(
-            dev, session_allocate_config(ssn), plan=plan)
-        assigned, pipelined, *_ = _read_back(result, T)
+        # cold (no carried table): this mid-cycle snapshot must not consume
+        # allocate's deltas
+        result, _mode, _topk, ginfo = dispatch_allocate_solve(
+            dev, session_allocate_config(ssn), plan=plan, cols=ssn.columns,
+            guard=gp)
+        sentinel = ginfo["sentinel"]
+        assigned, pipelined, *_, verdict, vhist, echeck = _read_back(result, T, sentinel)
+        if sentinel is not None and not consume_assignment_sentinel(
+                gp, "backfill", ssn, snap, meta, ginfo, verdict, vhist, echeck,
+                assigned):
+            # condemned: strand the capacity this cycle rather than bind
+            # from an unlawful result
+            return 0
         n = int((assigned >= 0).sum())
         if n == 0:
             return 0

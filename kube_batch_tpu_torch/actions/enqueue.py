@@ -20,8 +20,11 @@ voter for priority, gang and drf.  Any other JOB_ORDER or JOB_ENQUEUEABLE
 voter takes the object walk (``_walk_decisions``), which is also the
 oracle the tests hold the columnar path against.
 
-Not ported: the guard's gate sentinel and sampled shadow audit, tracing,
-and the mesh dispatch of the gate.
+The guard checks the gate's output (admitted rows were candidates, the
+budgets finite) with its verdict in the same readback, fails closed on a
+violation, and every ``KB_AUDIT_EVERY``-th gate dispatch compares the
+admissions with the reference walk's.  Not ported: tracing and the mesh
+dispatch of the gate.
 """
 
 from __future__ import annotations
@@ -35,7 +38,9 @@ from kube_batch_tpu_torch.api.columns import PHASE_CODE, READY_STATUSES
 from kube_batch_tpu_torch.api.types import PodGroupPhase
 from kube_batch_tpu_torch.framework.interface import Action
 from kube_batch_tpu_torch.framework.session import JOB_ENQUEUEABLE, JOB_ORDER
+from kube_batch_tpu_torch.guard import guard_of, make_heal
 from kube_batch_tpu_torch.ops.admission import enqueue_gate
+from kube_batch_tpu_torch.ops.invariants import enqueue_gate_sentinel_solve
 from kube_batch_tpu_torch.utils.priority_queue import PriorityQueue
 
 OVERCOMMIT_FACTOR = 1.2
@@ -193,14 +198,51 @@ class EnqueueAction(Action):
         candv = np.zeros(capJ, bool)
         candv[:k] = enq_ok[order]
         dev = ssn.device
-        admitted = enqueue_gate(
-            torch.from_numpy(minr).to(dev), torch.from_numpy(candv).to(dev),
-            torch.from_numpy(idle.vec.astype(np.float32)).to(dev),
-            torch.from_numpy(spec.quanta.astype(np.float32)).to(dev),
-            n_rows=k,
-        ).cpu().numpy()[:k]
+        inputs = (torch.from_numpy(minr).to(dev), torch.from_numpy(candv).to(dev),
+                  torch.from_numpy(idle.vec.astype(np.float32)).to(dev),
+                  torch.from_numpy(spec.quanta.astype(np.float32)).to(dev))
+        gp = guard_of(ssn.cache)
         self.last_gate_rows = k
-        self._promote_rows(cols, uncond_rows + ordered[admitted].tolist())
+        bad = 0
+        if gp.enabled:
+            # the gate sentinel: admitted ⊆ candidates and finite budgets,
+            # checked on the gate's output, its verdict riding the one
+            # readback
+            admitted_dev, verdict, _hist = enqueue_gate_sentinel_solve(
+                *inputs, n_rows=k)
+            packed = torch.cat([admitted_dev[:k].to(torch.int32),
+                                verdict.reshape(1)]).cpu().numpy()
+            admitted, bad = packed[:k].astype(bool), int(packed[k])
+        else:
+            admitted = enqueue_gate(*inputs, n_rows=k).cpu().numpy()[:k]
+        # a condemned verdict fails closed: no gate-derived promotions (the
+        # walk re-decides next cycle); the unconditional ones never read it
+        if gp.enabled and not gp.consume_verdict(
+                "enqueue", [], bad, detail=f"enqueue gate verdict={bad}"):
+            self._promote_rows(cols, uncond_rows)
+            return True
+        admitted_rows = ordered[admitted].tolist()
+        # the sampled shadow audit: every KB_AUDIT_EVERY-th gate dispatch
+        # re-derives the admissions through the reference walk over the
+        # still unmutated session and compares the sets; on a mismatch the
+        # guard trips and the walk's decisions are applied
+        if gp.enabled and gp.audit_due("enqueue"):
+            walk_jobs = self._walk_decisions(ssn)
+            expected = {job.uid for job in walk_jobs}
+            actual = {job_by_row[r].uid for r in uncond_rows + admitted_rows}
+            matched = expected == actual
+            gp.note_audit(
+                "enqueue", [], matched,
+                detail=("enqueue gate vs object-walk divergence: "
+                        f"gate-only={sorted(actual - expected)[:8]} "
+                        f"walk-only={sorted(expected - actual)[:8]}")
+                if not matched else "",
+                heal=make_heal(ssn))
+            if not matched:
+                for job in walk_jobs:
+                    self._promote(cols, job)
+                return True
+        self._promote_rows(cols, uncond_rows + admitted_rows)
         return True
 
     # ------------------------------------------------------------------

@@ -11,9 +11,10 @@ when the validated set still covers the claimant, which then pipelines
 onto the freed resources.
 
 ``solve_claims`` is shared with preempt's phase 1.  The snapshot comes from
-the column store and one upload, as in allocate; the three result fields
-come back in one transfer.  Not ported: the guard's sentinel and shadow
-audit, the mesh dispatch, the resident snapshot and the query-lease
+the column store and the resident tensors, as in allocate; the guard's
+sentinel follows the solve, and the three result fields and its verdict
+come back in one transfer (a condemned solve evicts nothing).  Not
+ported: the mesh dispatch and its shadow audit, and the query-lease
 republish.
 """
 
@@ -28,9 +29,12 @@ import numpy as np
 import torch
 
 from kube_batch_tpu_torch.api.columns import resident_snap
+from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.framework.interface import Action
 from kube_batch_tpu_torch.framework.session import FitFailure
+from kube_batch_tpu_torch.guard import consume_sentinel, guard_of
 from kube_batch_tpu_torch.ops.eviction import EvictConfig, evict_solve
+from kube_batch_tpu_torch.ops.invariants import evict_sentinel_solve
 
 logger = logging.getLogger("kube_batch_tpu_torch")
 
@@ -97,13 +101,39 @@ def solve_claims(ssn, mode: str):
         return [], {}
     t0 = time.perf_counter()
     snap, meta = cols.device_snapshot(ssn)
+    gp = guard_of(ssn.cache)
+    config = evict_config(ssn, mode)
     dev = resident_snap(cols, snap, ssn.device)
-    result, rounds = evict_solve(dev, evict_config(ssn, mode))
+    sentinel = None
+    if gp.enabled:
+        result, rounds, *sentinel = evict_sentinel_solve(dev, config)
+    else:
+        result, rounds = evict_solve(dev, config)
     T = meta.n_tasks
-    packed = torch.stack([result.claim_node, result.evicted.to(torch.int32),
-                          result.victim_claimant]).cpu().numpy()
-    claim_node, evicted, victim_claimant = packed[0], packed[1].astype(bool), packed[2]
+    Tc = result.claim_node.shape[0]
+    # one readback: the three result fields, and the sentinel's verdict,
+    # histogram and checksum riding it
+    parts = [result.claim_node, result.evicted.to(torch.int32), result.victim_claimant]
+    if sentinel is not None:
+        verdict, hist, check = sentinel
+        parts += [verdict.reshape(1), hist, check.reshape(1)]
+    packed = torch.cat(parts).cpu().numpy()
+    claim_node = packed[:T]
+    evicted = packed[Tc:Tc + T].astype(bool)
+    victim_claimant = packed[2 * Tc:2 * Tc + T]
     stats = {"rounds": rounds, "solve_ms": (time.perf_counter() - t0) * 1e3}
+    if sentinel is not None:
+        tail = packed[3 * Tc:]
+        # host cross-checks: a claim must target a row the host believes
+        # pending, a victim one it believes Running (the device copies are
+        # what a corruption flips); no audit: nothing is engaged on one
+        # device
+        host_bad = int(np.sum((claim_node >= 0) & ~snap.task_pending[:T])
+                       + np.sum(evicted & (snap.task_status[:T] != int(TaskStatus.RUNNING))))
+        if not consume_sentinel(gp, mode, ssn, snap, dev, config, int(tail[0]),
+                                tail[1:-1], int(tail[-1]), [], host_bad=host_bad):
+            # condemned: no evictions from it
+            return [], stats
 
     task_job = snap.task_job[:T]
 

@@ -36,9 +36,14 @@ Across cycles:
   numpy snapshot stays what the host reads.  ``KB_DEVICE_CACHE=0``
   uploads the whole snapshot on every call instead (the oracle).
 
-Not ported: the JAX package's mesh-sharded residency, its warm candidate
-tables and its swap guard (ROADMAP items 3, 6 and 8), and the job-alloc
-float32 twin (``job_allocated`` is cast whole each snapshot).
+The carried candidate tables of the warm-started allocate
+(``warm_table_state``, ``api/resident.WarmTableState``) hang off the
+store by device; every swap's delta record is fed to them, and they are
+dropped on axis growth, resident drops and device changes.
+
+Not ported: the JAX package's mesh-sharded residency and its swap guard,
+and the job-alloc float32 twin (``job_allocated`` is cast whole each
+snapshot).
 """
 
 from __future__ import annotations
@@ -99,7 +104,14 @@ def resident_snap(cols, snap, device):
     from kube_batch_tpu_torch.api.resident import StagedUpload
 
     dev = resolve_device(device)
-    if cols is None or not switch_on("KB_DEVICE_CACHE"):
+    if cols is None:
+        return snapshot_from_numpy(snap, dev)
+    if not switch_on("KB_DEVICE_CACHE"):
+        # nothing stays resident, and a residency left from before the
+        # switch moved would pair stale mirrors (and warm tables) with
+        # swaps they never saw
+        if cols._per_cycle_dev or cols._warm_tables:
+            cols.drop_resident()
         return snapshot_from_numpy(snap, dev)
     cache = cols.per_cycle_cache(dev)
     out = cache.memo(snap)
@@ -121,6 +133,11 @@ def resident_snap(cols, snap, device):
         cols.drop_resident()
         raise
     cache.remember(snap, out)
+    # this swap's row-exact delta record feeds the warm-table carry (the
+    # memoized repeat above never re-notifies it)
+    st = cols._warm_tables.get(dev)
+    if st is not None:
+        st.absorb(cache.delta_record, cache.version)
     if cols.on_swap is not None:
         cols.on_swap(snap, out)
     return out
@@ -278,6 +295,10 @@ class ColumnStore:
         # the per-cycle resident cache (api/resident.py) by device; at most
         # one is kept
         self._per_cycle_dev: Dict = {}
+        # warm-started allocate (KB_WARM): the carried candidate table's
+        # state by device (api/resident.WarmTableState), dropped wholesale
+        # on axis growth, resident drops and device changes
+        self._warm_tables: Dict = {}
         # called as on_swap(snap, tensors) after every swap that was not a
         # repeat (drives use it to check the tensors against a full upload)
         self.on_swap = None
@@ -365,6 +386,9 @@ class ColumnStore:
         self.t_node = tn
         self.task_by_row.extend([None] * (cap - self.tasks.cap))
         self.tasks.on_grown(cap)
+        # the bucket rung moves with the task axis: drop the carried
+        # tables rather than index-shift them
+        self.drop_warm_tables()
 
     def _fill_sel_bits(self, row: int, task) -> None:
         """Required label pairs → bits (the device predicate's sound
@@ -556,6 +580,8 @@ class ColumnStore:
         self.node_by_row.extend([None] * (cap - self.nodes.cap))
         self.node_names.extend([""] * (cap - self.nodes.cap))
         self.nodes.on_grown(cap)
+        # the node index space the carried tables rank over grew
+        self.drop_warm_tables()
         for row, node in enumerate(self.node_by_row):
             if node is not None:
                 node.idle.vec = self.n_idle[row]
@@ -881,6 +907,7 @@ class ColumnStore:
             for stale in [k for k in self._per_cycle_dev if k != device]:
                 del self._per_cycle_dev[stale]
                 self._dev_cache.pop(stale, None)
+                self._warm_tables.pop(stale, None)
             cache = self._per_cycle_dev[device] = PerCycleDeviceCache(device)
         return cache
 
@@ -905,9 +932,34 @@ class ColumnStore:
 
     def drop_resident(self) -> None:
         """Cold-start the device residency: the next swap uploads every
-        column in full."""
+        column in full.  The carried warm tables go with it: they were
+        ranked against the dropped tensors, and a guard heal must not
+        leave a possibly corrupt ranking behind."""
         self._per_cycle_dev.clear()
         self._dev_cache.clear()
+        self.drop_warm_tables()
+
+    # ---- warm-started allocate: carried candidate tables (KB_WARM) ----
+    def warm_table_state(self, device):
+        """The carried candidate-table state for ``device``, made on first
+        use; it resets itself when its shape or config key changes."""
+        from kube_batch_tpu_torch.api.resident import WarmTableState
+
+        device = resolve_device(device)
+        st = self._warm_tables.get(device)
+        if st is None:
+            st = self._warm_tables[device] = WarmTableState(device)
+        return st
+
+    def drop_warm_tables(self) -> None:
+        """Drop every carried candidate table: the next warm dispatch
+        builds cold."""
+        self._warm_tables.clear()
+
+    def warm_counters(self) -> Dict[str, Dict]:
+        """The carried tables' counters under their path name ("single":
+        the port has no sharded warm path)."""
+        return {"single": st.counters() for st in self._warm_tables.values()}
 
     def device_snapshot(self, ssn):
         """(DeviceSnapshot of numpy arrays, SnapshotMeta) for an exclusive

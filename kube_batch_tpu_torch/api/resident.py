@@ -37,6 +37,13 @@ eviction solve, backfill's stranded-capacity solve) swaps, launches and
 reads back before the next action swaps, and no action keeps a snapshot
 tensor afterwards.  All run on one stream, so a swap's writes follow the
 kernels already queued on the tensors.
+
+The second half of the module is the warm-started allocate's host
+planner (``WarmTableState``, the JAX package's, keyed by device): every
+swap's delta record is absorbed into it, and each warm dispatch asks it
+which carried rows to re-rank and which nodes' keys to refresh.  The
+carried table it holds is made by the solve (new tensors every cycle),
+never a view of a resident snapshot tensor.
 """
 
 from __future__ import annotations
@@ -254,3 +261,362 @@ class PerCycleDeviceCache:
 
     def remember(self, snap, out) -> None:
         self._last_in, self._last_out = snap, out
+
+
+# ==========================================================================
+# Warm-started allocate (KB_WARM): the carried candidate table's planner
+# ==========================================================================
+#
+# The compacted solve's [P, W] candidate table stays on the device between
+# solves (ops/assignment.py warm_allocate_solve).  Each cycle this host
+# planner decides, from what moved since the last solve, which rows are
+# re-ranked in full and which node columns get fresh keys merged in:
+#
+#   node deltas — the swap's delta record (``absorb``) at the node fields
+#     the keys read, plus the ingest-static node features (mirror diffs);
+#   task deltas — rows new to the bucket, rows whose own features moved,
+#     rows with sparse affinity or preference terms (rebuilt every cycle
+#     from object state, invisible to both sources above);
+#   erosion — the solve's ``eroded`` output re-ranks next cycle.
+#
+# Any wholesale movement (full upload, version gap, shape or config change)
+# makes the plan COLD: every live bucket row re-ranks.
+
+#: changed-node slot rungs of the warm merge's fresh [P, C] block; churn
+#: past the top rung makes the plan cold
+WARM_CHANGED_BUCKETS: Tuple[int, ...] = (64, 512, 4096)
+
+#: the carried table stores W = K + margin entries, so cut erosion rarely
+#: reaches the nominal K before a re-rank catches up
+WARM_WIDTH_MARGIN = 16
+
+
+def warm_rerank_rungs(P: int) -> Tuple[int, ...]:
+    """The sub-bucket rungs for a [P] pending bucket: ×2 steps from 128 up
+    to P (always ending at P), for the re-rank rung and the merge rung."""
+    out = []
+    v = min(128, P)
+    while v < P:
+        out.append(v)
+        v = min(v * 2, P)
+    out.append(P)
+    return tuple(out)
+
+
+def _rung(n: int, rungs: Tuple[int, ...]) -> int:
+    for r in rungs:
+        if n <= r:
+            return r
+    return rungs[-1]
+
+
+#: consecutive under-rung plans before a ratcheted rung drops back to fit
+WARM_RUNG_DECAY = 3
+
+
+def _ratchet(current: int, needed: int, low_streak: int, floor: int = 0):
+    """Sticky rung with hysteresis: grow at once, drop to the needed rung
+    after WARM_RUNG_DECAY consecutive plans that needed less.  Returns
+    (rung, streak)."""
+    if needed >= current:
+        return needed, 0
+    low_streak += 1
+    if low_streak < WARM_RUNG_DECAY:
+        return current, low_streak
+    return max(needed, floor), 0
+
+
+class WarmTableState:
+    """One device's carried candidate table and its invalidation planner
+    (the JAX package's ``WarmTableState``, keyed by device instead of by
+    mesh).  Owned by the ColumnStore (``warm_table_state``) and dropped
+    wholesale on axis growth, resident drops (guard heals) and device
+    changes, so a table never outlives the index space it was ranked in."""
+
+    #: per-cycle snapshot fields whose row deltas invalidate node keys
+    NODE_DELTA_FIELDS = (
+        "node_idle", "node_releasing", "node_used", "node_valid",
+        "node_sched",
+    )
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._reset()
+        # lifetime counters
+        self.plans = 0
+        self.cold_builds = 0
+        self.reranked_total = 0
+        self.changed_total = 0
+
+    def _reset(self) -> None:
+        self.shape_key = None       # (P, W, capN, capT, config)
+        self.rows: Optional[np.ndarray] = None
+        self.table = None           # (idx, skey, hash, trunc) tensors
+        self.eroded_dev = None
+        self._changed: Optional[np.ndarray] = None  # bool [capN]
+        self._node_full = True
+        self._absorbed_version = -1
+        self._consumed_version = -1
+        self._t_mirror: Optional[Dict[str, np.ndarray]] = None
+        self._n_mirror: Optional[Dict[str, np.ndarray]] = None
+        self._t_feat_ver = -1
+        self._n_feat_ver = -1
+        # sticky rungs (the re-rank ratchet never pins the cold rung P; the
+        # merge rung decays no lower than the previous bucket's live count,
+        # so carried row_map values stay inside the sliced prefix)
+        self._c_rung = 0
+        self._r_rung = 0
+        self._m_rung = 0
+        self._c_low = 0
+        self._r_low = 0
+        self._m_low = 0
+        self.last: Dict = {}
+
+    # ------------------------------------------------------------------
+    def absorb(self, record: Dict, version: int) -> None:
+        """Fold one resident swap's delta record into the pending
+        invalidation.  A version the planner already consumed is skipped,
+        so a re-notified record is never marked twice."""
+        if version <= self._consumed_version:
+            return
+        for field in self.NODE_DELTA_FIELDS:
+            if field not in record:
+                continue
+            rows = record[field]
+            if rows is None:
+                self._node_full = True
+            elif self._changed is not None:
+                if rows.size and rows[-1] < self._changed.shape[0]:
+                    self._changed[rows] = True
+                else:
+                    self._node_full = True  # shape drift: cold
+        self._absorbed_version = version
+
+    # ------------------------------------------------------------------
+    def _ensure(self, key) -> None:
+        if key != self.shape_key:
+            self._reset()
+            self.shape_key = key
+
+    def _diff_mirror(self, mirror_slot: str, ver_slot: str, version: int,
+                     sources) -> np.ndarray:
+        """Changed-row mask over the named ingest-static arrays (they carry
+        no scatter deltas, so the state keeps its own mirrors).  A shape
+        change reads as all-changed; an unmoved feature version skips the
+        compare."""
+        mirror = getattr(self, mirror_slot)
+        n = sources[0][1].shape[0]
+        if mirror is not None and getattr(self, ver_slot) == version:
+            return np.zeros(n, bool)
+        out = np.zeros(n, bool)
+        fresh = {}
+        for name, arr in sources:
+            fresh[name] = arr.copy()
+            if mirror is None:
+                out[:] = True
+                continue
+            old = mirror.get(name)
+            if old is None or old.shape != arr.shape:
+                out[:] = True
+                continue
+            if arr.ndim == 1:
+                out |= old != arr
+            else:
+                out |= np.any(old != arr, axis=1)
+        setattr(self, mirror_slot, fresh)
+        setattr(self, ver_slot, version)
+        return out
+
+    # ------------------------------------------------------------------
+    def plan(self, cols, pend_rows: np.ndarray, k: int,
+             config) -> Optional[Dict]:
+        """The per-solve invalidation plan, or None when warm cannot run
+        this cycle (no resident cache on this device, or a swap this state
+        did not absorb: the delta chain is broken).
+
+        Returns {"row_map", "changed", "rerank_rows", "rerank_slots",
+        "table", "w", "cold"}: numpy plan arrays, the carried (or freshly
+        emptied) table and the stored width.  Reads back the previous
+        solve's [P] erosion flags (one small sync)."""
+        cache = cols._per_cycle_dev.get(self.device)
+        if cache is None or cache.version != self._absorbed_version:
+            return None
+        P = int(pend_rows.shape[0])
+        capN = cols.nodes.cap
+        capT = cols.tasks.cap
+        W = k + WARM_WIDTH_MARGIN
+        key = (P, W, capN, capT, config)
+        self._ensure(key)
+        self.plans += 1
+        if self._changed is None:
+            self._changed = np.zeros(capN, bool)
+
+        new_live = pend_rows[pend_rows >= 0]
+        # ---- ingest-static feature diffs (no scatter deltas to ride) --
+        task_dirty = self._diff_mirror(
+            "_t_mirror", "_t_feat_ver", cols.task_feature_version, (
+                ("t_init32", cols.t_init32),
+                ("t_sel_bits", cols.t_sel_bits),
+                ("t_sel_impossible", cols.t_sel_impossible),
+                ("t_tol_bits", cols.t_tol_bits),
+            ))
+        node_feat_dirty = self._diff_mirror(
+            "_n_mirror", "_n_feat_ver", cols.node_feature_version, (
+                ("n_alloc32", cols.n_alloc32),
+                ("n_label_bits", cols.n_label_bits),
+                ("n_taint_bits", cols.n_taint_bits),
+            ))
+
+        # C rungs past the node capacity would make the fresh block wider
+        # than the cold build it replaces: they make the plan cold instead
+        c_rungs = tuple(
+            r for r in WARM_CHANGED_BUCKETS if r < capN
+        ) or (WARM_CHANGED_BUCKETS[0],)
+        cold = (
+            self.table is None
+            or self.rows is None
+            or self._node_full
+            or bool(node_feat_dirty.all())
+        )
+        changed_mask = self._changed
+        if not cold:
+            changed_mask = changed_mask | node_feat_dirty
+            n_changed = int(changed_mask.sum())
+            if n_changed > min(c_rungs[-1], capN - 1):
+                cold = True
+
+        rerank_mask = np.zeros(P, bool)
+        n_live = int(new_live.size)
+        rungs = warm_rerank_rungs(P)
+        # the merge rung: the [M] live prefix the refresh slices to, its
+        # decay floor covering the previous bucket's live count
+        old_live = (
+            int((self.rows >= 0).sum()) if self.rows is not None else 0
+        )
+        m_need = _rung(max(n_live, old_live, 1), rungs)
+        self._m_rung, self._m_low = _ratchet(
+            self._m_rung, m_need, self._m_low
+        )
+        m_rung = self._m_rung
+        n_new = n_dirty = n_eroded = 0
+        if cold:
+            self.cold_builds += 1
+            row_map = np.full(m_rung, -1, np.int32)
+            rerank_mask[:n_live] = True
+            changed = np.full(max(self._c_rung, c_rungs[0]), -1, np.int32)
+            n_changed = 0
+        else:
+            # ---- bucket permutation (old slot per new slot) ----------
+            old_live = self.rows[self.rows >= 0]
+            pos = np.searchsorted(old_live, new_live)
+            safe = np.minimum(pos, max(old_live.size - 1, 0))
+            carried = (
+                (pos < old_live.size) & (old_live[safe] == new_live)
+                if old_live.size else np.zeros(n_live, bool)
+            )
+            row_map = np.full(m_rung, -1, np.int32)
+            row_map[:n_live][carried] = pos[carried].astype(np.int32)
+            # ---- the re-rank set -------------------------------------
+            rerank_mask[:n_live] = ~carried                 # new rows
+            n_new = int(np.sum(~carried))
+            rerank_mask[:n_live] |= task_dirty[new_live]    # own features
+            n_dirty = int(np.sum(task_dirty[new_live]))
+            sparse = cols._aff_rows | cols._pref_rows       # conservative
+            if sparse:
+                rerank_mask[:n_live] |= np.isin(
+                    new_live, np.fromiter(sparse, np.int64)
+                )
+            if self.eroded_dev is not None:
+                # the previous solve's [P] erosion flags, long computed:
+                # one small readback per warm plan
+                eroded = self.eroded_dev.cpu().numpy()
+                er_rows = self.rows[np.flatnonzero(eroded)]
+                er_rows = er_rows[er_rows >= 0]
+                n_eroded = int(er_rows.size)
+                if er_rows.size:
+                    # spare-fill: eroded rows re-rank only in the padding
+                    # slots of the rung the mandatory set already pays for;
+                    # deferred rows stay exact and retry next cycle
+                    base = int(rerank_mask.sum())
+                    spare = _rung(max(base, 1), warm_rerank_rungs(P)) - base
+                    if spare > 0:
+                        admit = np.isin(new_live, er_rows)
+                        admit &= ~rerank_mask[:n_live]
+                        extra = np.flatnonzero(admit)[:spare]
+                        rerank_mask[extra] = True
+            # changed-node list at its (ratcheted, decaying) rung
+            ch_rows = np.flatnonzero(changed_mask)
+            n_changed = int(ch_rows.size)
+            self._c_rung, self._c_low = _ratchet(
+                self._c_rung, _rung(max(n_changed, 1), c_rungs),
+                self._c_low, floor=c_rungs[0],
+            )
+            changed = np.full(self._c_rung, -1, np.int32)
+            changed[:n_changed] = ch_rows.astype(np.int32)
+
+        n_rerank = int(rerank_mask.sum())
+        rrung = _rung(max(n_rerank, 1), rungs)
+        if rrung < P:
+            # sub-P rungs ratchet with decay; the cold-sized rung never
+            # pins the ratchet
+            self._r_rung, self._r_low = _ratchet(
+                self._r_rung, rrung, self._r_low, floor=rungs[0]
+            )
+            rrung = min(self._r_rung, m_rung)
+        rerank_slots = np.full(rrung, -1, np.int32)
+        slots = np.flatnonzero(rerank_mask)
+        rerank_slots[:n_rerank] = slots.astype(np.int32)
+        rerank_rows = np.full(rrung, -1, np.int32)
+        rerank_rows[:n_rerank] = pend_rows[slots]
+
+        table = self.table
+        if table is None:
+            table = self._init_table(P, W)
+        # plan consumed: clear the accumulators and mark the consumed swap
+        # version, so a re-notified record cannot re-mark them
+        self._changed = np.zeros(capN, bool)
+        self._node_full = False
+        self._consumed_version = self._absorbed_version
+        self.rows = pend_rows.copy()
+        self.reranked_total += n_rerank
+        self.changed_total += n_changed
+        self.last = {
+            "cold": cold, "reranked": n_rerank, "changed": n_changed,
+            "bucket_live": n_live, "w": W,
+            # re-rank attribution: rows new to the bucket, rows whose own
+            # features moved, eroded rows
+            "new": n_new, "dirty": n_dirty, "eroded": n_eroded,
+        }
+        return {
+            "row_map": row_map, "changed": changed,
+            "rerank_rows": rerank_rows, "rerank_slots": rerank_slots,
+            "table": table, "w": W, "cold": cold,
+        }
+
+    def _init_table(self, P: int, W: int):
+        """An empty [P, W] table on this state's device."""
+        dev = self.device
+        return (torch.zeros((P, W), dtype=torch.int32, device=dev),
+                torch.full((P, W), -(2 ** 31), dtype=torch.int32, device=dev),
+                torch.full((P, W), -1, dtype=torch.int32, device=dev),
+                torch.zeros(P, dtype=torch.bool, device=dev))
+
+    def commit(self, table, eroded) -> None:
+        """Adopt the refreshed table and erosion flags the solve returned."""
+        self.table = table
+        self.eroded_dev = eroded
+
+    def drop(self) -> None:
+        """Abandon the carry (the next plan is cold): the dispatch calls
+        this when a warm solve raises between plan() and commit(), since
+        plan() already consumed the invalidation accumulators."""
+        self._reset()
+
+    def counters(self) -> Dict:
+        return {
+            "plans": self.plans,
+            "cold_builds": self.cold_builds,
+            "reranked_total": self.reranked_total,
+            "changed_total": self.changed_total,
+            "last": dict(self.last),
+        }

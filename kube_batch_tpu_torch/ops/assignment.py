@@ -30,6 +30,7 @@ from kube_batch_tpu_torch.api.snapshot import DeviceSnapshot
 from kube_batch_tpu_torch.ops import fairness, ordering
 from kube_batch_tpu_torch.ops.feasibility import fits, static_predicates
 from kube_batch_tpu_torch.ops.kernels import (  # noqa: F401 — _tie_break_hash re-exported
+    _H1,
     NEG,
     _tie_break_hash,
     f32_sort_key,
@@ -554,6 +555,339 @@ def allocate_topk_solve(snap: DeviceSnapshot, pend_rows: torch.Tensor,
                           snap.node_releasing, snap.node_used,
                           compact_head=head)
     return scatter_bucket_result(res, pend_rows, T)
+
+
+# ==========================================================================
+# Warm-started compacted allocate (KB_WARM): the cross-cycle table carry
+# ==========================================================================
+#
+# The compacted solve's candidate build re-ranks every bucket row against
+# every node once per solve.  The warm path carries the [P, W] table on the
+# device between solves, and each cycle only re-ranks the invalidated rows
+# (new to the bucket, own features moved, eroded: a sub-bucket
+# compact_candidates at a fixed rung) and merges the changed nodes' fresh
+# keys ([P, C]) into every carried row.  The JAX package's module comment
+# (ops/assignment.py, "Warm-started incremental allocate") has the
+# exactness argument: every node absent from a row's valid entries either
+# changed (its fresh key is in this merge) or keys below the row's last
+# valid entry θ, and the merge cuts whatever falls below θ (or below the
+# E-th fresh key φ) and marks the row truncated, so the table stays an
+# exact prefix and the exhaustion re-entry covers the rest.  The planner
+# is ``api/resident.WarmTableState``; ``KB_WARM=0`` keeps the cold build.
+
+
+def lex_topk3(skey: torch.Tensor, hash_: torch.Tensor, idx: torch.Tensor,
+              K: int, block: int = 64):
+    """Exact per-row top-K of (skey desc, hash desc, idx asc) with the index
+    as an explicit third key: :func:`lex_topk` breaks full ties by
+    position, which equals the index order only when the columns are
+    index-sorted, and the warm merge's are not.  Requires per-row-unique
+    indices among valid entries.  Returns ``(idx, skey, hash)`` [P, K]."""
+    P, M = skey.shape
+    dev = skey.device
+    C = min(block, M)
+    Mp = -(-M // C) * C
+    pad = Mp - M
+    if pad:
+        F = torch.nn.functional
+        skey = F.pad(skey, (0, pad), value=_I32_MIN)
+        hash_ = F.pad(hash_, (0, pad), value=-1)
+        idx = F.pad(idx, (0, pad), value=1 << 30)
+    B = Mp // C
+    BIG = 1 << 30
+
+    def block_reduce(s, h, i):
+        bval = s.amax(dim=-1)
+        t1 = s >= bval[..., None]
+        bh = torch.where(t1, h, -2).amax(dim=-1)
+        t2 = t1 & (h == bh[..., None])
+        return bval, bh, torch.where(t2, i, BIG).amin(dim=-1)
+
+    bval, bh, bidx = block_reduce(skey.reshape(P, B, C), hash_.reshape(P, B, C),
+                                  idx.reshape(P, B, C))
+    barange = torch.arange(B, dtype=torch.int64, device=dev)[None, :]
+    carange = torch.arange(C, dtype=torch.int64, device=dev)[None, :]
+    oi = torch.zeros((P, K), dtype=torch.int32, device=dev)
+    os_ = torch.full((P, K), _I32_MIN, dtype=torch.int32, device=dev)
+    oh = torch.full((P, K), -1, dtype=torch.int32, device=dev)
+    for k in range(K):
+        gv = bval.amax(dim=1)
+        t1 = bval >= gv[:, None]
+        ghv = torch.where(t1, bh, -2).amax(dim=1)
+        t2 = t1 & (bh == ghv[:, None])
+        gidx = torch.where(t2, bidx, BIG).amin(dim=1)
+        # indices are per-row unique: exactly one block holds the winner
+        gb = (t2 & (bidx == gidx[:, None])).to(torch.uint8).argmax(dim=1)
+        oi[:, k] = gidx
+        os_[:, k] = gv
+        oh[:, k] = ghv
+        # re-reduce only the winning block, keeping the entries strictly
+        # lex-below the extracted (gv, ghv, gidx)
+        cols_ = (gb * C)[:, None] + carange
+        gs = skey.gather(1, cols_)
+        gh2 = hash_.gather(1, cols_)
+        gi2 = idx.gather(1, cols_)
+        keep = (gs < gv[:, None]) | ((gs == gv[:, None]) & (
+            (gh2 < ghv[:, None])
+            | ((gh2 == ghv[:, None]) & (gi2 > gidx[:, None]))))
+        nv, nh, ni = block_reduce(torch.where(keep, gs, _I32_MIN)[:, None, :],
+                                  gh2[:, None, :], gi2[:, None, :])
+        win = barange == gb[:, None]
+        bval = torch.where(win, nv, bval)
+        bh = torch.where(win, nh, bh)
+        bidx = torch.where(win, ni, bidx)
+    return oi, os_, oh
+
+
+def node_view(snap: DeviceSnapshot, node_rows: torch.Tensor) -> DeviceSnapshot:
+    """``snap`` with the node axis gathered to ``node_rows`` (-1 padding →
+    dead columns: node_valid forced off).  Every live column equals the
+    same column of the full matrices."""
+    N = snap.node_idle.shape[0]
+    safe = node_rows.long().clamp(0, N - 1)
+    live = node_rows >= 0
+
+    def g(arr):
+        return arr[safe]
+
+    def g1(arr):  # [K, N] sparse rows: the node axis is axis 1
+        return arr[:, safe]
+
+    return snap._replace(
+        node_idle=g(snap.node_idle),
+        node_releasing=g(snap.node_releasing),
+        node_used=g(snap.node_used),
+        node_alloc=g(snap.node_alloc),
+        node_valid=g(snap.node_valid) & live,
+        node_sched=g(snap.node_sched),
+        node_label_bits=g(snap.node_label_bits),
+        node_taint_bits=g(snap.node_taint_bits),
+        task_aff_mask=g1(snap.task_aff_mask),
+        task_pref_node=g1(snap.task_pref_node),
+        task_pref_pod=g1(snap.task_pref_pod),
+    )
+
+
+def fresh_block_skey(view_pc: DeviceSnapshot, quanta: torch.Tensor,
+                     config: AllocateConfig) -> torch.Tensor:
+    """[P, C] sort keys of the changed-node columns at the current
+    cycle-start budgets: ``compact_candidates``' key derivation on a node
+    subset, in plain ops.  The releasing fit counts only when something in
+    the view is releasing (the JAX package's ``lax.cond`` over the view's
+    columns, as a device-side mask); K2 ORs it in unconditionally, so it
+    would key differently for a request that fits a zero budget within
+    ``quanta``."""
+    static_ok = static_predicates(view_pc)
+    score = score_matrix(view_pc, config.weights)
+    score_static = torch.where(static_ok, score, NEG)
+    fit0 = fits(view_pc.task_req, view_pc.node_idle, quanta)
+    fit0_rel = _rel_fits(view_pc.task_req, view_pc.node_releasing, quanta, fits)
+    return f32_sort_key(torch.where(fit0 | fit0_rel, score_static, NEG))
+
+
+#: fresh candidates inserted per row per merge; rows where more changed
+#: nodes belong in the top W are φ-cut (still exact, thinner, truncated)
+FRESH_E = 8
+
+
+def _lex_ge(s, h, i, ts, th, ti):
+    """Entry (s, h, i) at or above threshold (ts, th, ti) in the table
+    order (skey desc, hash desc, idx asc)."""
+    return (s > ts) | ((s == ts) & ((h > th) | ((h == th) & (i <= ti))))
+
+
+def warm_refresh_table(t_idx, t_skey, t_hash, t_trunc, row_map, rows_m,
+                       changed_nodes, skey_c, hash_c, ri, rs, rh, trunc_i,
+                       rerank_slots, N: int, k_min: int):
+    """One cycle's table maintenance over the [M] live prefix (M =
+    ``row_map``'s length; rows past M stay as they are): permute the
+    carried table into the new bucket order (``row_map``: old slot per new
+    slot, -1 = fresh row), remove the changed nodes' stale entries, merge
+    in the top FRESH_E of their fresh keys (a counting merge of two sorted
+    lists), cut at lexmax(θ, φ), and overwrite the re-ranked rows with
+    their fresh builds at ``rerank_slots``.
+
+    Returns new tensors ``(idx, skey, hash, trunc, eroded)``: the full
+    [P, W] table and the [P] erosion flag (truncated and fewer than a
+    per-row staggered floor of at least ``k_min`` valid entries)."""
+    P, W = t_skey.shape
+    M = row_map.shape[0]
+    E = FRESH_E
+    neg = _neg_key()
+    BIG = 1 << 30
+    dev = t_skey.device
+    i32 = torch.int32
+    # ---- 1. permute the live prefix into the new bucket order --------
+    live = row_map >= 0
+    safe = row_map.long().clamp(0, M - 1)
+    idx = torch.where(live[:, None], t_idx[:M][safe], 0)
+    skey = torch.where(live[:, None], t_skey[:M][safe], _I32_MIN)
+    hsh = torch.where(live[:, None], t_hash[:M][safe], -1)
+    # a fresh row starts truncated: its empty table claims nothing
+    trunc = torch.where(live, t_trunc[:M][safe], True)
+    # ---- 2. θ per row: the last valid entry, before removal ----------
+    valid = skey > neg
+    vcnt = valid.sum(dim=1, dtype=i32)
+    last = (vcnt - 1).clamp(0, W - 1).long()[:, None]
+    has_any = vcnt > 0
+    th_s = torch.where(has_any, skey.gather(1, last)[:, 0], neg)
+    th_h = torch.where(has_any, hsh.gather(1, last)[:, 0], 2**31 - 1)
+    th_i = torch.where(has_any, idx.gather(1, last)[:, 0], -1)
+    # ---- 3. remove the changed nodes' stale entries ------------------
+    changed_mask = torch.zeros(N + 1, dtype=torch.bool, device=dev).index_fill_(
+        0, torch.where(changed_nodes >= 0, changed_nodes, N).long(), True)[:N]
+    keep = valid & ~changed_mask[idx.long().clamp(0, N - 1)]
+    skey = torch.where(keep, skey, _I32_MIN)
+    # ---- 4. top-E of the fresh block (short tournament) --------------
+    C = changed_nodes.shape[0]
+    idx_c = changed_nodes[None, :].expand(M, C)
+    fresh_ok = (changed_nodes >= 0)[None, :] & (skey_c > neg)
+    fi, fs, fh = lex_topk3(torch.where(fresh_ok, skey_c, _I32_MIN), hash_c,
+                           idx_c, E)
+    f_valid = fs > neg
+    # φ: the E-th extracted fresh key; every fresh candidate not extracted
+    # is strictly lex-below it (indices are unique)
+    phi_live = f_valid[:, E - 1]
+    ph_s, ph_h, ph_i = fs[:, E - 1], fh[:, E - 1], fi[:, E - 1]
+    # ---- 5. merge of the two sorted lists, by counting ---------------
+    keep_i = keep.to(i32)
+    kp = torch.cumsum(keep_i, dim=1, dtype=i32) - keep_i
+    kept_cnt = keep.sum(dim=1, dtype=i32)
+    jcols = torch.arange(W, dtype=i32, device=dev)[None, :]
+    # stored position of the j-th kept entry (dropped entries land in a
+    # spare column W that is sliced away)
+    kth_kept = torch.zeros((M, W + 1), dtype=i32, device=dev).scatter_(
+        1, torch.where(keep, kp, W).long(), jcols.expand(M, W).contiguous(),
+    )[:, :W]
+    # fresh rank of each top-E entry in the merged output: its own position
+    # plus the kept entries lex-above it
+    gt = _lex_ge(skey[:, :, None], hsh[:, :, None], idx[:, :, None],
+                 fs[:, None, :], fh[:, None, :], fi[:, None, :])
+    fresh_rank = torch.arange(E, dtype=i32, device=dev)[None, :] + (
+        gt & keep[:, :, None]).sum(dim=1, dtype=i32)
+    # fresh entries consumed before output j: the two list cursors
+    b = (f_valid[:, None, :] & (fresh_rank[:, None, :] < jcols[:, :, None])
+         ).sum(dim=2, dtype=i32)
+    a = jcols - b
+
+    def g(arr, cur, ok, fill):
+        v = arr.gather(1, cur.clamp(0, arr.shape[1] - 1).long())
+        return torch.where(ok, v, fill)
+
+    s_ok = a < kept_cnt[:, None]
+    sp = g(kth_kept, a, s_ok, 0)
+    hs_s = g(skey, sp, s_ok, _I32_MIN)
+    hs_h = g(hsh, sp, s_ok, -1)
+    hs_i = g(idx, sp, s_ok, BIG)
+    f_ok = (b < E) & f_valid.gather(1, b.clamp(0, E - 1).long())
+    hf_s = g(fs, b, f_ok, _I32_MIN)
+    hf_h = g(fh, b, f_ok, -1)
+    hf_i = g(fi, b, f_ok, BIG)
+    take_f = f_ok & ~(s_ok & _lex_ge(hs_s, hs_h, hs_i, hf_s, hf_h, hf_i))
+    ns = torch.where(take_f, hf_s, hs_s)
+    nh = torch.where(take_f, hf_h, hs_h)
+    ni = torch.where(take_f, hf_i, hs_i)
+    overflow = (kept_cnt + f_valid.sum(dim=1, dtype=i32)) > W
+    # ---- 6. cut at lexmax(θ, φ) --------------------------------------
+    ge = _lex_ge(ns, nh, ni, th_s[:, None], th_h[:, None], th_i[:, None])
+    ge &= ~phi_live[:, None] | _lex_ge(
+        ns, nh, ni, ph_s[:, None], ph_h[:, None], ph_i[:, None])
+    cut_any = ((ns > neg) & ~ge).any(dim=1)
+    ns = torch.where((ns > neg) & ge, ns, _I32_MIN)
+    # a live φ means fresh candidates below it may be missing: the row can
+    # no longer claim completeness even when nothing was cut
+    trunc = trunc | cut_any | overflow | phi_live
+    # ---- 7. overwrite the re-ranked rows -----------------------------
+    scat = torch.where(rerank_slots >= 0, rerank_slots, M).long()
+
+    def over(dst, upd):
+        out = torch.cat([dst, dst.new_zeros((1,) + dst.shape[1:])], 0)
+        out[scat] = upd
+        return out[:M]
+
+    ni = over(ni, ri)
+    ns = over(ns, rs)
+    nh = over(nh, rh)
+    trunc = over(trunc, trunc_i)
+    # ---- 8. erosion flag (staggered per row) + full-table assembly ---
+    vcnt2 = (ns > neg).sum(dim=1, dtype=i32)
+    spread = max(W - k_min, 1)
+    jitter = ((rows_m.clamp(min=0) * _H1) >> 16 & 0xFFFF) % spread
+    eroded = trunc & (vcnt2 < k_min + jitter)
+    return (torch.cat([ni, t_idx[M:]], 0), torch.cat([ns, t_skey[M:]], 0),
+            torch.cat([nh, t_hash[M:]], 0), torch.cat([trunc, t_trunc[M:]], 0),
+            torch.cat([eroded, eroded.new_zeros(P - M)], 0))
+
+
+def make_lazy_bucket_fallback(view_p: DeviceSnapshot, pend_rows, quanta,
+                              config: AllocateConfig):
+    """The warm path's exhaustion re-entry: the full head over the bucket
+    with the [P, N] score and hash planes built at the first round that
+    re-enters (a solve that never re-enters never builds them) and kept for
+    the solve's later rounds: they depend on the bucket view alone.  The
+    JAX package rebuilds them inside every re-entering round's cond."""
+    safe_rows = pend_rows.clamp(min=0).to(torch.int32)
+    N = view_p.node_idle.shape[0]
+    built = []
+
+    def fallback(idle, releasing, pending_exh):
+        if not built:
+            static_ok = static_predicates(view_p)
+            score = score_matrix(view_p, config.weights)
+            ss = torch.where(static_ok, score, NEG)
+            tie = tie_break_hash_rows(
+                safe_rows, torch.arange(N, dtype=torch.int32, device=idle.device))
+            built.append(make_bucket_fallback(view_p, ss, tie, quanta))
+        return built[0](idle, releasing, pending_exh)
+
+    return fallback
+
+
+def _warm_allocate_solve(snap: DeviceSnapshot, pend_rows, t_idx, t_skey,
+                         t_hash, t_trunc, row_map, changed_nodes, rerank_rows,
+                         rerank_slots, config: AllocateConfig, k_min: int):
+    """The warm-started compacted solve: the outputs of
+    :func:`allocate_topk_solve` (and so of the full solve) against the
+    carried table, refreshed by :func:`warm_refresh_table`.
+    ``config.topk`` is the stored width W; ``k_min`` the erosion floor.
+    Returns ``(AllocateResult, (idx, skey, hash, trunc), eroded)``."""
+    T = snap.task_req.shape[0]
+    N = snap.node_idle.shape[0]
+    M = row_map.shape[0]
+    view_p = pend_view(snap, pend_rows)
+    # fresh keys of the changed-node columns over the [M] live prefix
+    rows_m = pend_rows[:M]
+    view_pc = node_view(pend_view(snap, rows_m), changed_nodes)
+    skey_c = fresh_block_skey(view_pc, snap.quanta, config)
+    hash_c = tie_break_hash_rows(rows_m.clamp(min=0), changed_nodes.clamp(min=0))
+    # the invalidated sub-bucket's full re-rank (K2 on the card): the only
+    # [·, N] work of a steady warm cycle
+    view_i = pend_view(snap, rerank_rows)
+    ri, rs, rh, n_feas, _ss, _tie = compact_candidates(
+        view_i, rerank_rows, snap.node_idle, snap.node_releasing, snap.quanta,
+        config)
+    ni, ns, nh, trunc, eroded = warm_refresh_table(
+        t_idx, t_skey, t_hash, t_trunc, row_map, rows_m, changed_nodes,
+        skey_c, hash_c, ri, rs, rh, n_feas > config.topk, rerank_slots,
+        N, k_min)
+    fallback = make_lazy_bucket_fallback(view_p, pend_rows, snap.quanta, config)
+    head = make_compact_head(ni, ns, nh, trunc, view_p.task_req, snap.quanta,
+                             N, fallback)
+    res = allocate_rounds(view_p, config, None, snap.node_idle,
+                          snap.node_releasing, snap.node_used,
+                          compact_head=head)
+    return scatter_bucket_result(res, pend_rows, T), (ni, ns, nh, trunc), eroded
+
+
+def warm_allocate_solve(snap, pend_rows, table, plan, config, k_min):
+    """Dispatch-facing warm solve: ``table`` is the carried (idx, skey,
+    hash, trunc) tensors, ``plan`` the planner's (row_map, changed_nodes,
+    rerank_rows, rerank_slots) int32 tensors on the same device."""
+    t_idx, t_skey, t_hash, t_trunc = table
+    row_map, changed, rr, rslots = plan
+    return _warm_allocate_solve(snap, pend_rows, t_idx, t_skey, t_hash,
+                                t_trunc, row_map, changed, rr, rslots,
+                                config, k_min)
 
 
 def failure_histogram_solve(snap: DeviceSnapshot) -> torch.Tensor:

@@ -11,9 +11,10 @@ binder drain.
     sched = Scheduler(cache, conf=parse_scheduler_conf(text), device="cpu")
     sched.run_once()
 
-``device=None`` means CUDA and raises without a card.  Not ported: the
-pipelined event-driven loop, conf hot-reload, the cycle budget, the resync
-drain and the tracing plane.
+``device=None`` means CUDA and raises without a card.  After each cycle
+the guard plane's breaker clock advances (``GuardPlane.end_cycle``).  Not
+ported: the pipelined event-driven loop, conf hot-reload, the cycle
+budget, the resync drain and the tracing plane.
 """
 
 from __future__ import annotations
@@ -72,6 +73,10 @@ class Scheduler:
             close_session(ssn)
             cycle["close"] = (time.perf_counter() - tc) * 1e3
             self.last_cycle_ms = cycle
+        # the guard plane's breaker clock counts scheduling cycles
+        guard = getattr(self.cache, "guard_plane", None)
+        if guard is not None:
+            guard.end_cycle()
 
     def run_forever(self) -> None:
         """The reference's wait.Until(runOnce, period): a cycle every

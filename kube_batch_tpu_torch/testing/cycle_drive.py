@@ -5,9 +5,9 @@
         [--device cuda|cpu] [--profile]
     python -m kube_batch_tpu_torch.testing.cycle_drive --overcommit
         [--running 40000] [--pending 20000] [--nodes 5000] [--device ...]
-    python -m kube_batch_tpu_torch.testing.cycle_drive --steady [--oracle]
-        [--tasks 50000] [--nodes 5000] [--cycles 8] [--warmup 2]
-        [--device ...]
+    python -m kube_batch_tpu_torch.testing.cycle_drive --steady
+        [--leg defaults|cold|noguard|oracle] [--tasks 50000] [--nodes 5000]
+        [--cycles 8] [--warmup 2] [--device ...]
 
 The first two drives run three cycles of ``Scheduler.run_once`` under
 the shipped five-action conf (``enqueue, reclaim, allocate, backfill,
@@ -43,9 +43,12 @@ reserved for the wobble's ceiling, ``warmup`` + ``cycles`` back-to-back
 cycles.  Before every cycle but the first the kubelet pass runs, then
 2 % of the gangs whose pods are all bound complete (their pods and
 PodGroup are deleted) and arrivals in gangs of 4 refill the pod count to
-``tasks × (1 + 0.1·U(−1, 1))``.  ``--oracle`` turns the three cross-cycle
-mechanisms off together (``KB_SNAPSHOT_DELTA=0``, ``KB_DEVICE_CACHE=0``,
-``KB_DELTA_CLOSE=0``), which must decide identically.
+``tasks × (1 + 0.1·U(−1, 1))``.  ``--leg`` picks what is switched off:
+``cold`` the warm candidate-table carry (``KB_WARM=0``), ``noguard`` the
+guard plane (``KB_GUARD=0``), ``oracle`` the four
+cross-cycle mechanisms together (``KB_SNAPSHOT_DELTA=0``,
+``KB_DEVICE_CACHE=0``, ``KB_DELTA_CLOSE=0``, ``KB_WARM=0``); every leg
+must decide identically.
 
 After each cycle the drive checks the column store against the object
 model, every node's ``idle ≥ −quanta`` and ``used ≤ allocatable +
@@ -57,7 +60,10 @@ MinAvailable.  It records per cycle the stage times (open, each action,
 close), the allocate phases, the reclaim and preempt solves' rounds and
 ms, binds, evictions, pipelined claimants, kernel launches, (on the card)
 host syncs, what stayed unplaced and why, the open and snapshot paths,
-the churn, the resident cache's counters for the cycle, and a digest of
+the churn, the resident cache's counters for the cycle, allocate's warm
+plan record (``warm``) and the guard's counters for the cycle
+(``guard``: sentinel verdicts read, trips, fail-closed solves, audits,
+demoted paths), and a digest of
 the decisions (binds, evictions, pipelined claimants, task statuses,
 PodGroup phases).  A cycle is timed with the
 cyclic garbage collector paused after a full collection, as the JAX
@@ -103,9 +109,17 @@ from kube_batch_tpu_torch.testing.synthetic import (
 
 GANG = 4
 N_QUEUES = 3
-#: the switches of the three cross-cycle mechanisms (delta open, resident
-#: snapshot, delta close); all "0" is the oracle
-ORACLE_SWITCHES = ("KB_SNAPSHOT_DELTA", "KB_DEVICE_CACHE", "KB_DELTA_CLOSE")
+#: the switches of the four cross-cycle mechanisms (delta open, resident
+#: snapshot, delta close, warm candidate-table carry); all "0" is the oracle
+ORACLE_SWITCHES = ("KB_SNAPSHOT_DELTA", "KB_DEVICE_CACHE", "KB_DELTA_CLOSE",
+                   "KB_WARM")
+#: the steady drive's legs: the switches each sets to "0" for its run
+LEGS = {
+    "defaults": (),
+    "cold": ("KB_WARM",),
+    "noguard": ("KB_GUARD",),
+    "oracle": ORACLE_SWITCHES,
+}
 
 
 def fail(msg: str) -> None:
@@ -258,13 +272,12 @@ def digest(state: dict, pipelined: int) -> str:
 
 
 @contextlib.contextmanager
-def oracle_switches(oracle: bool):
-    """With ``oracle``, set the three cross-cycle switches to 0 for the
-    block (the cache reads ``KB_SNAPSHOT_DELTA`` when it is made), and
-    restore the environment after it."""
-    saved = {k: os.environ.get(k) for k in ORACLE_SWITCHES}
-    if oracle:
-        os.environ.update({k: "0" for k in ORACLE_SWITCHES})
+def switches_off(names):
+    """Set the switches ``names`` to 0 for the block (the cache reads
+    ``KB_SNAPSHOT_DELTA`` when it is made, the guard plane ``KB_GUARD``
+    when it attaches), and restore the environment after it."""
+    saved = {k: os.environ.get(k) for k in names}
+    os.environ.update({k: "0" for k in names})
     try:
         yield
     finally:
@@ -273,6 +286,11 @@ def oracle_switches(oracle: bool):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def oracle_switches(oracle: bool):
+    """With ``oracle``, the four cross-cycle switches at 0 for the block."""
+    return switches_off(ORACLE_SWITCHES if oracle else ())
 
 
 class SwapCheck:
@@ -304,6 +322,19 @@ class SwapCheck:
         return n
 
 
+def guard_counters(cache) -> dict:
+    """The guard plane's lifetime counters and demoted paths ({} before it
+    attaches)."""
+    gp = getattr(cache, "guard_plane", None)
+    if gp is None:
+        return {}
+    st = gp.state()
+    return {"enabled": int(st["enabled"]), "verdicts": st["verdicts_consumed"],
+            "trips": st["trips_total"], "failed_closed": st["failed_closed"],
+            "audits": st["audits_run"], "audit_mismatches": st["audits_mismatched"],
+            "demoted": sorted(n for n, p in st["paths"].items() if p["state"] != "healthy")}
+
+
 def run_cycles(cache, device, churn: Callable[[int], dict], ingest_s: float,
                keep_states: bool = False, profile: bool = False,
                n_cycles: int = 3, check_swaps: bool = False) -> dict:
@@ -330,6 +361,7 @@ def run_cycles(cache, device, churn: Callable[[int], dict], ingest_s: float,
         pending = int(cache.columns.schedulable_pending_mask().sum())
         binds_before = len(cache.binder.binds)
         resident_before = cols.resident_counters().get("single", {})
+        guard_before = guard_counters(cache)
         check.ms, check.swaps = 0.0, 0
         kernels.reset_launches()
         gc.collect()
@@ -375,6 +407,11 @@ def run_cycles(cache, device, churn: Callable[[int], dict], ingest_s: float,
                 k: v - resident_before.get(k, 0) for k, v in resident.items()}})["single"]
         state = observed(cache)
         pipelined = actions["reclaim"].last_stats.get("pipelined", 0)
+        guard_after = guard_counters(cache)
+        guard = {k: v - guard_before.get(k, 0) for k, v in guard_after.items()
+                 if k not in ("enabled", "demoted")}
+        guard.update(enabled=guard_after.get("enabled", 0),
+                     demoted=guard_after.get("demoted", []))
         cycles.append(dict(
             cycle=c + 1, pending=pending, **churned, churn_s=churn_s, mode=mode,
             open_path=cache.last_open_path, snapshot_path=cols.last_snapshot_path,
@@ -382,6 +419,7 @@ def run_cycles(cache, device, churn: Callable[[int], dict], ingest_s: float,
             swaps_checked=swaps_checked, swap_check_ms=check.ms,
             digest=digest(state, pipelined),
             topk=topk, rounds=allocate.last_solve_rounds,
+            warm=allocate.last_warm, guard=guard,
             new_binds=len(cache.binder.binds) - binds_before,
             binds=len(cache.binder.binds), new_evicts=len(new_evicts),
             evicts=len(cache.evictor.evicts),
@@ -445,14 +483,16 @@ def drive_overcommit(n_running: int, n_pending: int, n_nodes: int, seed: int = 0
 
 def drive_steady(n_tasks: int, n_nodes: int, cycles: int = 8, warmup_cycles: int = 2,
                  churn_frac: float = 0.02, wobble: float = 0.1, seed: int = 0,
-                 device=None, oracle: bool = False, check_swaps: bool = False,
+                 device=None, leg: str = "defaults", check_swaps: bool = False,
                  keep_states: bool = False, profile: bool = False) -> dict:
-    """The steady-state drive (module docstring).  ``oracle`` turns the
-    three cross-cycle mechanisms off; ``check_swaps`` holds every resident
-    swap against a fresh upload; ``profile`` adds each cycle's
-    :func:`device_profile`.  The report's ``steady`` holds the p50s over
-    the cycles after the warmup."""
-    with oracle_switches(oracle):
+    """The steady-state drive (module docstring).  ``leg`` names the
+    switches turned off for the run (:data:`LEGS`: ``defaults``, ``cold``
+    — no warm carry, ``noguard`` — no guard, ``oracle`` — the four
+    cross-cycle mechanisms off);
+    ``check_swaps`` holds every resident swap against a fresh upload;
+    ``profile`` adds each cycle's :func:`device_profile`.  The report's
+    ``steady`` holds the p50s over the cycles after the warmup."""
+    with switches_off(LEGS[leg]):
         t = time.perf_counter()
         cache = synthetic_cluster(n_tasks, n_nodes, gang_size=GANG, n_queues=N_QUEUES,
                                   seed=seed)
@@ -507,18 +547,184 @@ def drive_steady(n_tasks: int, n_nodes: int, cycles: int = 8, warmup_cycles: int
             [c["stages_ms"]["open"] + c["allocate_ms"].get("snapshot_build", 0.0)
              for c in steady]),
         "wall_ms_p50": p50([c["wall_ms"] for c in steady]),
+        "solve_ms_p50": p50([c["allocate_ms"].get("solve", 0.0) for c in steady]),
         "close_ms_p50": p50([c["stages_ms"]["close"] for c in steady]),
         "open_paths": [c["open_path"] for c in steady],
     }
-    return dict(tasks=n_tasks, nodes=n_nodes, oracle=oracle, warmup_cycles=warmup_cycles,
+    return dict(tasks=n_tasks, nodes=n_nodes, leg=leg, warmup_cycles=warmup_cycles,
                 **report)
+
+
+def drive_guard(n_tasks: int, n_nodes: int, arrivals: int, bundle_dir: str,
+                cooldown: int = 2, seed: int = 0, device=None) -> dict:
+    """The guard plane's drive (shipped conf, ``synthetic_cluster(n_tasks,
+    n_nodes)``, ``arrivals`` new pods in gangs of 4 before every cycle but
+    the first, the kubelet pass before every cycle but the first), with
+    ``KB_AUDIT_EVERY=1`` and ``KB_GUARD_COOLDOWN=cooldown``:
+
+    1. clean cycles: every engaged allocate dispatch is audited against
+       the full solve, with no mismatch and no trip;
+    2. one live node's word of the resident ``node_alloc`` is zeroed in
+       place: that cycle fails closed (no new bind), the trip names
+       ``node_overcommit`` and demotes ``topk`` and ``warm``, a bundle is
+       written to ``bundle_dir``; the next cycle binds, and after
+       ``cooldown`` clean cycles the half-open probe re-promotes both;
+    3. a Running row's resident ``task_pending`` bit is set (its mirror
+       kept at the host's truth) before a cycle whose swaps scatter: the
+       host eligibility checksum trips, and no Running pod is bound
+       again;
+    4. the step-2 bundle replays on ``device`` and on the CPU: the
+       overcommit is reproduced, identically, and the snapshot with the
+       zeroed word restored from the host passes the sentinel.
+
+    Raises on any failed check; returns the report."""
+    from kube_batch_tpu_torch.api.convert import snapshot_from_numpy
+    from kube_batch_tpu_torch.guard import guard_of
+    from kube_batch_tpu_torch.guard.bundle import _rebuild_config, load_bundle, replay_bundle
+    from kube_batch_tpu_torch.ops.invariants import allocate_sentinel_solve
+
+    knobs = {"KB_AUDIT_EVERY": "1", "KB_GUARD_COOLDOWN": str(cooldown)}
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    try:
+        cache = synthetic_cluster(n_tasks, n_nodes, gang_size=GANG, n_queues=N_QUEUES,
+                                  seed=seed)
+        cache.columns.reserve(n_tasks=n_tasks + 12 * arrivals,
+                              n_jobs=(n_tasks + 12 * arrivals) // GANG + 8)
+        sched = Scheduler(cache, conf=load_scheduler_conf(shipped_conf_path()),
+                          device=device)
+        gp = guard_of(cache)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    gp.bundle_dir = bundle_dir
+    allocate = next(a for a in sched.actions if a.name == "allocate")
+    cols = cache.columns
+    dev = sched.device
+    log: List[dict] = []
+    n_evicts = [0]
+
+    def cycle(tag: str, plant=None, n_arrivals: int = arrivals) -> dict:
+        """One cycle after the churn; ``plant()`` runs between the churn
+        and the cycle (a fault planted there meets the cycle's swaps)."""
+        c = len(log)
+        if c > 0:
+            kubelet(cache, cache.evictor.evicts[n_evicts[0]:])
+            n_evicts[0] = len(cache.evictor.evicts)
+            add_arrivals(cache, n_arrivals, seed + 100 + c, f"guard{c}-")
+        if plant is not None:
+            plant()
+        before = dict(binds=len(cache.binder.binds), trips=gp.trips_total,
+                      audits=gp.audits_run, verdicts=gp.verdicts_consumed)
+        channel = len(cache.binder.channel)
+        sched.run_once()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        errs = cols.check_consistency(cache)
+        if errs:
+            fail(f"guard {tag}: column store disagrees with objects: {errs[:3]}")
+        ch = cache.binder.channel
+        if len(set(ch)) != len(ch):
+            fail(f"guard {tag}: a pod was bound twice")
+        rec = dict(cycle=c + 1, tag=tag, new_binds=len(cache.binder.binds) - before["binds"],
+                   binds_dispatched=len(ch) - channel,
+                   trips=gp.trips_total - before["trips"],
+                   audits=gp.audits_run - before["audits"],
+                   verdicts=gp.verdicts_consumed - before["verdicts"],
+                   topk=allocate.last_topk is not None, warm=allocate.last_warm,
+                   paths={k: p.state for k, p in gp.paths.items() if k in ("topk", "warm")})
+        log.append(rec)
+        return rec
+
+    # 1. clean cycles, every engaged allocate dispatch audited
+    for tag in ("clean-full", "clean-compacted", "clean-warm"):
+        cycle(tag)
+    if gp.trips_total or gp.audits_mismatched:
+        fail(f"guard: clean cycles tripped ({gp.trip_log})")
+    if gp.audits_run < 2 or not any(r["warm"] for r in log):
+        fail(f"guard: {gp.audits_run} audits, warm {[r['warm'] for r in log]}")
+    audits_clean = gp.audits_run
+
+    # 2. a zeroed capacity word in the resident node_alloc
+    live = int(np.flatnonzero(cols.n_valid)[0])
+    _ver, alloc_t = cols._dev_cache[dev]["node_alloc"]
+    alloc_t[live] = 0.0
+    rec = cycle("corrupt-node-alloc")
+    trip = gp.trip_log[-1] if gp.trip_log else {}
+    if rec["trips"] != 1 or rec["new_binds"] != 0 or rec["binds_dispatched"] != 0:
+        fail(f"guard: the corrupted cycle did not fail closed: {rec}")
+    if "node_overcommit" not in trip.get("detail", "") or \
+            sorted(trip.get("demoted", [])) != ["topk", "warm"]:
+        fail(f"guard: trip {trip}")
+    if not gp.bundles or cols._warm_tables:
+        fail("guard: no bundle, or the heal kept the carried table")
+    bundle = gp.bundles[-1]
+    rec = cycle("healed")
+    if rec["new_binds"] == 0 or rec["trips"] or rec["topk"]:
+        fail(f"guard: the healed cycle {rec}")
+    while gp.paths["topk"].state != "healthy" or gp.paths["warm"].state != "healthy":
+        if len(log) > 8 + cooldown:
+            fail(f"guard: no re-promotion after {cooldown} clean cycles: {log[-3:]}")
+        rec = cycle("cooldown")
+        if rec["trips"]:
+            fail(f"guard: a cooldown cycle tripped: {gp.trip_log[-1]}")
+    if gp.paths["topk"].promotions != 1 or gp.paths["warm"].promotions != 1:
+        fail(f"guard: promotions {gp.state()['paths']}")
+
+    # 3. a phantom pending bit on a Running row, planted after the churn
+    # (the row is still a Running pod's when the cycle swaps) in a cycle of
+    # few arrivals: a task delta too wide to scatter uploads the column in
+    # full, which rewrites the planted bit before any solve reads it
+    running = {}
+
+    def phantom():
+        running.update((k, p.node_name) for k, p in cache.pods.items()
+                       if p.phase == PodPhase.RUNNING)
+        r = int(np.flatnonzero(cols.t_valid & (cols.t_status == int(TaskStatus.RUNNING)))[0])
+        rc = cols._per_cycle_dev[dev]
+        rc._dev["task_pending"][r] = True
+        rc._mirror["task_pending"][r] = False
+
+    trips = gp.trips_total
+    rec = cycle("phantom-pending", phantom, n_arrivals=GANG * max(1, arrivals // 64))
+    trip = gp.trip_log[-1] if gp.trip_log else {}
+    if gp.trips_total != trips + 1 or "eligibility" not in trip.get("detail", ""):
+        fail(f"guard: the phantom pending bit did not trip the checksum: {rec} {trip}")
+    rebound = [k for k, node in running.items() if cache.binder.binds.get(k) != node]
+    if rebound:
+        fail(f"guard: Running pods bound again: {rebound[:3]}")
+
+    # 4. the bundle replays: the card and the CPU agree, twice
+    replays = [replay_bundle(bundle, dev), replay_bundle(bundle, dev),
+               replay_bundle(bundle, "cpu")]
+    rep = replays[0]
+    if not rep["reproduced"] or "node_overcommit" not in rep["fast_violations"] \
+            or rep["fast_vs_oracle_mismatches"]:
+        fail(f"guard: the bundle replay {rep}")
+    strip = ("bundle", "device")
+    same = [{k: v for k, v in r.items() if k not in strip} for r in replays]
+    if same[1] != same[0] or same[2] != same[0]:
+        fail("guard: the bundle replays differ between runs or devices")
+    snap, meta, _rows = load_bundle(bundle)
+    fixed = snap._replace(node_alloc=cols.n_alloc32.copy())
+    _res, verdict, _h, _e = allocate_sentinel_solve(snapshot_from_numpy(fixed, dev),
+                                                    _rebuild_config(meta)[0])
+    if int(verdict) != 0:
+        fail(f"guard: the restored snapshot still fails its sentinel ({int(verdict)})")
+    return dict(tasks=n_tasks, nodes=n_nodes, arrivals=arrivals, cooldown=cooldown,
+                audits_clean=audits_clean, cycles=log, guard=gp.state(),
+                trip_log=gp.trip_log, replay=rep, restored_verdict=int(verdict),
+                device=str(dev))
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--overcommit", action="store_true")
     ap.add_argument("--steady", action="store_true")
-    ap.add_argument("--oracle", action="store_true")
+    ap.add_argument("--leg", choices=sorted(LEGS), default="defaults")
     ap.add_argument("--cycles", type=int, default=8)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--tasks", type=int, default=50_000)
@@ -532,7 +738,7 @@ def main() -> None:
     args = ap.parse_args()
     if args.steady:
         out = drive_steady(args.tasks, args.nodes, args.cycles, args.warmup,
-                           device=args.device, oracle=args.oracle, profile=args.profile)
+                           device=args.device, leg=args.leg, profile=args.profile)
     elif args.overcommit:
         out = drive_overcommit(args.running, args.pending, args.nodes,
                                device=args.device, profile=args.profile)

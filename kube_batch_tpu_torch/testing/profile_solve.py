@@ -38,7 +38,7 @@ def main() -> None:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        res, _, _ = dispatch_allocate_solve(snap, config)
+        res, _, _, _ = dispatch_allocate_solve(snap, config)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
 

@@ -15,9 +15,10 @@ messages) and the queue statuses must be equal, and the port's column
 store must agree with its object model.  The JAX side runs at its
 defaults: delta open, warm carry, the guard, and the sharded solve on the
 8-device CPU mesh from 129 nodes.  The port runs each case twice: at its
-defaults (the delta open and close, the resident snapshot) and as the
-oracle, with those three switched off, so both forms are held against
-the JAX package.
+defaults (the delta open and close, the resident snapshot, the warm
+carry, the guard) and as the oracle, with the four cross-cycle
+mechanisms switched off, so both forms are held against the JAX
+package.
 """
 
 from __future__ import annotations
@@ -330,9 +331,9 @@ def _assert_same(want: dict, got: dict, where: str) -> None:
 
 
 #: (conf, the port's path): "defaults" runs the port's cross-cycle forms,
-#: "oracle" switches them off (KB_SNAPSHOT_DELTA, KB_DEVICE_CACHE and
-#: KB_DELTA_CLOSE at 0) around the port's cycles only — the JAX side keeps
-#: its defaults
+#: "oracle" switches them off (KB_SNAPSHOT_DELTA, KB_DEVICE_CACHE,
+#: KB_DELTA_CLOSE and KB_WARM at 0) around the port's cycles only — the
+#: JAX side keeps its defaults
 PATHS = [pytest.param(conf, path, id=conf if path == "defaults" else f"{conf}-{path}")
          for path in ("defaults", "oracle") for conf in sorted(CONFS)]
 
@@ -526,17 +527,22 @@ def test_round_cap_leaves_correlated_arrivals_unplaced_like_jax():
 
 
 def test_steady_drive_on_the_cpu():
-    """chip_smoke's steady-state drive, small and on the CPU: the delta leg
-    (delta open and close, resident snapshot, every swap held against a
-    fresh upload) and the oracle leg decide identically in every cycle, and
-    the delta leg takes the delta open and the scatter path."""
+    """chip_smoke's steady-state drive, small and on the CPU: the defaults
+    leg (delta open and close, resident snapshot, every swap held against a
+    fresh upload, warm carry, guard), the cold leg (KB_WARM=0), the
+    noguard leg (KB_GUARD=0) and the oracle leg decide identically in
+    every cycle; the defaults leg takes the delta open, the scatter path
+    and the warm merge, and its guard reads clean verdicts."""
     from kube_batch_tpu_torch.testing.cycle_drive import drive_steady
 
     kw = dict(n_tasks=2048, n_nodes=256, cycles=4, device="cpu", keep_states=True)
     delta = drive_steady(**kw, check_swaps=True)
-    oracle = drive_steady(**kw, oracle=True)
-    assert [c["digest"] for c in delta["cycles"]] == [c["digest"] for c in oracle["cycles"]]
-    assert delta["states"] == oracle["states"]
+    oracle = drive_steady(**kw, leg="oracle")
+    cold = drive_steady(**kw, leg="cold")
+    noguard = drive_steady(**kw, leg="noguard")
+    for other in (oracle, cold, noguard):
+        assert [c["digest"] for c in delta["cycles"]] == [c["digest"] for c in other["cycles"]]
+        assert delta["states"] == other["states"]
     steady = delta["cycles"][delta["warmup_cycles"]:]
     assert "delta" in delta["steady"]["open_paths"]
     assert set(oracle["steady"]["open_paths"]) == {"full"}
@@ -545,3 +551,16 @@ def test_steady_drive_on_the_cpu():
     assert sum(c["swaps"] for c in delta["cycles"]) > 0
     assert all(c["resident"] is None for c in oracle["cycles"])
     assert sum(c["completed_gangs"] for c in steady) > 0
+    # warm: the defaults leg's first plan is cold and later ones merge
+    # (here, on 256 nodes, a cycle that moves more than 64 of them plans
+    # cold again); the cold and oracle legs never run the carried table
+    warm = [c["warm"] for c in delta["cycles"] if c["warm"] is not None]
+    assert warm and warm[0]["cold"] and any(not w["cold"] for w in warm[1:])
+    assert all(c["warm"] is None for leg in (cold, oracle) for c in leg["cycles"])
+    # guard: every guarded leg read verdicts, all clean; noguard read none
+    for leg in (delta, cold, oracle):
+        assert sum(c["guard"]["verdicts"] for c in leg["cycles"]) > 0
+        assert not any(c["guard"]["trips"] or c["guard"]["failed_closed"]
+                       for c in leg["cycles"])
+    assert all(c["guard"]["enabled"] == 0 and c["guard"]["verdicts"] == 0
+               for c in noguard["cycles"])

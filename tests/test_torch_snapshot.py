@@ -100,7 +100,8 @@ def test_config_from_fields_drops_use_pallas():
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every port module, running a CPU solve and two five-action
     cycles under the shipped conf (reclaim evicting; the second open a
-    delta, its device programs reading resident tensors) leaves no jax and
+    delta, its device programs reading resident tensors; the guard on)
+    leaves no jax and
     no kube_batch_tpu module loaded (kube_batch_tpu_torch itself shares the
     prefix, so the match is exact on the package name)."""
     code = textwrap.dedent("""
@@ -108,6 +109,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         import kube_batch_tpu_torch.actions.allocate as A
         import kube_batch_tpu_torch.api.resident
         import kube_batch_tpu_torch.cache.dirty
+        import kube_batch_tpu_torch.guard.bundle
+        import kube_batch_tpu_torch.ops.invariants
         import kube_batch_tpu_torch.ops.kernels
         import kube_batch_tpu_torch.ops._build
         import kube_batch_tpu_torch.testing.cycle_drive
@@ -119,7 +122,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         from kube_batch_tpu_torch.testing.synthetic import (
             synthetic_device_snapshot, synthetic_overcommit_cluster)
         snap, meta = synthetic_device_snapshot(64, 8, device="cpu")
-        res, mode, info = A.dispatch_allocate_solve(snap, AllocateConfig())
+        res, mode, info, _g = A.dispatch_allocate_solve(snap, AllocateConfig())
         assert len(A.result_binds(res, meta)) > 0
         cache = synthetic_overcommit_cluster(n_running=64, n_pending=32, n_nodes=8)
         sched = Scheduler(cache, conf=load_scheduler_conf(shipped_conf_path()),
@@ -133,6 +136,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         sched.run_once()
         assert cache.last_open_path == "delta"
         assert cache.columns.resident_counters()["single"]["version"] > 0
+        assert cache.guard_plane.enabled and cache.guard_plane.trips_total == 0
         bad = sorted(n for n in sys.modules
                      if n in ("jax", "jaxlib") or n.startswith(("jax.", "jaxlib."))
                      or n == "kube_batch_tpu" or n.startswith("kube_batch_tpu."))

@@ -208,8 +208,8 @@ def test_dispatch_matches_jax(case, monkeypatch):
     want, want_mode, want_info, _g = jax_dispatch(snap, config)
     want = jax.device_get(want)
     port_snap = snapshot_from_numpy(snap, "cpu")
-    got, mode, info = dispatch_allocate_solve(port_snap,
-                                              config_from_fields(config))
+    got, mode, info, _g = dispatch_allocate_solve(port_snap,
+                                                  config_from_fields(config))
     assert (mode, info) == (want_mode, want_info)
     assert (info is None) == (case == "full")
     _assert_results_equal(result_to_numpy(got), want)
