@@ -36,18 +36,29 @@ tensors refreshed by row scatters.
 The steady-state drive (``cycle_steady``, ``drive_steady``: the JAX
 package's ``bench.py`` ``multicycle_bench``) runs 2 + 8 back-to-back
 cycles on the 50 000-pod cluster — 2 % of the bound gangs complete and
-arrivals refill the pod count within ±10 % before each — four times: with
+arrivals refill the pod count within ±10 % before each — five times: with
 the defaults (delta open and close, resident snapshot, the warm
 candidate-table carry, the guard plane), with ``KB_WARM=0`` (cold), with
-``KB_GUARD=0`` (noguard) and with the four cross-cycle mechanisms off (the
-oracle); every resident swap of the first three is held against a fresh
-upload of its host snapshot.  Every cycle's decisions must be equal
-across the legs, the defaults leg must take the delta open, the scatter
-path and the warm merge in every plan after its first, and every guarded
-leg's sentinel verdicts must be clean; one JSON line per cycle and leg
-(the warm plan, the table's rungs, exhaustion, solve ms, syncs, K2
-launches), then the p50s of each leg and the guard's overhead (defaults
-less noguard).  K2 is also timed at the warm path's re-rank rungs.  The
+``KB_GUARD=0`` (noguard), with the four cross-cycle mechanisms off (the
+oracle), and pipelined (the defaults, each cycle through
+``run_once_pipelined``: its status flush and bind drain on the writeback
+worker, the bind drain joined before the kubelet pass); every resident
+swap of all but the oracle is held against a fresh upload of its host
+snapshot.  Every cycle's decisions must be equal across the legs, the
+defaults leg must take the delta open, the scatter path and the warm
+merge in every plan after its first, every guarded leg's sentinel
+verdicts must be clean, and no writeback stage or bind may fail; one JSON
+line per cycle and leg (the warm plan, the table's rungs, exhaustion,
+solve ms, syncs, K2 launches; for the pipelined leg its barrier, join,
+wall + join and the writeback's own ms), then the p50s of each leg and
+the guard's overhead (defaults less noguard).  The loop phase
+(``drive_loop``: the JAX package's ``bench.py`` ``pipelined_bench``) runs
+``Scheduler.run_forever`` on the warmed 50 000-pod cluster while 20
+single-pod gangs arrive at seeded offsets of U(0.15, 0.45) s, once with
+``KB_PIPELINE=0`` (a 1 s tick) and once pipelined: every arrival must be
+bound exactly once and ``stop()`` must drain; it prints the arrival →
+bind-ack latency, the cycles and their wake reasons, and the kernel
+launches of each loop.  K2 is also timed at the warm path's re-rank rungs.  The
 guard phase (``drive_guard``, 4 096 × 1 024) audits clean cycles against
 the full solve, zeroes a resident capacity word in place (the cycle must
 fail closed, heal, and the demoted paths re-promote after the cooldown),
@@ -92,14 +103,21 @@ MID_OC = dict(n_running=2048, n_pending=1024, n_nodes=256)
 # the steady-state drive: warmup and measured cycles (bench.py:151), and its
 # legs (cycle_drive.LEGS: defaults, KB_WARM=0, KB_GUARD=0, the oracle)
 STEADY_WARMUP, STEADY_CYCLES = 2, 8
-STEADY_LEGS = ("defaults", "cold", "noguard", "oracle")
+STEADY_LEGS = ("defaults", "cold", "noguard", "oracle", "pipelined")
+# the loop drive: single-pod arrivals and the serial loop's tick (bench.py:1215)
+LOOP_FEED, LOOP_PERIOD = 20, 1.0
 # the warm path's re-rank rungs below the 8 192-row bucket (K2's rows there)
 WARM_RERANK_RUNGS = (128, 256, 512, 1024, 2048, 4096)
 KERNELS = ("masked_best_node_raw", "masked_topk_blocks", "enqueue_gate")
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, "elapsed_s": time.perf_counter() - T0, **fields}),
+          flush=True)
 
 
 def fail(msg: str) -> None:
@@ -578,6 +596,7 @@ def phase_cycle_steady():
         for c in r["cycles"]:
             topk = c["topk"] or {}
             emit("cycle_steady_cycle", leg=leg, cycle=c["cycle"], mode=c["mode"],
+                 overlap=c["overlap"], period_ms=c["period_ms"],
                  open_path=c["open_path"], snapshot_path=c["snapshot_path"],
                  churn=c["churn"], pending=c["pending"],
                  completed_gangs=c.get("completed_gangs"), arrived=c.get("arrived"),
@@ -608,6 +627,20 @@ def phase_cycle_steady():
             syncs=[c["syncs"] for c in cyc], k2_launches=[c["launches"][k2] for c in cyc],
             ingest_s=r["ingest_s"])
     d, ng, cold = summary["defaults"], summary["noguard"], summary["cold"]
+    pipe = summary["pipelined"]
+    # the pipelined cycle's wall + its bind-drain join, against the serial
+    # defaults leg's wall (both include the swap check)
+    pipelined_vs_defaults = {
+        "wall_plus_join_ms_p50": pipe["wall_plus_join_ms_p50"],
+        "defaults_wall_ms_p50": d["wall_ms_p50"],
+        "difference_ms": pipe["wall_plus_join_ms_p50"] - d["wall_ms_p50"],
+        "writeback_ms_p50": pipe["writeback_ms_p50"],
+        "barrier_ms_p50": pipe["barrier_ms_p50"],
+        "join_ms_p50": pipe["join_ms_p50"],
+        "close_ms_p50": pipe["close_ms_p50"], "defaults_close_ms_p50": d["close_ms_p50"],
+        # the whole iteration, the same work on both legs
+        "period_ms_p50": pipe["period_ms_p50"],
+        "defaults_period_ms_p50": d["period_ms_p50"]}
     overhead = {key: d[key] - ng[key] for key in
                 ("solve_ms_p50", "wall_ms_p50", "wall_less_swap_check_ms_p50")}
     overhead["share_of_steady_wall_p50"] = overhead["wall_less_swap_check_ms_p50"] / ng[
@@ -618,10 +651,33 @@ def phase_cycle_steady():
          warmup_cycles=STEADY_WARMUP, cycles=STEADY_CYCLES, legs=list(STEADY_LEGS),
          equal="decisions every cycle, all legs; every non-oracle swap equals a fresh upload",
          resident_steady=scatter_summary({"single": totals})["single"] if totals else None,
-         guard_overhead=overhead,
+         guard_overhead=overhead, pipelined_vs_defaults=pipelined_vs_defaults,
          warm_minus_cold_solve_ms_p50=d["solve_ms_p50"] - cold["solve_ms_p50"],
          rerank_rungs=rungs, **summary)
     return legs, rungs
+
+
+def phase_loop():
+    """``Scheduler.run_forever`` on the card at 50k × 5k, shipped conf
+    (``cycle_drive.drive_loop``): the serial loop and the pipelined loop
+    over the same warmed cluster shape and arrival stream.  Every arrival
+    bound exactly once, ``stop()`` drained, no cycle or writeback failed
+    (the drive checks), and each loop launched kernels."""
+    from kube_batch_tpu_torch.testing.cycle_drive import drive_loop
+
+    r = drive_loop(N_TASKS, N_NODES, feed=LOOP_FEED, period=LOOP_PERIOD, device="cuda")
+    for mode in ("serial", "pipelined"):
+        m = r[mode]
+        if m["bound"] != LOOP_FEED or m["staged_left"] or not m["writeback_joined"]:
+            fail(f"loop {mode}: {m['bound']} of {LOOP_FEED} bound, "
+                 f"{m['staged_left']} staged left, writeback joined {m['writeback_joined']}")
+        if not (m["launches"]["masked_best_node_raw"] + m["launches"]["masked_topk_blocks"]):
+            fail(f"loop {mode}: no allocate kernel launched: {m['launches']}")
+    emit("loop", conf="shipped", tasks=N_TASKS, nodes=N_NODES, feed=LOOP_FEED,
+         period_s=LOOP_PERIOD, serial=r["serial"], pipelined=r["pipelined"],
+         p99_serial_over_pipelined=r["serial"]["latency_ms"]["p99"]
+         / r["pipelined"]["latency_ms"]["p99"])
+    return r
 
 
 def phase_guard():
@@ -721,6 +777,7 @@ def main() -> int:
     cycle = phase_cycle()
     overcommit = phase_cycle_overcommit()
     steady, rerank_rungs = phase_cycle_steady()
+    loop = phase_loop()
     phase_guard()
     phase_cycle_cross_device()
     cycle_launches = {name: {f"cycle{c['cycle']}": c["launches"][name]
@@ -731,6 +788,14 @@ def main() -> int:
                            for name in KERNELS}
     steady_launches = {name: sum(c["launches"][name] for c in steady["defaults"]["cycles"])
                        for name in KERNELS}
+    # the pipelined loop's paths: the steady leg through run_once_pipelined,
+    # and run_forever in both modes (its warmup excluded)
+    pipelined_launches = {name: sum(c["launches"][name]
+                                    for c in steady["pipelined"]["cycles"])
+                          for name in KERNELS}
+    loop_launches = {name: {mode: loop[mode]["launches"][name]
+                            for mode in ("serial", "pipelined")}
+                     for name in KERNELS}
     # K2 on the warm path: launches per steady cycle of the defaults and
     # cold legs, and its time against its bound at the commonest re-rank rung
     k2_per_cycle = {leg: [c["launches"]["masked_topk_blocks"]
@@ -755,7 +820,9 @@ def main() -> int:
              late_round_pending_rows=k1_late["pending_rows"],
              cycle_launches=cycle_launches["masked_best_node_raw"],
              overcommit_launches=overcommit_launches["masked_best_node_raw"],
-             steady_launches=steady_launches["masked_best_node_raw"]),
+             steady_launches=steady_launches["masked_best_node_raw"],
+             pipelined_steady_launches=pipelined_launches["masked_best_node_raw"],
+             loop_launches=loop_launches["masked_best_node_raw"]),
         dict(name="masked_topk_blocks", route="cuda",
              source=src + "topk_blocks.cu",
              replaces="kube_batch_tpu/ops/pallas_kernels.py:216",
@@ -764,6 +831,8 @@ def main() -> int:
              cycle_launches=cycle_launches["masked_topk_blocks"],
              overcommit_launches=overcommit_launches["masked_topk_blocks"],
              steady_launches=steady_launches["masked_topk_blocks"],
+             pipelined_steady_launches=pipelined_launches["masked_topk_blocks"],
+             loop_launches=loop_launches["masked_topk_blocks"],
              warm_launches_per_steady_cycle=k2_per_cycle["defaults"],
              cold_launches_per_steady_cycle=k2_per_cycle["cold"],
              fresh_keys="plain ops (the releasing fit masked on the view, as the JAX package)",
@@ -779,7 +848,9 @@ def main() -> int:
              **{f: g[f] for f in fields}, library_ms=None,
              cycle_launches=cycle_launches["enqueue_gate"],
              overcommit_launches=overcommit_launches["enqueue_gate"],
-             steady_launches=steady_launches["enqueue_gate"]),
+             steady_launches=steady_launches["enqueue_gate"],
+             pipelined_steady_launches=pipelined_launches["enqueue_gate"],
+             loop_launches=loop_launches["enqueue_gate"]),
     ]
     print(json.dumps({"kernels": summary}))
     print(smi)

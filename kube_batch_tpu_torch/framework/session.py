@@ -174,6 +174,9 @@ class Session:
         # None when actions are driven directly (reclaim's idle-fit gate
         # then fails closed)
         self.action_names: Optional[List[str]] = None
+        # the StatusFlush a staged close returned (close_session), kept so
+        # a close whose own finally raised after the stage loses nothing
+        self.staged_flush = None
 
     def drop_job(self, uid: str) -> None:
         del self.jobs[uid]
@@ -770,20 +773,38 @@ def _count_gate_dropped(ssn: Session, qcounts: Dict[str, dict]) -> None:
         qc[(pg.phase or PodGroupPhase.PENDING).value.lower()] += 1
 
 
-def close_session(ssn: Session) -> None:
+def close_session(ssn: Session, stage_flush: bool = False):
     """Plugin close hooks, then the job-status pass (framework.go:55-62 +
-    job_updater.go:33-122); then unwind the session-only placements and
-    release the cache gate, which applies the deferred ingest."""
+    job_updater.go:33-122); then unwind the session-only placements, join
+    the bind dispatcher, and release the cache gate, which applies the
+    deferred ingest.
+
+    ``stage_flush=True`` is the pipelined cycle's close: the status pass
+    still derives everything the next open depends on (phases, dirty
+    stamps, rate-limit windows, queue deltas, the degraded verdict), but
+    the egress half is returned as a ``StatusFlush`` (also kept in
+    ``ssn.staged_flush``) for the writeback stage, and the bind drain is
+    left to that stage too (the cache's in-flight bind map protects
+    deferred ingest in the meantime).  An empty session stages its queue
+    zero-outs the same way.  A serial close returns None."""
+    flush = None
     try:
         for plugin in ssn.plugins:
             plugin.on_session_close(ssn)
         if ssn.jobs:
             updates, qcounts = _close_status_columnar(ssn)
-            ssn.cache.run_status_flush(ssn.cache.stage_status_flush(updates, qcounts))
+            flush = ssn.staged_flush = ssn.cache.stage_status_flush(updates, qcounts)
+            if not stage_flush:
+                ssn.cache.run_status_flush(flush)
+                flush = ssn.staged_flush = None
         else:
             qcounts: Dict[str, dict] = {}
             _count_gate_dropped(ssn, qcounts)
-            ssn.cache.update_queue_statuses(qcounts)
+            if stage_flush:
+                # not inline: the previous cycle's writeback may be running
+                flush = ssn.staged_flush = ssn.cache.stage_status_flush((), qcounts)
+            else:
+                ssn.cache.update_queue_statuses(qcounts)
     finally:
         # Pipelined placements exist only inside a session, and a task
         # still ALLOCATED belongs to a job that never turned ready: both
@@ -792,6 +813,10 @@ def close_session(ssn: Session) -> None:
                         release_volumes=False)
         _revert_residue(ssn, ssn.allocated_tasks, TaskStatus.ALLOCATED,
                         release_volumes=True)
+        if not stage_flush:
+            # the binder acks land before the deferred ingest applies: a
+            # deferred pod update must see this cycle's bindings
+            ssn.cache.flush_binds()
         ssn.cache.end_exclusive_session()
         ssn.jobs = {}
         ssn.nodes = {}
@@ -799,3 +824,4 @@ def close_session(ssn: Session) -> None:
         ssn.plugins = []
         ssn.pipelined_tasks = []
         ssn.allocated_tasks = []
+    return flush

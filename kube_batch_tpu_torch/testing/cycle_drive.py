@@ -6,8 +6,11 @@
     python -m kube_batch_tpu_torch.testing.cycle_drive --overcommit
         [--running 40000] [--pending 20000] [--nodes 5000] [--device ...]
     python -m kube_batch_tpu_torch.testing.cycle_drive --steady
-        [--leg defaults|cold|noguard|oracle] [--tasks 50000] [--nodes 5000]
-        [--cycles 8] [--warmup 2] [--device ...]
+        [--leg defaults|cold|noguard|oracle|pipelined] [--tasks 50000]
+        [--nodes 5000] [--cycles 8] [--warmup 2] [--device ...]
+    python -m kube_batch_tpu_torch.testing.cycle_drive --loop
+        [--tasks 50000] [--nodes 5000] [--feed 20] [--period 1.0]
+        [--device ...]
 
 The first two drives run three cycles of ``Scheduler.run_once`` under
 the shipped five-action conf (``enqueue, reclaim, allocate, backfill,
@@ -48,7 +51,35 @@ PodGroup are deleted) and arrivals in gangs of 4 refill the pod count to
 guard plane (``KB_GUARD=0``), ``oracle`` the four
 cross-cycle mechanisms together (``KB_SNAPSHOT_DELTA=0``,
 ``KB_DEVICE_CACHE=0``, ``KB_DELTA_CLOSE=0``, ``KB_WARM=0``); every leg
-must decide identically.
+must decide identically.  The ``pipelined`` leg keeps the defaults but
+runs each cycle through ``run_once_pipelined``: the cycle's status flush
+and bind drain go to the writeback worker.  Before the checks and the
+kubelet pass, which read acked bindings (``pod.node_name``), the drive
+joins the bind drain with ``cache.flush_binds()`` (a real kubelet acts on
+acked binds only), while the status flush goes on overlapping the churn
+and the next cycle.  Each pipelined cycle reports its wall (barrier
+included), the barrier's wait, that join, their sum (the number to set
+beside a serial cycle's wall) and its writeback stage's own ms, timed on
+the worker.  Every cycle of every drive also reports ``period_ms``, its
+whole iteration (kubelet and churn, the cycle, the join, the checks): the
+same work on every leg, so a writeback that only moved out of the
+cycle's window, onto the untimed checks, still counts there.
+``--steady --leg a,b,...`` runs the legs in that order in one process (an
+A/B in one call: ``defaults,pipelined,pipelined,defaults``) and prints
+each leg's line.
+
+The loop drive (:func:`drive_loop`, the JAX package's ``bench.py``
+``pipelined_bench``) runs ``Scheduler.run_forever`` on a thread over the
+warmed ``synthetic_cluster(tasks, nodes)`` (shipped conf, two serial
+cycles first), while a feeder thread posts ``feed`` single-pod gangs at
+seeded offsets of U(0.15, 0.45) s; once with ``KB_PIPELINE=0`` (the
+serial loop, a cycle every ``period`` s) and once pipelined (the event
+trigger wakes a cycle per arrival burst).  A timing wrapper around the
+fake binder stamps each bind's ack: it reports the arrival → bind-ack
+latency (p50, p99, mean), the cycles run and why each woke, and checks
+that every arrival was bound exactly once and that ``stop()`` drained
+(an empty staging buffer, the writeback joined), and counts the kernel
+launches of the loop's run (the warmup's excluded).
 
 After each cycle the drive checks the column store against the object
 model, every node's ``idle ≥ −quanta`` and ``used ≤ allocatable +
@@ -78,6 +109,7 @@ CUDA.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -85,6 +117,7 @@ import hashlib
 import itertools
 import json
 import os
+import threading
 import time
 import warnings
 from typing import Callable, Dict, List
@@ -97,6 +130,7 @@ from kube_batch_tpu_torch.api.pod import GROUP_NAME_ANNOTATION, Pod, PodGroup
 from kube_batch_tpu_torch.api.resident import scatter_summary
 from kube_batch_tpu_torch.api.snapshot import DeviceSnapshot
 from kube_batch_tpu_torch.api.types import PodGroupPhase, PodPhase, TaskStatus
+from kube_batch_tpu_torch.cache.fake import FakeBinder
 from kube_batch_tpu_torch.framework.conf import load_scheduler_conf, shipped_conf_path
 from kube_batch_tpu_torch.ops import kernels
 from kube_batch_tpu_torch.scheduler import Scheduler
@@ -119,6 +153,7 @@ LEGS = {
     "cold": ("KB_WARM",),
     "noguard": ("KB_GUARD",),
     "oracle": ORACLE_SWITCHES,
+    "pipelined": (),
 }
 
 
@@ -337,12 +372,23 @@ def guard_counters(cache) -> dict:
 
 def run_cycles(cache, device, churn: Callable[[int], dict], ingest_s: float,
                keep_states: bool = False, profile: bool = False,
-               n_cycles: int = 3, check_swaps: bool = False) -> dict:
+               n_cycles: int = 3, check_swaps: bool = False,
+               pipelined: bool = False) -> dict:
     """``n_cycles`` cycles of the shipped conf on ``cache``; ``churn(c)``
     runs before cycle ``c`` > 0 and returns what it did.  With
     ``check_swaps`` every resident swap is held against a fresh upload
-    (:class:`SwapCheck`).  Returns the report."""
+    (:class:`SwapCheck`); with ``pipelined`` each cycle is
+    ``run_once_pipelined`` (module docstring).  Returns the report."""
     sched = Scheduler(cache, conf=load_scheduler_conf(shipped_conf_path()), device=device)
+    try:
+        return _run_cycles(sched, cache, churn, ingest_s, keep_states, profile,
+                           n_cycles, check_swaps, pipelined)
+    finally:
+        sched.close()
+
+
+def _run_cycles(sched, cache, churn, ingest_s, keep_states, profile, n_cycles,
+                check_swaps, pipelined) -> dict:
     actions = {a.name: a for a in sched.actions}
     allocate = actions["allocate"]
     cols = cache.columns
@@ -352,7 +398,7 @@ def run_cycles(cache, device, churn: Callable[[int], dict], ingest_s: float,
     states: List[dict] = []
     n_evicts = 0
     for c in range(n_cycles):
-        t = time.perf_counter()
+        t = t_iter = time.perf_counter()
         churned = kubelet(cache, cache.evictor.evicts[n_evicts:]) if c > 0 else {}
         n_evicts = len(cache.evictor.evicts)
         if c > 0:
@@ -371,10 +417,26 @@ def run_cycles(cache, device, churn: Callable[[int], dict], ingest_s: float,
                      else count_syncs(sched.device))
             with watch as seen:
                 t = time.perf_counter()
-                sched.run_once()
+                if pipelined:
+                    sched.run_once_pipelined()
+                else:
+                    sched.run_once()
                 if sched.device.type == "cuda":
                     torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t) * 1e3
+            overlap = None
+            if pipelined:
+                # the bind drain joined before anything reads acked state;
+                # the status flush keeps overlapping the churn
+                t = time.perf_counter()
+                cache.flush_binds()
+                join_ms = (time.perf_counter() - t) * 1e3
+                overlap = dict(barrier_ms=sched.last_cycle_ms["writeback_barrier"],
+                               join_ms=join_ms, wall_plus_join_ms=wall_ms + join_ms,
+                               writeback_ms=None)
+                if cycles:
+                    # this cycle's barrier joined the previous writeback
+                    cycles[-1]["overlap"]["writeback_ms"] = sched.last_writeback_ms
         finally:
             gc.enable()
         launches = dict(kernels.launches)
@@ -406,7 +468,7 @@ def run_cycles(cache, device, churn: Callable[[int], dict], ingest_s: float,
             resident = scatter_summary({"single": {
                 k: v - resident_before.get(k, 0) for k, v in resident.items()}})["single"]
         state = observed(cache)
-        pipelined = actions["reclaim"].last_stats.get("pipelined", 0)
+        claimants = actions["reclaim"].last_stats.get("pipelined", 0)
         guard_after = guard_counters(cache)
         guard = {k: v - guard_before.get(k, 0) for k, v in guard_after.items()
                  if k not in ("enabled", "demoted")}
@@ -417,13 +479,13 @@ def run_cycles(cache, device, churn: Callable[[int], dict], ingest_s: float,
             open_path=cache.last_open_path, snapshot_path=cols.last_snapshot_path,
             churn=cache.last_churn, resident=resident, swaps=check.swaps,
             swaps_checked=swaps_checked, swap_check_ms=check.ms,
-            digest=digest(state, pipelined),
+            digest=digest(state, claimants),
             topk=topk, rounds=allocate.last_solve_rounds,
             warm=allocate.last_warm, guard=guard,
             new_binds=len(cache.binder.binds) - binds_before,
             binds=len(cache.binder.binds), new_evicts=len(new_evicts),
             evicts=len(cache.evictor.evicts),
-            pipelined_claimants=pipelined,
+            pipelined_claimants=claimants,
             reclaim=dict(actions["reclaim"].last_stats),
             preempt=dict(actions["preempt"].last_stats, committed=len(
                 actions["preempt"].last_evictions)),
@@ -433,7 +495,7 @@ def run_cycles(cache, device, churn: Callable[[int], dict], ingest_s: float,
             eviction_checks=evict_check, gangs_running=gangs,
             unplaced=unplaced, unschedulable=reasons[:3],
             fit_histogram=allocate.last_fit_histogram, fallback=allocate.last_fallback,
-            wall_ms=wall_ms, stages_ms=dict(sched.last_cycle_ms),
+            wall_ms=wall_ms, stages_ms=dict(sched.last_cycle_ms), overlap=overlap,
             allocate_ms=dict(allocate.last_phase_ms), launches=launches,
             syncs=seen[0] if sched.device.type == "cuda" and not profile else None,
             invariants=inv))
@@ -441,7 +503,21 @@ def run_cycles(cache, device, churn: Callable[[int], dict], ingest_s: float,
             cycles[-1].update(seen)
         if keep_states:
             states.append(state)
+        # the whole iteration: kubelet and churn, the cycle, the join and
+        # the checks — the same work on every leg, so a writeback that
+        # only moved out of the cycle's window still shows here
+        cycles[-1]["period_ms"] = (time.perf_counter() - t_iter) * 1e3
     cols.on_swap = None
+    if pipelined:
+        sched.drain_pipeline()
+        if cycles:
+            cycles[-1]["overlap"]["writeback_ms"] = sched.last_writeback_ms
+    # a writeback stage or a bind that raised is logged by the loop and
+    # re-derived next cycle; a drive counts it as a failure
+    if sched.failed_writebacks or cache.dispatch_failures or cache.resync.parked_total:
+        fail(f"{sched.failed_writebacks} writeback stages and {cache.dispatch_failures} "
+             f"bind dispatches failed, {cache.resync.parked_total} binds or evictions "
+             "parked for resync")
     report = dict(device=str(sched.device), ingest_s=ingest_s, cycles=cycles)
     if keep_states:
         report["states"] = states
@@ -488,7 +564,8 @@ def drive_steady(n_tasks: int, n_nodes: int, cycles: int = 8, warmup_cycles: int
     """The steady-state drive (module docstring).  ``leg`` names the
     switches turned off for the run (:data:`LEGS`: ``defaults``, ``cold``
     — no warm carry, ``noguard`` — no guard, ``oracle`` — the four
-    cross-cycle mechanisms off);
+    cross-cycle mechanisms off), or ``pipelined``: the defaults, each
+    cycle through ``run_once_pipelined``;
     ``check_swaps`` holds every resident swap against a fresh upload;
     ``profile`` adds each cycle's :func:`device_profile`.  The report's
     ``steady`` holds the p50s over the cycles after the warmup."""
@@ -536,7 +613,8 @@ def drive_steady(n_tasks: int, n_nodes: int, cycles: int = 8, warmup_cycles: int
             return {"completed_gangs": done, "arrived": arrived}
 
         report = run_cycles(cache, device, churn, ingest_s, keep_states, profile,
-                            n_cycles=warmup_cycles + cycles, check_swaps=check_swaps)
+                            n_cycles=warmup_cycles + cycles, check_swaps=check_swaps,
+                            pipelined=leg == "pipelined")
     steady = report["cycles"][warmup_cycles:]
 
     def p50(values) -> float:
@@ -549,10 +627,159 @@ def drive_steady(n_tasks: int, n_nodes: int, cycles: int = 8, warmup_cycles: int
         "wall_ms_p50": p50([c["wall_ms"] for c in steady]),
         "solve_ms_p50": p50([c["allocate_ms"].get("solve", 0.0) for c in steady]),
         "close_ms_p50": p50([c["stages_ms"]["close"] for c in steady]),
+        "period_ms_p50": p50([c["period_ms"] for c in steady]),
         "open_paths": [c["open_path"] for c in steady],
     }
+    if leg == "pipelined":
+        for key in ("barrier_ms", "join_ms", "wall_plus_join_ms", "writeback_ms"):
+            report["steady"][key + "_p50"] = p50(
+                [c["overlap"][key] for c in steady if c["overlap"][key] is not None])
     return dict(tasks=n_tasks, nodes=n_nodes, leg=leg, warmup_cycles=warmup_cycles,
                 **report)
+
+
+class TimedBinder(FakeBinder):
+    """The fake binder with an ack clock: ``acked_at`` holds, per pod key,
+    the ``time.perf_counter()`` of its first ack; ``all_acked`` is set
+    once every key of :meth:`expect` is acked."""
+
+    def __init__(self):
+        super().__init__()
+        self.acked_at: Dict[str, float] = {}
+        self.all_acked = threading.Event()
+        self._expected: set = set()
+
+    def expect(self, keys) -> None:
+        self._expected = set(keys)
+
+    def _stamp(self, keys) -> None:
+        t = time.perf_counter()
+        for k in keys:
+            self.acked_at.setdefault(k, t)
+        if self._expected and self._expected.issubset(self.acked_at):
+            self.all_acked.set()
+
+    def bind(self, pod, hostname: str) -> None:
+        super().bind(pod, hostname)
+        self._stamp([pod.key()])
+
+    def bind_many(self, pairs) -> None:
+        super().bind_many(pairs)
+        self._stamp([pod.key() for pod, _h in pairs])
+
+
+def drive_loop(n_tasks: int, n_nodes: int, feed: int = 20, period: float = 1.0,
+               seed: int = 0, device=None, warmup_cycles: int = 2) -> dict:
+    """The loop drive (module docstring): the serial loop and the pipelined
+    loop over the same warmed cluster shape and the same seeded arrival
+    stream.  Returns one report per mode; any failed check raises."""
+    offsets = np.random.default_rng(seed).uniform(0.15, 0.45, size=feed)
+    return {"tasks": n_tasks, "nodes": n_nodes, "feed": feed, "period_s": period,
+            "offsets_s": offsets.tolist(),
+            "serial": _loop_mode(False, n_tasks, n_nodes, offsets, period, seed,
+                                 device, warmup_cycles),
+            "pipelined": _loop_mode(True, n_tasks, n_nodes, offsets, period, seed,
+                                    device, warmup_cycles)}
+
+
+def _loop_mode(pipelined: bool, n_tasks, n_nodes, offsets, period, seed, device,
+               warmup_cycles) -> dict:
+    t = time.perf_counter()
+    cache = synthetic_cluster(n_tasks, n_nodes, gang_size=GANG, n_queues=N_QUEUES,
+                              seed=seed)
+    ingest_s = time.perf_counter() - t
+    n_feed = len(offsets)
+    cache.columns.reserve(n_tasks=n_tasks + GANG * n_feed,
+                          n_jobs=n_tasks // GANG + GANG * n_feed)
+    sched = Scheduler(cache, conf=load_scheduler_conf(shipped_conf_path()),
+                      schedule_period=period, device=device)
+    # as bench.py's pipelined_bench: the mode set on the scheduler, and a
+    # 20 ms starting floor, which then follows the measured cycle cost
+    sched.pipelined, sched.min_period, sched.max_period = pipelined, 0.02, period
+    binder = TimedBinder()
+    cycles: List[dict] = []
+    loop = feeder = None
+    try:
+        for _ in range(warmup_cycles):
+            sched.run_once()
+        warm_binds = len(cache.binder.binds)
+        cache.binder = binder
+        keys = [f"feed/arr{i}-0" for i in range(n_feed)]
+        binder.expect(keys)
+        arrived: Dict[str, float] = {}
+
+        def on_cycle_end():
+            cycles.append(dict(stages_ms=dict(sched.last_cycle_ms),
+                               writeback_ms=sched.last_writeback_ms))
+
+        sched.on_cycle_end = on_cycle_end
+
+        def feed_arrivals():
+            for i, dt in enumerate(offsets):
+                time.sleep(float(dt))
+                name = f"arr{i}"
+                arrived[keys[i]] = time.perf_counter()
+                cache.add_pod_group(PodGroup(name=name, namespace="feed", min_member=1,
+                                             queue="q0", creation_index=5_000_000 + i))
+                cache.add_pod(Pod(name=f"{name}-0", namespace="feed",
+                                  requests={"cpu": 250.0, "memory": float(2 ** 30)},
+                                  annotations={GROUP_NAME_ANNOTATION: name},
+                                  phase=PodPhase.PENDING, creation_index=50_000_000 + i))
+
+        loop = threading.Thread(target=sched.run_forever, name="kb-loop", daemon=True)
+        feeder = threading.Thread(target=feed_arrivals, name="kb-feed", daemon=True)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        loop.start()
+        feeder.start()
+        feeder.join(timeout=float(offsets.sum()) + 60.0)
+        if feeder.is_alive():
+            fail("loop: the feeder did not finish")
+        all_bound = binder.all_acked.wait(timeout=6 * period + 10.0)
+    finally:
+        sched.stop()
+        if loop is not None:
+            loop.join(timeout=60.0)
+    run_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    if loop.is_alive():
+        fail("loop: run_forever did not stop within 60 s")
+    with cache._ingest_lock:
+        staged_left = len(cache._ingest_staged)
+    writeback_joined = sched._wb_future is None and sched._wb_worker is None
+    if staged_left or not writeback_joined:
+        fail(f"loop: stop() left {staged_left} staged events, writeback joined "
+             f"{writeback_joined}")
+    if not all_bound:
+        fail(f"loop: {len(binder.acked_at)} of {n_feed} arrivals bound")
+    counts = collections.Counter(binder.channel)
+    if any(counts[k] != 1 for k in keys) or len(counts) != n_feed:
+        fail(f"loop: arrivals not bound exactly once: {dict(counts)}")
+    if (sched.failed_cycles or sched.failed_writebacks or cache.dispatch_failures
+            or cache.resync.parked_total):
+        fail(f"loop: {sched.failed_cycles} cycles, {sched.failed_writebacks} writeback "
+             f"stages and {cache.dispatch_failures} bind dispatches failed, "
+             f"{cache.resync.parked_total} parked")
+    errs = cache.columns.check_consistency(cache)
+    if errs:
+        fail(f"loop: column store disagrees with objects: {errs[:5]}")
+    lat = sorted((binder.acked_at[k] - arrived[k]) * 1e3 for k in keys)
+    wb = [c["writeback_ms"] for c in cycles if c["writeback_ms"] is not None]
+    return dict(mode="pipelined" if pipelined else "serial", ingest_s=ingest_s,
+                warm_binds=warm_binds, run_s=run_s, bound=len(binder.acked_at),
+                latency_ms=dict(p50=float(np.percentile(lat, 50)),
+                                p99=float(np.percentile(lat, 99)),
+                                mean=float(np.mean(lat)), max=lat[-1]),
+                cycles=len(cycles),
+                wakes=dict(sched.wake_reasons) if pipelined else {"tick": len(cycles)},
+                cycle_ms_p50=float(np.percentile(
+                    [sum(c["stages_ms"].values()) for c in cycles], 50)) if cycles else None,
+                stages_ms_p50={k: float(np.percentile(
+                    [c["stages_ms"].get(k, 0.0) for c in cycles], 50))
+                    for k in (cycles[-1]["stages_ms"] if cycles else ())},
+                writeback_ms_p50=float(np.percentile(wb, 50)) if wb else None,
+                staged_left=staged_left, writeback_joined=writeback_joined,
+                launches=launches, device=str(sched.device))
 
 
 def drive_guard(n_tasks: int, n_nodes: int, arrivals: int, bundle_dir: str,
@@ -724,7 +951,11 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--overcommit", action="store_true")
     ap.add_argument("--steady", action="store_true")
-    ap.add_argument("--leg", choices=sorted(LEGS), default="defaults")
+    ap.add_argument("--loop", action="store_true")
+    ap.add_argument("--feed", type=int, default=20)
+    ap.add_argument("--period", type=float, default=1.0)
+    ap.add_argument("--leg", default="defaults",
+                    help="a leg of LEGS, or several, comma-separated, run in order")
     ap.add_argument("--cycles", type=int, default=8)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--tasks", type=int, default=50_000)
@@ -736,9 +967,20 @@ def main() -> None:
     ap.add_argument("--device", default=None)
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
-    if args.steady:
+    if args.loop:
+        out = drive_loop(args.tasks, args.nodes, args.feed, args.period,
+                         device=args.device)
+    elif args.steady:
+        legs = args.leg.split(",")
+        unknown = sorted(set(legs) - set(LEGS))
+        if unknown:
+            ap.error(f"unknown legs {unknown}; choose from {sorted(LEGS)}")
+        for leg in legs[:-1]:
+            print(json.dumps(drive_steady(args.tasks, args.nodes, args.cycles,
+                                          args.warmup, device=args.device, leg=leg,
+                                          profile=args.profile)), flush=True)
         out = drive_steady(args.tasks, args.nodes, args.cycles, args.warmup,
-                           device=args.device, leg=args.leg, profile=args.profile)
+                           device=args.device, leg=legs[-1], profile=args.profile)
     elif args.overcommit:
         out = drive_overcommit(args.running, args.pending, args.nodes,
                                device=args.device, profile=args.profile)

@@ -463,7 +463,9 @@ def test_volume_binder_seam_matches_jax():
 
 def test_bind_outside_a_session_matches_jax():
     """``bind`` and ``bulk_bind`` with no cycle running apply the Binding
-    transition and the node accounting themselves, as the JAX package's do."""
+    transition and the node accounting themselves, as the JAX package's do;
+    ``bulk_bind``'s binder calls run on the dispatcher, joined by
+    ``flush_binds`` on both sides."""
     jcache, pcache = FIXTURES["homogeneous"]()
     keys = sorted(jcache.pods)[:9]
 
@@ -477,6 +479,7 @@ def test_bind_outside_a_session_matches_jax():
     jcache.bulk_bind([(jt[k], f"n{i % 3}") for i, k in enumerate(keys[1:])])
     jcache.flush_binds()
     pcache.bulk_bind([(pt[k], f"n{i % 3}") for i, k in enumerate(keys[1:])])
+    pcache.flush_binds()
     assert observed(pcache) == observed(jcache)
     for name in ("n0", "n1", "n2"):
         np.testing.assert_array_equal(pcache.nodes[name].idle.vec,

@@ -100,15 +100,20 @@ def test_config_from_fields_drops_use_pallas():
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every port module, running a CPU solve and two five-action
     cycles under the shipped conf (reclaim evicting; the second open a
-    delta, its device programs reading resident tensors; the guard on)
-    leaves no jax and
+    delta, its device programs reading resident tensors; the guard on),
+    then starting and stopping a pipelined ``run_forever`` that binds an
+    arrival, leaves no jax and
     no kube_batch_tpu module loaded (kube_batch_tpu_torch itself shares the
     prefix, so the match is exact on the package name)."""
     code = textwrap.dedent("""
         import sys
+        import threading
         import kube_batch_tpu_torch.actions.allocate as A
         import kube_batch_tpu_torch.api.resident
         import kube_batch_tpu_torch.cache.dirty
+        import kube_batch_tpu_torch.cache.resync
+        import kube_batch_tpu_torch.k8s.transport
+        import kube_batch_tpu_torch.utils.worker
         import kube_batch_tpu_torch.guard.bundle
         import kube_batch_tpu_torch.ops.invariants
         import kube_batch_tpu_torch.ops.kernels
@@ -120,7 +125,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         from kube_batch_tpu_torch.ops.assignment import AllocateConfig
         from kube_batch_tpu_torch.scheduler import Scheduler
         from kube_batch_tpu_torch.testing.synthetic import (
-            synthetic_device_snapshot, synthetic_overcommit_cluster)
+            synthetic_cluster, synthetic_device_snapshot, synthetic_overcommit_cluster)
         snap, meta = synthetic_device_snapshot(64, 8, device="cpu")
         res, mode, info, _g = A.dispatch_allocate_solve(snap, AllocateConfig())
         assert len(A.result_binds(res, meta)) > 0
@@ -137,6 +142,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         assert cache.last_open_path == "delta"
         assert cache.columns.resident_counters()["single"]["version"] > 0
         assert cache.guard_plane.enabled and cache.guard_plane.trips_total == 0
+        loop_cache = synthetic_cluster(64, 8)
+        loop = Scheduler(loop_cache, conf=load_scheduler_conf(shipped_conf_path()),
+                         schedule_period=0.05, device="cpu")
+        assert loop.pipelined
+        t = threading.Thread(target=loop.run_forever, daemon=True)
+        t.start()
+        try:
+            assert loop_cache.binder.event.wait(30)
+        finally:
+            loop.stop()
+            t.join(30)
+        assert not t.is_alive() and loop._wb_future is None
+        assert loop_cache._ingest_staged == [] and loop.wake_reasons["floor"] >= 0
         bad = sorted(n for n in sys.modules
                      if n in ("jax", "jaxlib") or n.startswith(("jax.", "jaxlib."))
                      or n == "kube_batch_tpu" or n.startswith("kube_batch_tpu."))
