@@ -63,7 +63,12 @@ guard phase (``drive_guard``, 4 096 × 1 024) audits clean cycles against
 the full solve, zeroes a resident capacity word in place (the cycle must
 fail closed, heal, and the demoted paths re-promote after the cooldown),
 sets a Running row's resident pending bit (the host checksum must trip),
-and replays the trip's bundle on the card and the CPU.  The headline and
+and replays the trip's bundle on the card and the CPU.  The feature phase
+(``drive_features``) runs the 50 000-pod cluster with PodDisruptionBudget
+gangs, claims on a PV ledger (and on missing PVs) and a custom score row:
+two exclusive cycles and one isolated, checking the gangs and the ledger,
+K1 and K2 held bit-exact on the plane with the row; at 4 096 × 1 024 the
+card and the CPU must decide identically.  The headline and
 overcommit drives at 4 096 × 1 024 (with host ports) and 2 048 / 1 024 /
 256 run with the defaults on the card and as the oracle on the CPU, and
 must bind and evict identically.  Each phase prints one JSON line; any
@@ -108,6 +113,10 @@ STEADY_LEGS = ("defaults", "cold", "noguard", "oracle", "pipelined")
 LOOP_FEED, LOOP_PERIOD = 20, 1.0
 # the warm path's re-rank rungs below the 8 192-row bucket (K2's rows there)
 WARM_RERANK_RUNGS = (128, 256, 512, 1024, 2048, 4096)
+# the feature drive: PDB-defined gangs, claims on the PV ledger and claims on
+# missing PVs, at the headline size and (the same shares) at mid size
+FEAT_PDB, FEAT_PVC, FEAT_IMPOSSIBLE = 0.05, 2_000, 50
+MID_FEAT_PVC, MID_FEAT_IMPOSSIBLE = 164, 4
 KERNELS = ("masked_best_node_raw", "masked_topk_blocks", "enqueue_gate")
 
 
@@ -747,6 +756,82 @@ def phase_cycle_cross_device():
          overcommit=MID_OC, cycles=out)
 
 
+def isolated_decided(cyc, size):
+    """The isolated cycle (the third) placed the arrivals it was given:
+    new binds, among them a PDB gang and pods whose claims bound PVs, so
+    the object replay ran the volume binding and the PDB close."""
+    iso, prev = cyc[2]["checks"], cyc[1]["checks"]
+    if not (cyc[2]["new_binds"] > 0
+            and iso["pdb_gangs_bound"] > prev["pdb_gangs_bound"]
+            and iso["bound_pods_with_claims"] > prev["bound_pods_with_claims"]):
+        fail(f"features {size}: the isolated cycle placed no arrival: {cyc[2]['new_binds']} "
+             f"new binds, checks {prev} -> {iso}")
+
+
+def phase_cycle_features():
+    """The feature drive (``cycle_drive.drive_features``): the
+    50 000-pod cluster with 5 % of its gangs defined by PodDisruptionBudgets
+    (a quarter of them too large to fit), 2 000 pods claiming PVs from a
+    ``StandalonePVBinder`` (half pinned to one node each by hostname
+    topology, half wildcard) and 50 claims on missing PVs, under the
+    shipped conf plus a custom score row registered through
+    ``Session.add_score_row``: two exclusive cycles, then one isolated
+    that must place new arrivals (PDB gangs, claims on new PVs).
+    Every cycle checks the PDB gangs (all or nothing), the ledger (no PV
+    twice, every bound claim on a node its PV reaches, the impossible
+    claims unbound) and the column store, node ledgers and double binds;
+    cycle 1's solve input holds K1 and K2 against their plain versions on
+    the score plane with the row, bit-exact.  Then the same features at
+    4 096 × 1 024: exclusive and isolated cycles on the card with the
+    defaults and on the CPU as the oracle must decide identically."""
+    from kube_batch_tpu_torch.testing.cycle_drive import drive_features, oracle_switches
+
+    r = drive_features(N_TASKS, N_NODES, FEAT_PVC, FEAT_IMPOSSIBLE,
+                       pdb_gang_frac=FEAT_PDB, device="cuda", hold_first=True)
+    cyc = r["cycles"]
+    k1, k2 = "masked_best_node_raw", "masked_topk_blocks"
+    if cyc[0]["launches"][k1] == 0 or cyc[0]["launches"][k1] != cyc[0]["rounds"]:
+        fail(f"features cycle 1: K1 launches {cyc[0]['launches']} != rounds {cyc[0]['rounds']}")
+    if not any(c["launches"][k2] for c in cyc):
+        fail("features: no cycle ran the compacted program (K2)")
+    if not (cyc[2]["launches"][k1] + cyc[2]["launches"][k2]):
+        fail(f"features: the isolated cycle launched no kernel: {cyc[2]['launches']}")
+    isolated_decided(cyc, "50k")
+    last = cyc[-1]["checks"]
+    if not (last["pdb_gangs_bound"] and last["pdb_gangs_blocked"]
+            and last["bound_pods_with_claims"]
+            and last["impossible_claims_unbound"] == FEAT_IMPOSSIBLE):
+        fail(f"features: the drive did not exercise every feature: {last}")
+    if not any(c["volume_demoted_jobs"] for c in cyc):
+        fail("features: the volume pre-check demoted no job")
+    mid = {}
+    for leg, dev in (("cpu", "cpu"), ("gpu", "cuda")):
+        with oracle_switches(leg == "cpu"):
+            mid[leg] = drive_features(MID_TASKS, MID_NODES, MID_FEAT_PVC, MID_FEAT_IMPOSSIBLE,
+                                      pdb_gang_frac=FEAT_PDB, device=dev, keep_states=True)
+    isolated_decided(mid["gpu"]["cycles"], "mid")
+    for c, (a, b) in enumerate(zip(mid["cpu"].pop("states"), mid["gpu"].pop("states"))):
+        for key in a:
+            if a[key] != b[key]:
+                fail(f"features mid: cycle {c + 1} ({mid['gpu']['cycles'][c]['session']}) "
+                     f"{key} differ between the card and the CPU")
+    emit("cycle_features", conf="shipped + rack-affinity score row", shape=r["shape"],
+         ingest_s=r["ingest_s"], pdb_gang_frac=FEAT_PDB, pvc_pods=FEAT_PVC,
+         pvc_impossible=FEAT_IMPOSSIBLE, held=r["held"],
+         cycles=[{k: c[k] for k in ("cycle", "session", "arrivals", "mode", "rounds", "wall_ms",
+                                    "stages_ms", "clone_ms", "allocate_ms", "new_binds",
+                                    "binds", "volume_demoted_jobs", "launches", "syncs",
+                                    "checks")} for c in cyc],
+         mid_shape=[MID_TASKS, MID_NODES], mid_equal="binds, evictions, task statuses, "
+         "PodGroup phases, events, PV bindings and reservations",
+         mid=[dict(cycle=g["cycle"], session=g["session"], new_binds=g["new_binds"],
+                   binds=g["binds"],
+                   cpu_wall_ms=c_["wall_ms"], gpu_wall_ms=g["wall_ms"],
+                   gpu_launches=g["launches"], checks=g["checks"])
+              for c_, g in zip(mid["cpu"]["cycles"], mid["gpu"]["cycles"])])
+    return r
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -779,6 +864,7 @@ def main() -> int:
     steady, rerank_rungs = phase_cycle_steady()
     loop = phase_loop()
     phase_guard()
+    features = phase_cycle_features()
     phase_cycle_cross_device()
     cycle_launches = {name: {f"cycle{c['cycle']}": c["launches"][name]
                              for c in cycle["cycles"]}
@@ -796,6 +882,9 @@ def main() -> int:
     loop_launches = {name: {mode: loop[mode]["launches"][name]
                             for mode in ("serial", "pipelined")}
                      for name in KERNELS}
+    features_launches = {name: {f"cycle{c['cycle']}_{c['session']}": c["launches"][name]
+                                for c in features["cycles"]}
+                         for name in KERNELS}
     # K2 on the warm path: launches per steady cycle of the defaults and
     # cold legs, and its time against its bound at the commonest re-rank rung
     k2_per_cycle = {leg: [c["launches"]["masked_topk_blocks"]
@@ -822,7 +911,8 @@ def main() -> int:
              overcommit_launches=overcommit_launches["masked_best_node_raw"],
              steady_launches=steady_launches["masked_best_node_raw"],
              pipelined_steady_launches=pipelined_launches["masked_best_node_raw"],
-             loop_launches=loop_launches["masked_best_node_raw"]),
+             loop_launches=loop_launches["masked_best_node_raw"],
+             features_launches=features_launches["masked_best_node_raw"]),
         dict(name="masked_topk_blocks", route="cuda",
              source=src + "topk_blocks.cu",
              replaces="kube_batch_tpu/ops/pallas_kernels.py:216",
@@ -833,6 +923,7 @@ def main() -> int:
              steady_launches=steady_launches["masked_topk_blocks"],
              pipelined_steady_launches=pipelined_launches["masked_topk_blocks"],
              loop_launches=loop_launches["masked_topk_blocks"],
+             features_launches=features_launches["masked_topk_blocks"],
              warm_launches_per_steady_cycle=k2_per_cycle["defaults"],
              cold_launches_per_steady_cycle=k2_per_cycle["cold"],
              fresh_keys="plain ops (the releasing fit masked on the view, as the JAX package)",
@@ -850,7 +941,8 @@ def main() -> int:
              overcommit_launches=overcommit_launches["enqueue_gate"],
              steady_launches=steady_launches["enqueue_gate"],
              pipelined_steady_launches=pipelined_launches["enqueue_gate"],
-             loop_launches=loop_launches["enqueue_gate"]),
+             loop_launches=loop_launches["enqueue_gate"],
+             features_launches=features_launches["enqueue_gate"]),
     ]
     print(json.dumps({"kernels": summary}))
     print(smi)

@@ -1,9 +1,11 @@
 """allocate action — the placement pass, solved on the device.
 
 Mirrors ``kube_batch_tpu/actions/allocate.py``: build the session's
-snapshot from the cache's column store, swap it for its device-resident
-tensors (``api/columns.resident_snap``: only what changed since the last
-swap is uploaded), run the allocate solve
+snapshot from the cache's column store (an isolated session's from its
+cloned objects, ``api/snapshot.build_snapshot``), swap it for its
+device-resident tensors (``api/columns.resident_snap``: only what changed
+since the last swap is uploaded; an isolated session uploads it whole),
+run the allocate solve
 (predicates, scoring, fairness, ordering, gang commit/discard) on the
 device, read the result back in one transfer, and replay it into host
 state.  The replay is vectorized: jobs whose readiness gate is the gang
@@ -11,7 +13,9 @@ arithmetic and whose tasks carry no host-only constraints take a bulk path
 (readiness from the snapshot's counts, whole-matrix ledger updates, one
 bulk bind); jobs that need host predicates (ports, rich affinity) replay
 through the per-task Statement path with the sequential semantics
-(statement.go:29-337).
+(statement.go:29-337).  In a column session the bulk path is whole-matrix
+column updates; in an isolated session it is per-job batched object
+updates (``bulk_transition``, ``bulk_add_tasks``, batched events).
 
 The dispatch is the single-device branch of the JAX package's default:
 the compacted solve when the pending rows fit the task capacity's one
@@ -20,7 +24,10 @@ warm-started by default (``KB_WARM``): its [P, W] candidate table is
 carried on the device across cycles and repaired from the resident
 swaps' delta records (``api/resident.WarmTableState`` plans on the host,
 ``ops/assignment.warm_allocate_solve`` refreshes on the device);
-``KB_WARM=0`` rebuilds it cold every solve, the oracle.  The guard plane
+``KB_WARM=0`` rebuilds it cold every solve, the oracle.  A custom score
+row (``Session.add_score_row``) defers the warm carry to the cold build
+and the columnar host placement to the object scan: a row may read state
+neither tracks.  The guard plane
 (``KB_GUARD``, ``kube_batch_tpu_torch/guard``) follows every solve with
 its invariant sentinel, read back with the result: a nonzero verdict
 fails the action closed before any bind.  A demoted ``topk`` runs the
@@ -42,8 +49,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from kube_batch_tpu_torch.api.cluster_info import ClusterInfo
 from kube_batch_tpu_torch.api.columns import resident_snap
-from kube_batch_tpu_torch.api.snapshot import DeviceSnapshot, SnapshotMeta
+from kube_batch_tpu_torch.api.snapshot import DeviceSnapshot, SnapshotMeta, build_snapshot
 from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.framework.interface import Action
 from kube_batch_tpu_torch.framework.session import JOB_READY, NODE_ORDER, FitFailure
@@ -290,9 +298,18 @@ class _PhaseMarks:
 
 
 def build_session_snapshot(ssn):
-    """(DeviceSnapshot of numpy arrays, SnapshotMeta) for the session, from
-    the cache's column store."""
-    return ssn.columns.device_snapshot(ssn)
+    """(DeviceSnapshot of numpy arrays, SnapshotMeta) for the session: from
+    the cache's column store in an exclusive session, from the cloned
+    objects in an isolated one.  Allocate and backfill's pass share it, so
+    both solve the identically built problem."""
+    cols = ssn.columns
+    if cols is not None:
+        return cols.device_snapshot(ssn)
+    cluster = ClusterInfo(ssn.spec)
+    cluster.nodes = ssn.nodes
+    cluster.queues = ssn.queues
+    cluster.jobs = ssn.jobs
+    return build_snapshot(cluster, excluded_nodes=ssn.session_excluded_nodes)
 
 
 def session_allocate_config(ssn) -> AllocateConfig:
@@ -308,7 +325,8 @@ def session_allocate_config(ssn) -> AllocateConfig:
 
 def _read_back(res: AllocateResult, T: int, sentinel=None):
     """(assigned [T] i32, pipelined [T] bool, rounds_run, topk_exhausted,
-    topk_reentries, verdict, hist, checksum) in ONE device-to-host
+    topk_reentries, verdict, hist, checksum) of the first T task rows in
+    ONE device-to-host
     transfer; the sentinel's (verdict, hist, checksum) ride it (0, None, 0
     without a sentinel), so the guard adds no transfer."""
     parts = [res.assigned, res.pipelined.to(torch.int32),
@@ -318,11 +336,14 @@ def _read_back(res: AllocateResult, T: int, sentinel=None):
         verdict, hist, check = sentinel
         parts += [verdict.reshape(1), hist, check.reshape(1)]
     packed = torch.cat(parts).cpu().numpy()
-    out = (packed[:T], packed[T:2 * T].astype(bool), int(packed[2 * T]),
-           int(packed[2 * T + 1]), int(packed[2 * T + 2]))
+    # the result rows are the padded task axis; an object snapshot has
+    # fewer live tasks (T) than rows (Tr)
+    Tr = int(res.assigned.shape[0])
+    out = (packed[:T], packed[Tr:Tr + T].astype(bool), int(packed[2 * Tr]),
+           int(packed[2 * Tr + 1]), int(packed[2 * Tr + 2]))
     if sentinel is None:
         return out + (0, None, 0)
-    tail = packed[2 * T + 3:]
+    tail = packed[2 * Tr + 3:]
     return out + (int(tail[0]), tail[1:-1].copy(), int(tail[-1]))
 
 
@@ -345,7 +366,8 @@ class AllocateAction(Action):
         # whether the last execute dispatched the fit-error histogram
         self.last_fit_histogram = False
         # fallback pressure: slow-replay jobs, host-ports jobs promoted back
-        # to the bulk path, tasks placed by the host scan
+        # to the bulk path, jobs the volume pre-check demoted, tasks placed
+        # by the host scan
         self.last_fallback: Dict[str, int] = {}
         # jobs whose placements were discarded host-side this execute()
         self.last_host_discards = 0
@@ -365,7 +387,7 @@ class AllocateAction(Action):
         if not ssn.jobs or not ssn.nodes:
             return
         cols = ssn.columns
-        if not cols.has_schedulable_pending():
+        if cols is not None and not cols.has_schedulable_pending():
             # idle cycle: nothing schedulable anywhere — skip the snapshot,
             # the solve and the replay
             self.last_phase_ms = {"snapshot_build": 0.0, "upload": 0.0,
@@ -520,7 +542,8 @@ class AllocateAction(Action):
         # affinity-carrying jobs take the sequential Statement replay
         promoted_jobs = 0
         cols = ssn.columns
-        if job_slow.any() and gang_only_ready and not ssn.host_only_predicates:
+        if (job_slow.any() and gang_only_ready and not ssn.host_only_predicates
+                and cols is not None):
             occupied = set()
             for r in cols._ported_rows:
                 ni = int(cols.t_node[r])
@@ -604,15 +627,38 @@ class AllocateAction(Action):
         n_alloc_applied = np.bincount(pjobs[alloc_sel], minlength=nJ)
         _mark("replay_sums")
 
+        columnar = (cols is not None
+                    and meta.task_objs is cols.task_by_row  # the row space
+                    and ssn.all_handlers_columnar())
+        if not columnar:
+            binds = self._apply_objects(ssn, meta, bounds, pjobs_l, placed_l, node_l,
+                                        pipe_l, apply_l, job_alloc_sum, job_total_sum,
+                                        node_alloc_sum, node_pipe_sum)
+            _mark("replay_residue")
+            if binds:
+                if not volume_noop:
+                    for t, _ in binds:
+                        ssn.cache.bind_volumes(t)
+                # the cache's own tasks turn Binding with this replay's
+                # segment sums ({key: (count, vec)})
+                job_sums = {meta.job_objs[ji].uid: (int(n_alloc_applied[ji]),
+                                                    job_alloc_sum[ji])
+                            for ji in np.flatnonzero(n_alloc_applied).tolist()}
+                node_of_alloc = assigned[placed][alloc_sel]
+                node_cnt = np.bincount(node_of_alloc, minlength=nN)
+                node_sums = {node_names[ni]: (int(node_cnt[ni]), node_alloc_sum[ni])
+                             for ni in np.flatnonzero(node_cnt).tolist()}
+                ssn.cache.bulk_bind(binds, job_sums=job_sums, node_sums=node_sums)
+            _mark("replay_bind")
+            self._finish_slow(ssn, meta, assigned, pipelined, bounds, pjobs_l,
+                              slow_l, demoted_jobs, placed, promoted_jobs)
+            return
+
         # ---- columnar apply: every ledger / count / status column updated
         # by whole-matrix ops; the loops below only touch what must be an
         # object (status-index buckets, node task dicts, the binds list).
         # The ledger matrices are the buffers the JobInfo / NodeInfo
         # Resources wrap, so the objects see every update.
-        if not ssn.all_handlers_columnar():
-            raise NotImplementedError(
-                "an event handler without columnar_allocate_func: the port's "
-                "allocate replay fires allocate events in columnar form only")
         BINDING_I = int(TaskStatus.BINDING)
         PIPELINED_I = int(TaskStatus.PIPELINED)
         PENDING_I = int(TaskStatus.PENDING)
@@ -620,6 +666,8 @@ class AllocateAction(Action):
         cols.t_status[placed[pipe_sel]] = PIPELINED_I
         cols.t_node[placed[apply_mask]] = node_of[apply_mask]
         cols.j_alloc += job_alloc_sum
+        # the alloc-twin choke point: the float32 refresh visits these rows
+        cols.note_job_alloc_rows(np.any(job_alloc_sum != 0.0, axis=1))
         cols.j_pend -= job_total_sum
         np.maximum(cols.j_pend, 0.0, out=cols.j_pend)
         n_pipe_applied = np.bincount(pjobs[pipe_sel], minlength=nJ)
@@ -718,10 +766,76 @@ class AllocateAction(Action):
             ssn.cache.bulk_bind(binds)
         _mark("replay_bind")
 
-        # slow path after every bulk placement has landed: host predicates
-        # observe them; jobs the volume pre-check demoted replay here too
+        self._finish_slow(ssn, meta, assigned, pipelined, bounds, pjobs_l,
+                          slow_l, demoted_jobs, placed, promoted_jobs)
+
+    def _apply_objects(self, ssn, meta, bounds, pjobs_l, placed_l, node_l,
+                       pipe_l, apply_l, job_alloc_sum, job_total_sum,
+                       node_alloc_sum, node_pipe_sum) -> list:
+        """The bulk apply on objects (an isolated session, or a handler
+        without the columnar form): per job one ``bulk_transition`` per
+        status and one batched event, per node one ``bulk_add_tasks`` with
+        the presummed rows (node_info.go:165-222).  Returns the binds."""
+        spec = ssn.spec
+        wrap_vec = spec.wrap_vec
+        EMPTY = spec.empty()
+        task_objs = meta.task_objs
+        node_names = meta.node_names
+        binds: List[Tuple[object, str]] = []
+        by_node: Dict[int, Tuple[list, list]] = {}
+        for g in range(len(bounds) - 1):
+            lo, hi = bounds[g], bounds[g + 1]
+            ji = pjobs_l[lo]
+            if not apply_l[ji]:
+                continue
+            job = meta.job_objs[ji]
+            alloc_tasks: list = []
+            pipe_tasks: list = []
+            for i in range(lo, hi):
+                t = task_objs[placed_l[i]]
+                ni = node_l[i]
+                t.node_name = node_names[ni]
+                slot = by_node.get(ni)
+                if slot is None:
+                    slot = by_node[ni] = ([], [])
+                if pipe_l[i]:
+                    # pipelined on Releasing: the task did not fit Idle
+                    # (allocate.go:170-175)
+                    pnode = ssn.nodes.get(t.node_name)
+                    if pnode is not None:
+                        job.nodes_fit_delta[t.node_name] = t.init_resreq.fit_delta(pnode.idle)
+                        ssn.note_fit_state(job)
+                    pipe_tasks.append(t)
+                    slot[1].append(t)
+                else:
+                    alloc_tasks.append(t)
+                    slot[0].append(t)
+                    binds.append((t, t.node_name))
+            # committed and ready: every new allocation dispatches at once
+            # (session.go:286-294), Binding directly
+            asum = wrap_vec(job_alloc_sum[ji])
+            job.bulk_transition(alloc_tasks, TaskStatus.BINDING, asum, pending_sum=asum)
+            if pipe_tasks:
+                job.bulk_transition(
+                    pipe_tasks, TaskStatus.PIPELINED, EMPTY,
+                    pending_sum=wrap_vec(job_total_sum[ji] - job_alloc_sum[ji]))
+                ssn.pipelined_tasks.extend(pipe_tasks)
+            ssn.fire_batch_allocations(job, alloc_tasks + pipe_tasks,
+                                       wrap_vec(job_total_sum[ji]))
+        for ni, (allocs, pipes) in by_node.items():
+            node = ssn.nodes.get(node_names[ni])
+            if node is not None:
+                node.bulk_add_tasks(allocs, pipes, wrap_vec(node_alloc_sum[ni]),
+                                    wrap_vec(node_pipe_sum[ni]))
+        return binds
+
+    def _finish_slow(self, ssn, meta, assigned, pipelined, bounds, pjobs_l,
+                     slow_l, demoted_jobs, placed, promoted_jobs) -> None:
+        """The slow path, after every bulk placement has landed (the host
+        predicates observe them); jobs the volume pre-check demoted replay
+        here too."""
         n_slow = 0
-        for g in range(n_groups):
+        for g in range(len(bounds) - 1):
             ji = pjobs_l[bounds[g]]
             if slow_l[ji] or ji in demoted_jobs:
                 n_slow += 1
@@ -730,6 +844,7 @@ class AllocateAction(Action):
         self.last_fallback = {
             "slow_jobs": n_slow,
             "promoted_ports_jobs": promoted_jobs,
+            "volume_demoted_jobs": len(demoted_jobs),
             "host_place_tasks": self._host_place_count,
         }
 
@@ -829,8 +944,12 @@ class AllocateAction(Action):
         the Idle-vs-Releasing decision.  None when the task needs the full
         object scan (affinity, host-only predicates, a custom scorer)."""
         cols = ssn.columns
-        if (ssn.host_only_predicates or task.pod.affinity is not None
-                or task._row < 0
+        if (cols is None or ssn.host_only_predicates
+                or task.pod.affinity is not None or task._row < 0
+                # a custom scoring policy (an extension row, or a NODE_ORDER
+                # scorer beyond nodeorder's) is not in the score below: the
+                # object scan consults ssn.node_order
+                or ssn.score_weights.extra_rows
                 or set(ssn._fns.get(NODE_ORDER, {})) - {"nodeorder"}):
             return None
         req = task.init_resreq.vec

@@ -86,7 +86,15 @@ class BackfillAction(Action):
         # the pass re-pays a [T, N] solve, so it runs only when allocate
         # stranded capacity this cycle; otherwise the pending set is exactly
         # what the solve just failed to place
-        if not ssn.host_discards or not ssn.columns.has_schedulable_pending():
+        if not ssn.host_discards:
+            return 0
+        cols = ssn.columns
+        if cols is not None:
+            if not cols.has_schedulable_pending():
+                return 0
+        elif not any(_safe_pending(j) for j in ssn.jobs.values()):
+            # an isolated session: the object pre-gate before the snapshot
+            # rebuild — any gang-safe job with pending tasks?
             return 0
         snap, meta = build_session_snapshot(ssn)
         # gang-safe claimants only: a job at or above MinAvailable, or no
@@ -104,12 +112,11 @@ class BackfillAction(Action):
         snap = snap._replace(job_schedulable=safe)
         gp = guard_of(ssn.cache)
         plan = plan_topk_bucket(snap, dispatch_topk(gp))
-        dev = resident_snap(ssn.columns, snap, ssn.device)
+        dev = resident_snap(cols, snap, ssn.device)
         # cold (no carried table): this mid-cycle snapshot must not consume
         # allocate's deltas
         result, _mode, _topk, ginfo = dispatch_allocate_solve(
-            dev, session_allocate_config(ssn), plan=plan, cols=ssn.columns,
-            guard=gp)
+            dev, session_allocate_config(ssn), plan=plan, cols=cols, guard=gp)
         sentinel = ginfo["sentinel"]
         assigned, pipelined, *_, verdict, vhist, echeck = _read_back(result, T, sentinel)
         if sentinel is not None and not consume_assignment_sentinel(
@@ -127,3 +134,13 @@ class BackfillAction(Action):
         AllocateAction()._replay(ssn, snap, meta, assigned, pipelined, task_job)
         return n
 
+
+
+def _safe_pending(job) -> bool:
+    """A schedulable job with pending tasks that may take placements with
+    no atomicity risk: not a gang, or already at MinAvailable."""
+    if job.pod_group and job.pod_group.phase == PodGroupPhase.PENDING:
+        return False
+    if not job.task_status_index.get(TaskStatus.PENDING):
+        return False
+    return job.min_available <= 1 or job.ready()

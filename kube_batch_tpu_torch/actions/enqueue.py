@@ -60,15 +60,17 @@ class EnqueueAction(Action):
 
     def execute(self, ssn) -> None:
         self.last_gate_rows = 0
-        if (ssn.rows_synced
+        cols = ssn.columns
+        if (cols is not None and ssn.rows_synced
                 and ssn.enabled_plugin_names(JOB_ENQUEUEABLE) <= {"proportion"}
                 and ssn.enabled_plugin_names(JOB_ORDER) <= _COLUMNAR_JOB_ORDER):
             self.last_path = "columnar"
-            if self._execute_columnar(ssn, ssn.columns):
+            if self._execute_columnar(ssn, cols):
                 return
+        # the walk: an isolated session's path, and the gate's oracle
         self.last_path = "walk"
         for job in self._walk_decisions(ssn):
-            self._promote(ssn.columns, job)
+            self._promote(cols, job)
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -78,7 +80,7 @@ class EnqueueAction(Action):
         cycle's allocate would otherwise still skip the job; the phase and
         touched rows keep the delta close exact."""
         job.pod_group.phase = PodGroupPhase.INQUEUE
-        if job._cols is cols and job._row >= 0:
+        if cols is not None and job._cols is cols and job._row >= 0:
             cols.j_sched[job._row] = True
             cols.j_phase[job._row] = PHASE_CODE[PodGroupPhase.INQUEUE]
             cols.j_touched[job._row] = True

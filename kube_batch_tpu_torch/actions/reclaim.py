@@ -11,7 +11,8 @@ when the validated set still covers the claimant, which then pipelines
 onto the freed resources.
 
 ``solve_claims`` is shared with preempt's phase 1.  The snapshot comes from
-the column store and the resident tensors, as in allocate; the guard's
+the column store and the resident tensors, as in allocate (an isolated
+session's from its cloned objects, every job included); the guard's
 sentinel follows the solve, and the three result fields and its verdict
 come back in one transfer (a condemned solve evicts nothing).  Not
 ported: the mesh dispatch and its shadow audit, and the query-lease
@@ -28,6 +29,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from kube_batch_tpu_torch.actions.allocate import build_session_snapshot
 from kube_batch_tpu_torch.api.columns import resident_snap
 from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.framework.interface import Action
@@ -97,10 +99,15 @@ def solve_claims(ssn, mode: str):
         return [], {}
     cols = ssn.columns
     # no claimant anywhere, or no Running victim: the solve is vacuous
-    if not cols.has_schedulable_pending() or not cols.has_running_victims():
+    if cols is not None and not (cols.has_schedulable_pending()
+                                 and cols.has_running_victims()):
         return [], {}
     t0 = time.perf_counter()
-    snap, meta = cols.device_snapshot(ssn)
+    # every job included: the Pending-phase gate (reclaim.go:58-62,
+    # preempt.go:59-63) applies to claimants only, through the snapshot's
+    # job_schedulable, so Pending-phase jobs' Running tasks stay in the
+    # victim pool and their allocations in the fairness state
+    snap, meta = build_session_snapshot(ssn)
     gp = guard_of(ssn.cache)
     config = evict_config(ssn, mode)
     dev = resident_snap(cols, snap, ssn.device)

@@ -41,9 +41,10 @@ The carried candidate tables of the warm-started allocate
 store by device; every swap's delta record is fed to them, and they are
 dropped on axis growth, resident drops and device changes.
 
-Not ported: the JAX package's mesh-sharded residency and its swap guard,
-and the job-alloc float32 twin (``job_allocated`` is cast whole each
-snapshot).
+The job-alloc float32 twin (``job_alloc32``) is refreshed like the node
+ledgers' twins: at exactly the rows the ``note_job_alloc`` choke points
+marked.  Not ported: the JAX package's mesh-sharded residency and its
+swap guard.
 """
 
 from __future__ import annotations
@@ -219,6 +220,11 @@ class ColumnStore:
         self.j_alloc = np.zeros((capJ, R), np.float64)
         self.j_total = np.zeros((capJ, R), np.float64)
         self.j_pend = np.zeros((capJ, R), np.float64)
+        # float32 twin of j_alloc, refreshed at the rows the choke points
+        # marked (JobInfo's allocated add_ / sub_, the columnar replay's
+        # vectorized +=, row bind / free / growth)
+        self.j_alloc32 = np.zeros((capJ, R), np.float32)
+        self._j_alloc_dirty = np.ones(capJ, bool)
         self.j_counts = np.zeros((capJ, N_STATUS), np.int32)
         self.job_by_row: List = [None] * capJ
         # session rows, re-derived at every session open (sync_session_rows)
@@ -231,6 +237,7 @@ class ColumnStore:
         # PodGroup metadata rows read by the close-session status pass
         self.j_has_pg = np.zeros(capJ, bool)
         self.j_shadow = np.zeros(capJ, bool)
+        self.j_pdb = np.zeros(capJ, bool)
         self.j_phase = np.full(capJ, -1, np.int8)   # PHASE_CODE, -1 = none
         # the PodGroup's MinResources as an f32 row (the enqueue gate's
         # input), kept at PodGroup ingest; j_has_minres tells an empty
@@ -433,6 +440,7 @@ class ColumnStore:
         # copy the ledgers into the rows, then rebind the job's Resources as
         # zero-copy views of them
         self.j_alloc[row] = job.allocated.vec
+        self._j_alloc_dirty[row] = True
         self.j_total[row] = job.total_request.vec
         self.j_pend[row] = job.pending_request.vec
         job.allocated.vec = self.j_alloc[row]
@@ -458,6 +466,7 @@ class ColumnStore:
         self.j_sched[row] = False
         self.j_has_pg[row] = False
         self.j_shadow[row] = False
+        self.j_pdb[row] = False
         self.j_phase[row] = -1
         self.j_has_minres[row] = False
         self.j_minres[row] = 0.0
@@ -468,6 +477,7 @@ class ColumnStore:
         job.total_request.vec = self.j_total[row].copy()
         job.pending_request.vec = self.j_pend[row].copy()
         self.j_alloc[row] = 0.0
+        self._j_alloc_dirty[row] = True
         self.j_total[row] = 0.0
         self.j_pend[row] = 0.0
         self.j_counts[row] = 0
@@ -494,11 +504,14 @@ class ColumnStore:
 
     def _grow_jobs(self) -> None:
         cap = self.jobs.grown_cap()
-        for name in ("j_alloc", "j_total", "j_pend", "j_counts", "j_min",
-                     "j_queue", "j_prio", "j_creation", "j_sess", "j_sched",
-                     "j_has_pg", "j_shadow", "j_has_minres", "j_minres",
-                     "j_has_conds", "j_touched"):
+        for name in ("j_alloc", "j_alloc32", "j_total", "j_pend", "j_counts",
+                     "j_min", "j_queue", "j_prio", "j_creation", "j_sess",
+                     "j_sched", "j_has_pg", "j_shadow", "j_pdb", "j_has_minres",
+                     "j_minres", "j_has_conds", "j_touched"):
             setattr(self, name, _grow(getattr(self, name), cap))
+        dirty = np.ones(cap, bool)  # grown rows refresh on first read
+        dirty[: self._j_alloc_dirty.shape[0]] = self._j_alloc_dirty
+        self._j_alloc_dirty = dirty
         j_phase = np.full(cap, -1, np.int8)
         j_phase[: self.j_phase.shape[0]] = self.j_phase
         self.j_phase = j_phase
@@ -718,7 +731,7 @@ class ColumnStore:
         """Derive one session job's row state (both sync forms run it)."""
         row = job._row
         if row < 0 or job._cols is not self:
-            return
+            return  # a foreign or unbound job (an isolated session's clone)
         self.j_touched[row] = True  # re-synced: the close pass must visit
         qi = queue_rows_get(job.queue, -1)
         if qi < 0:
@@ -732,6 +745,7 @@ class ColumnStore:
         pg = job.pod_group
         self.j_sched[row] = pg is None or pg.phase != PodGroupPhase.PENDING
         self.j_has_pg[row] = pg is not None
+        self.j_pdb[row] = job.pdb is not None
         if pg is None:
             self.j_shadow[row] = False
             self.j_phase[row] = -1
@@ -827,6 +841,25 @@ class ColumnStore:
 
     def note_node_ledger_rows(self, rows) -> None:
         self._node_ledger_dirty[rows] = True
+
+    # ---- job-alloc dirty rows (the j_alloc float32 cast's choke point) ---
+    def note_job_alloc(self, row: int) -> None:
+        """Mark one job row's allocated ledger changed; every write path
+        calls this or ``note_job_alloc_rows``."""
+        self._j_alloc_dirty[row] = True
+
+    def note_job_alloc_rows(self, rows) -> None:
+        self._j_alloc_dirty[rows] = True
+
+    def job_alloc32(self) -> np.ndarray:
+        """The float32 twin of j_alloc, refreshed at exactly the dirty
+        rows."""
+        dirty = self._j_alloc_dirty
+        if dirty.any():
+            rows = np.flatnonzero(dirty)
+            self.j_alloc32[rows] = self.j_alloc[rows]
+            dirty[:] = False
+        return self.j_alloc32
 
     def bump_node_features(self) -> None:
         self.node_feature_version += 1
@@ -1072,7 +1105,7 @@ class ColumnStore:
             job_creation=self.j_creation,
             job_valid=j_sess,
             job_schedulable=self.j_sched,
-            job_allocated=self.j_alloc.astype(np.float32),
+            job_allocated=self.job_alloc32(),
             queue_weight=self.q_weight,
             queue_capability=self.q_cap,
             queue_alloc=queue_alloc,
@@ -1185,4 +1218,10 @@ class ColumnStore:
             if stale.size:
                 errs.append(f"node ledger twin {label} stale at rows "
                             f"{stale[:8].tolist()} (missed note_node_ledger)")
+        self.job_alloc32()
+        stale = np.flatnonzero(np.any(
+            self.j_alloc32 != self.j_alloc.astype(np.float32), axis=1))
+        if stale.size:
+            errs.append(f"job alloc twin stale at rows {stale[:8].tolist()} "
+                        "(missed note_job_alloc)")
         return errs

@@ -81,6 +81,7 @@ class JobInfo:
         self.nodes_fit_errors: Dict[str, FitErrors] = {}  # taskUID → FitErrors
         self.job_fit_errors: str = ""
         self.pod_group: Optional[PodGroup] = None
+        self.pdb = None  # the legacy gang source (job_info.go:199-212 SetPDB)
         self.creation_index: int = 0
         # ColumnStore binding (api/columns.py): when bound, the three ledger
         # Resources are views into the store's [J, R] matrices and the index
@@ -98,6 +99,24 @@ class JobInfo:
         self.queue = pg.queue
         self.creation_index = pg.creation_index
         self.pod_group = pg
+
+    def set_pdb(self, pdb) -> None:
+        """(job_info.go:199-212)"""
+        self.name = pdb.name
+        self.namespace = pdb.namespace
+        self.min_available = pdb.min_available
+        self.creation_index = pdb.creation_index
+        self.pdb = pdb
+
+    def unset_pdb(self) -> None:
+        self.pdb = None
+
+    def _note_alloc(self) -> None:
+        """The allocated-ledger choke point: ``allocated`` is a view of the
+        store's j_alloc row, so every add_ / sub_ marks the row for the
+        float32 twin's refresh (``columns.job_alloc32``)."""
+        if self._cols is not None and self._row >= 0:
+            self._cols.note_job_alloc(self._row)
 
     # -- task bookkeeping (job_info.go:211-263) ---------------------------
     def _index_add(self, task: TaskInfo) -> None:
@@ -123,6 +142,7 @@ class JobInfo:
         self._index_add(task)
         if is_allocated(task.status):
             self.allocated.add_(task.resreq)
+            self._note_alloc()
         elif task.status == TaskStatus.PENDING:
             self.pending_request.add_(task.resreq)
         self.total_request.add_(task.resreq)
@@ -135,6 +155,7 @@ class JobInfo:
             return
         if is_allocated(existing.status):
             self.allocated.sub_(existing.resreq)
+            self._note_alloc()
         elif existing.status == TaskStatus.PENDING:
             self.pending_request.sub_(existing.resreq)
         self.total_request.sub_(existing.resreq)
@@ -148,6 +169,92 @@ class JobInfo:
             self.delete_task(task)
         task.status = status
         self.add_task(task)
+
+    def bulk_transition(self, tasks, status: TaskStatus, resreq_sum,
+                        pending_sum=None) -> None:
+        """update_task_status for a batch of this job's tasks, for the
+        object-session allocate replay: ``resreq_sum`` is the presummed
+        Resource over the tasks whose allocated-ness flips (all of them or
+        none), ``pending_sum`` that of the tasks leaving or entering
+        Pending (summed here when absent).  The end state is the per-task
+        loop's."""
+        if not tasks:
+            return
+        new_alloc = is_allocated(status)
+        idx = self.task_status_index
+        new_bucket = idx[status]
+        pend_delta = None  # resreq sum of the tasks leaving Pending
+        cols = self._cols
+        src_status = tasks[0].status
+        src_bucket = idx.get(src_status)
+        if (not new_bucket and src_bucket is not None
+                and len(src_bucket) == len(tasks) and src_status != status
+                and all(t.status == src_status for t in tasks)):
+            # a whole source bucket moves into an empty one: rebind it
+            del idx[src_status]
+            idx[status] = src_bucket
+            if cols is not None:
+                counts = cols.j_counts[self._row]
+                counts[int(src_status)] -= len(tasks)
+                counts[int(status)] += len(tasks)
+                cols.j_touched[self._row] = True
+            flipped = len(tasks) if is_allocated(src_status) != new_alloc else 0
+            pend_src = src_status == TaskStatus.PENDING
+            new_pend = status == TaskStatus.PENDING
+            for task in tasks:
+                task.status = status
+            if pend_src != new_pend:
+                acc = pending_sum
+                if acc is None:
+                    acc = self.spec.empty()
+                    for task in tasks:
+                        acc.add_(task.resreq)
+                if pend_src:
+                    pend_delta = acc
+                else:
+                    self.pending_request.add_(acc)
+        else:
+            flipped = 0
+            new_pend = status == TaskStatus.PENDING
+            pend_acc = None
+            counts = cols.j_counts[self._row] if cols is not None else None
+            if cols is not None:
+                cols.j_touched[self._row] = True
+            for task in tasks:
+                key = task._key
+                was_pend = task.status == TaskStatus.PENDING
+                bucket = idx.get(task.status)
+                if bucket is not None:
+                    popped = bucket.pop(key, None)
+                    if not bucket and bucket is not new_bucket:
+                        del idx[task.status]
+                    if popped is not None and counts is not None:
+                        counts[int(task.status)] -= 1
+                if counts is not None:
+                    counts[int(status)] += 1
+                if is_allocated(task.status) != new_alloc:
+                    flipped += 1
+                if was_pend != new_pend:
+                    if new_pend:
+                        self.pending_request.add_(task.resreq)
+                    else:
+                        if pend_acc is None:
+                            pend_acc = self.spec.empty()
+                        pend_acc.add_(task.resreq)
+                task.status = status
+                new_bucket[key] = task
+            if pend_acc is not None:
+                pend_delta = pend_acc
+        if pend_delta is not None:
+            self.pending_request.sub_(pend_delta)
+        if flipped:
+            graft_assert(flipped == len(tasks),
+                         f"bulk_transition: mixed allocated-ness flip in job {self.uid}")
+            if new_alloc:
+                self.allocated.add_(resreq_sum)
+            else:
+                self.allocated.sub_(resreq_sum)
+            self._note_alloc()
 
     def rebucket_moved(self, tasks, status: TaskStatus) -> None:
         """Status-index bucket moves only, for the columnar allocate replay:
@@ -215,6 +322,37 @@ class JobInfo:
         counts = {s.name: len(m) for s, m in sorted(self.task_status_index.items())}
         body = ", ".join(f"{n} {s}" for s, n in counts.items())
         return f"job is not ready, {body}"
+
+    def clone(self) -> "JobInfo":
+        """A copy for an isolated session: never column-bound, its tasks
+        cloned in the same order, its ledgers copied, its per-session
+        diagnostics empty (job_info.go:295-329)."""
+        j = JobInfo.__new__(JobInfo)
+        j._cols = None
+        j._row = -1
+        j.uid = self.uid
+        j.spec = self.spec
+        j.name = self.name
+        j.namespace = self.namespace
+        j.queue = self.queue
+        j.priority = self.priority
+        j.min_available = self.min_available
+        j.creation_index = self.creation_index
+        j.pod_group = self.pod_group.clone() if self.pod_group else None
+        j.pdb = self.pdb  # not mutated after ingest
+        j.nodes_fit_delta = {}
+        j.nodes_fit_errors = {}
+        j.job_fit_errors = ""
+        new_tasks = {key: t.clone() for key, t in self.tasks.items()}
+        j.tasks = new_tasks
+        j.task_status_index = defaultdict(dict)
+        for status, bucket in self.task_status_index.items():
+            if bucket:
+                j.task_status_index[status] = {k: new_tasks[k] for k in bucket}
+        j.allocated = self.allocated.clone()
+        j.total_request = self.total_request.clone()
+        j.pending_request = self.pending_request.clone()
+        return j
 
     def __repr__(self) -> str:
         return (f"JobInfo({self.uid} queue={self.queue} min={self.min_available} "

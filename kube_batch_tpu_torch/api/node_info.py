@@ -205,6 +205,29 @@ class NodeInfo:
         self.remove_task(task)
         self.add_task(task)
 
+    def bulk_add_tasks(self, alloc_tasks, pipe_tasks, alloc_sum, pipe_sum) -> None:
+        """add_task for a batch, for the object-session allocate replay:
+        ``alloc_tasks`` carry an allocated status, ``pipe_tasks`` are
+        Pipelined, and ``alloc_sum`` / ``pipe_sum`` are their presummed
+        Resources, so the status algebra is two vector ops per group."""
+        tasks = self.tasks
+        acct = self._acct
+        name = self.name
+        for group in (alloc_tasks, pipe_tasks):
+            for task in group:
+                key = task._key
+                if key in tasks:
+                    graft_assert(False, f"duplicate task {key} on node {name}")
+                task.node_name = name
+                tasks[key] = task
+                acct[key] = task.status
+        if self.node is not None:
+            self._note_ledger()
+            self.idle.sub_(alloc_sum)
+            self.used.add_(alloc_sum)
+            self.used.add_(pipe_sum)
+            self.releasing.sub_(pipe_sum)
+
     def bulk_register_tasks(self, alloc_tasks, pipe_tasks) -> None:
         """Task-dict / ``_acct`` registration only, for the columnar
         allocate replay: the ledger algebra was already applied to this
@@ -221,6 +244,32 @@ class NodeInfo:
                 task._node_name = name
                 tasks[key] = task
                 acct[key] = status
+
+    def clone(self) -> "NodeInfo":
+        """A copy for an isolated session: never column-bound, the ledger
+        triple copied rather than replayed, the resident tasks cloned (the
+        session moves their statuses in place)."""
+        n = NodeInfo.__new__(NodeInfo)
+        n._cols = None
+        n._row = -1
+        n.spec = self.spec
+        n.name = self.name
+        n.node = self.node
+        # a bound node's allocatable / capability are column views that
+        # set_node writes in place: the clone needs value semantics
+        if self._cols is None:
+            n.allocatable = self.allocatable
+            n.capability = self.capability
+        else:
+            n.allocatable = self.allocatable.clone()
+            n.capability = self.capability.clone()
+        n.idle = self.idle.clone()
+        n.used = self.used.clone()
+        n.releasing = self.releasing.clone()
+        n.tasks = {key: t.clone() for key, t in self.tasks.items()}
+        n._acct = dict(self._acct)
+        n._state = self._state
+        return n
 
     @property
     def pod_count(self) -> int:

@@ -3,9 +3,9 @@
 Mirrors ``kube_batch_tpu/api/pod.py`` field for field (the reference's
 v1.Pod / v1.Node and the PodGroup and Queue CRDs,
 pkg/apis/scheduling/v1alpha1/types.go:93-223), so one list of constructor
-keyword arguments builds the same cluster in either package.  The volume
-objects (PersistentVolume, PersistentVolumeClaim) and the
-PodDisruptionBudget gang source are not ported.
+keyword arguments builds the same cluster in either package, the
+PodDisruptionBudget gang source and the volume objects (PersistentVolume,
+PersistentVolumeClaim) included.
 """
 
 from __future__ import annotations
@@ -145,6 +145,59 @@ class Affinity:
             or self.preferred_pod_affinity
             or self.preferred_pod_anti_affinity
         )
+
+
+@dataclasses.dataclass
+class PodDisruptionBudget:
+    """The legacy gang source (event_handlers.go:484-594): a PDB owned by
+    the same controller as a set of pods turns that owner's job into a gang
+    of min_available, always in the default queue. Jobs defined only by a
+    PDB get events-only status updates (job_updater.go:108-111)."""
+
+    name: str
+    namespace: str = "default"
+    min_available: int = 1
+    # controller/owner UID linking the PDB to its pods' job
+    owner: Optional[str] = None
+    creation_index: int = 0
+
+
+@dataclasses.dataclass
+class PersistentVolume:
+    """Standalone PersistentVolume analog (the reference wraps the k8s
+    volumebinder over PV/PVC/StorageClass informers, cache.go:189-209). A
+    named volume, optionally reachable from a single node only (local PV),
+    optionally pre-bound to a claim (static provisioning)."""
+
+    name: str
+    node: Optional[str] = None   # None = accessible from every node
+    claim: Optional[str] = None  # pre-bound PVC name; None = matches any claim
+    # k8s mode: PVs bind only claims of the same storage class; standalone
+    # ingest leaves it empty (matches empty-class claims)
+    storage_class: str = ""
+    # full spec.nodeAffinity.required nodeSelectorTerms (same (key, op,
+    # values) shape as Affinity.node_terms): carried whenever the PV has
+    # required affinity, so the ledger can evaluate zonal/regional topology
+    # against candidate node labels instead of failing closed on anything
+    # beyond a single-node pin (`node` stays the recognized-pin fast path)
+    node_terms: Tuple = ()
+
+
+@dataclasses.dataclass
+class PersistentVolumeClaim:
+    """The claim side of the PV ledger in --master mode: carries the durable
+    PVC→PV binding (spec.volumeName) and the storage class that decides
+    whether an unbound claim is dynamically provisionable
+    (cache.go:258-269 feeds the k8s volumebinder from the pvc informer)."""
+
+    name: str
+    namespace: str = "default"
+    volume_name: Optional[str] = None  # spec.volumeName — bound PV
+    storage_class: str = ""
+    phase: str = "Pending"
+
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"
 
 
 @dataclasses.dataclass

@@ -16,5 +16,8 @@ class QueueInfo:
         self._cols = None  # ColumnStore binding (api/columns.py)
         self._row: int = -1
 
+    def clone(self) -> "QueueInfo":
+        return QueueInfo(self.queue)
+
     def __repr__(self) -> str:
         return f"QueueInfo({self.name} weight={self.weight})"

@@ -131,6 +131,27 @@ class TaskInfo:
             return True
         return any(op != "In" or len(values) != 1 for (_, op, values) in terms[0])
 
+    def clone(self) -> "TaskInfo":
+        """A copy with its own status and node_name.  The request vectors
+        are shared: they are frozen at ingest, and every ledger change
+        happens on the job and node ledgers."""
+        t = TaskInfo.__new__(TaskInfo)
+        t._row = -1       # clones are never column-bound (isolated sessions)
+        t._store = None
+        t.uid = self.uid
+        t.job = self.job
+        t.name = self.name
+        t.namespace = self.namespace
+        t.resreq = self.resreq
+        t.init_resreq = self.init_resreq
+        t._node_name = self._node_name
+        t._status = self._status
+        t.priority = self.priority
+        t.volume_ready = self.volume_ready
+        t.pod = self.pod
+        t._key = self._key
+        return t
+
     def key(self) -> str:
         return self._key
 

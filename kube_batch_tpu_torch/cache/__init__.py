@@ -13,6 +13,7 @@ from kube_batch_tpu_torch.cache.interface import (
     StatusUpdater,
     VolumeBinder,
 )
+from kube_batch_tpu_torch.cache.volume import StandalonePVBinder
 
 __all__ = [
     "Binder",
@@ -24,4 +25,5 @@ __all__ = [
     "FakeStatusUpdater",
     "FakeVolumeBinder",
     "SchedulerCache",
+    "StandalonePVBinder",
 ]

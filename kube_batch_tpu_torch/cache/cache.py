@@ -36,11 +36,18 @@ status pass splits into ``stage_status_flush`` (everything the next open
 depends on) and ``run_status_flush`` (the egress), which the pipelined
 loop overlaps with the next cycle.
 
+PodDisruptionBudgets are the legacy gang source (``add_pdb`` and its
+kin): owner-linked pods plus a PDB form one gang in the default queue,
+which gets events and no status writeback.  The volume seams feed any
+binder; ``cache/volume.py`` holds the standalone PV ledger, and node
+ingest feeds it node labels.  ``snapshot()`` deep-clones the session's
+view for an isolated session.
+
 What the JAX package has and this port does not (each is later work in
-ROADMAP.md): the decision-latency clocks and every metric (item 9),
-isolated sessions' ``snapshot()``, PodDisruptionBudgets, the volume
-ledger (the fake binder seam stays), ``failover_recover`` and the egress
-breakers themselves (item 8; ``CircuitOpenError`` is honoured).
+ROADMAP.md): the decision-latency clocks and every metric (item 9), the
+k8s PV ledger, the PDB and PV translation and their persistence,
+``failover_recover`` and the egress breakers themselves (item 8;
+``CircuitOpenError`` is honoured).
 """
 
 from __future__ import annotations
@@ -65,6 +72,7 @@ from kube_batch_tpu_torch.api.task_info import TaskInfo, job_id_for_pod
 from kube_batch_tpu_torch.api.types import (
     PodGroupPhase,
     TaskStatus,
+    is_allocated,
     queue_phase_counts,
 )
 from kube_batch_tpu_torch.cache.dirty import DirtyTracker, OpenCache
@@ -426,6 +434,9 @@ class SchedulerCache:
         spool, self._status_pool = self._status_pool, None
         if spool is not None:
             spool.shutdown(wait=True)
+        close = getattr(self.volume_binder, "close", None)
+        if close is not None:
+            close()
 
     # ------------------------------------------------------------------
     # ingest: pods (event_handlers.go:42-200)
@@ -454,7 +465,7 @@ class SchedulerCache:
             job = JobInfo(task.job, self.spec)
             self.jobs[task.job] = job
             self.columns.bind_job(job)
-        if job.pod_group is None and pod.group_name is None:
+        if job.pod_group is None and pod.group_name is None and job.pdb is None:
             job.set_pod_group(PodGroup(
                 name=pod.name,
                 namespace=pod.namespace,
@@ -564,8 +575,9 @@ class SchedulerCache:
 
     def _maybe_collect_job(self, job: JobInfo) -> None:
         """processCleanupJob (cache.go:533-557): drop a job once it has no
-        tasks and no real (non-shadow) PodGroup."""
-        if not job.tasks and (job.pod_group is None or job.pod_group.shadow):
+        tasks, no real (non-shadow) PodGroup and no PDB."""
+        if (not job.tasks and (job.pod_group is None or job.pod_group.shadow)
+                and job.pdb is None):
             if self.jobs.pop(job.uid, None) is not None:
                 self.dirty.note_job(job.uid)
                 self.columns.free_job(job)
@@ -588,6 +600,11 @@ class SchedulerCache:
                 self.columns.bind_node(info)
             else:
                 existing.set_node(node)
+            # a topology-restricted PV evaluates its node terms against
+            # these labels in the volume ledger (cache/volume.py)
+            set_labels = getattr(self.volume_binder, "set_node_labels", None)
+            if set_labels is not None:
+                set_labels(node.name, node.labels)
 
     def update_node(self, node: Node) -> None:
         self.add_node(node)
@@ -602,6 +619,10 @@ class SchedulerCache:
             if node is None:
                 return
             self.dirty.note_node(name)
+            # a gone node attaches no volume: the ledger fails closed for it
+            forget = getattr(self.volume_binder, "forget_node_labels", None)
+            if forget is not None:
+                forget(name)
             if node.tasks:
                 # resident pods outlive the Node object: demote to the
                 # nodeless placeholder, and a re-add replays their accounting
@@ -648,6 +669,68 @@ class SchedulerCache:
                 if not job.tasks and self.jobs.pop(key, None) is not None:
                     self.columns.free_job(job)
             self._status_next_write.pop(key, None)
+
+    # ------------------------------------------------------------------
+    # ingest: pod disruption budgets, the legacy gang source
+    # (event_handlers.go:484-594)
+    # ------------------------------------------------------------------
+    def add_pdb(self, pdb) -> None:
+        """setPDB: the job is keyed by the PDB's controller UID (the key
+        owner-linked pods land on, cache/util.go:42-46); min-available
+        comes from the PDB and the queue is always the default one (a PDB
+        has no queue, event_handlers.go:497-498)."""
+        if not pdb.owner:
+            logger.error("PodDisruptionBudget %s has no controller; ignored", pdb.name)
+            return
+        if self._stage(self.add_pdb, pdb):
+            return
+        with self._lock:
+            if self._gate(self.add_pdb, pdb):
+                return
+            job_id = f"{pdb.namespace}/{pdb.owner}"
+            self.dirty.note_job(job_id)
+            job = self.jobs.get(job_id)
+            if job is None:
+                job = JobInfo(job_id, self.spec)
+                self.jobs[job_id] = job
+                self.columns.bind_job(job)
+            # a shadow PodGroup made for owner pods that arrived before their
+            # PDB yields to the PDB as the gang source
+            if job.pod_group is not None and job.pod_group.shadow:
+                job.pod_group = None
+            job.set_pdb(pdb)
+            job.queue = self.default_queue
+
+    def update_pdb(self, pdb) -> None:
+        self.add_pdb(pdb)
+
+    def delete_pdb(self, pdb) -> None:
+        if not pdb.owner:
+            return
+        if self._stage(self.delete_pdb, pdb):
+            return
+        with self._lock:
+            if self._gate(self.delete_pdb, pdb):
+                return
+            job = self.jobs.get(f"{pdb.namespace}/{pdb.owner}")
+            if job is None:
+                return
+            self.dirty.note_job(job.uid)
+            job.unset_pdb()
+            if job.tasks and job.pod_group is None:
+                # the owner's pods schedule as singletons again under the
+                # shadow PodGroup the PDB displaced (the reference leaves the
+                # job out of snapshots until its pods go, cache.go:625-633)
+                any_pod = next(iter(job.tasks.values())).pod
+                job.set_pod_group(PodGroup(
+                    name=any_pod.name,
+                    namespace=any_pod.namespace,
+                    min_member=1,
+                    queue=self.default_queue,
+                    creation_index=any_pod.creation_index,
+                    shadow=True,
+                ))
+            self._maybe_collect_job(job)
 
     # ------------------------------------------------------------------
     # ingest: queues / priority classes (event_handlers.go:597-785)
@@ -746,26 +829,100 @@ class SchedulerCache:
             logger.error("bind of %s to %s failed: %s", task.key(), hostname, e)
             self.resync_task(task)
 
-    def bulk_bind(self, tasks_hosts) -> None:
+    def bulk_bind(self, tasks_hosts, job_sums=None, node_sums=None) -> None:
         """bind() for a batch under one lock acquisition: the allocate
         replay's commit path with every placement of the cycle.  Within an
         exclusive session the replay already applied the job and node
         accounting on these very objects, and ``task.pod`` is the stored
         pod (ingest is deferred while the session owns the cache), so only
-        the dispatch remains.  The binder calls run on the dispatch worker
-        (:meth:`_dispatch_async`); :meth:`flush_binds` joins them."""
+        the dispatch remains.  Outside one (an isolated session's tasks are
+        clones) the cache's own tasks turn Binding groupwise
+        (:meth:`_bulk_bind_locked`).  The binder calls run on the dispatch
+        worker (:meth:`_dispatch_async`); :meth:`flush_binds` joins them."""
         with self._lock:
             if self._session_active:
                 staged = [(t, h, t.pod) for t, h in tasks_hosts]
             else:
-                staged = []
-                for task, hostname in tasks_hosts:
-                    self._mark_binding_locked(task, hostname)
-                    staged.append((task, hostname, self.pods.get(task.key())))
+                staged = self._bulk_bind_locked(tasks_hosts, job_sums, node_sums)
             self._note_bind_decisions_locked(staged)
         # dispatched after the lock is released: the first dispatch starts
         # the worker thread, and no lock is held across a thread start
         self._dispatch_async(staged)
+
+    def _bulk_bind_locked(self, tasks_hosts, job_sums, node_sums) -> list:
+        """The Binding transition of the cache's own tasks for a batch,
+        applied per job (``bulk_transition``) and per node
+        (``bulk_add_tasks``) with presummed resreq; returns the staged
+        dispatch.  ``job_sums`` / ``node_sums`` ({key: (count, vec)}) are
+        the replay's segment sums, trusted only when the count matches the
+        group applied here and every task's resreq is the very Resource the
+        session cloned (a pod updated mid-cycle has a fresh one); otherwise
+        the group is summed here."""
+        pods_get = self.pods.get
+        jobs_get = self.jobs.get
+        nodes_get = self.nodes.get
+        staged = []
+        by_job: Dict[str, list] = {}
+        by_node: Dict[str, list] = {}
+        stale_jobs: set = set()
+        stale_nodes: set = set()
+        prev_job_uid = None
+        job = None
+        jlst: list = []
+        for task, hostname in tasks_hosts:
+            key = task._key
+            if task.job != prev_job_uid:
+                # the replay emits binds grouped by job
+                prev_job_uid = task.job
+                job = jobs_get(task.job)
+                jlst = by_job.get(task.job)
+                if jlst is None and job is not None:
+                    jlst = by_job[task.job] = []
+            own = job.tasks.get(key) if job is not None else None
+            if own is not None:
+                if own.resreq is not task.resreq:  # pod updated mid-cycle
+                    stale_jobs.add(task.job)
+                    stale_nodes.add(hostname)
+                own.node_name = hostname
+                jlst.append(own)
+                node = nodes_get(hostname)
+                if node is not None and key not in node.tasks:
+                    by_node.setdefault(hostname, []).append(own)
+            staged.append((task, hostname, pods_get(key)))
+        nR = self.spec.n
+        for job_uid, owns in by_job.items():
+            job = self.jobs[job_uid]
+            # bulk_transition needs one allocated-ness flip for the batch;
+            # a rebound task may already carry an allocated status
+            flip = [t for t in owns if not is_allocated(t.status)]
+            noflip = [t for t in owns if is_allocated(t.status)]
+            if flip:
+                pre = None
+                if job_sums is not None and not noflip and job_uid not in stale_jobs:
+                    entry = job_sums.get(job_uid)
+                    if entry is not None and entry[0] == len(flip):
+                        pre = entry[1]
+                if pre is None:
+                    pre = np.zeros(nR)
+                    for t in flip:
+                        pre += t.resreq.vec
+                pre_r = self.spec.wrap_vec(pre)
+                job.bulk_transition(flip, TaskStatus.BINDING, pre_r, pending_sum=pre_r)
+            if noflip:
+                job.bulk_transition(noflip, TaskStatus.BINDING, self.spec.empty())
+        for hostname, owns in by_node.items():
+            node = self.nodes[hostname]
+            pre = None
+            if node_sums is not None and hostname not in stale_nodes:
+                entry = node_sums.get(hostname)
+                if entry is not None and entry[0] == len(owns):
+                    pre = entry[1]
+            if pre is None:
+                pre = np.zeros(nR)
+                for t in owns:
+                    pre += t.resreq.vec
+            node.bulk_add_tasks(owns, [], self.spec.wrap_vec(pre), self.spec.empty())
+        return staged
 
     def _note_bind_decisions_locked(self, staged) -> None:
         """Mark every staged dispatch in flight (update_pod's guard for a
@@ -1002,6 +1159,7 @@ class SchedulerCache:
                 job.allocated.vec[:] = 0.0
                 job.total_request.vec[:] = 0.0
                 job.pending_request.vec[:] = 0.0
+                job._note_alloc()
                 if job._cols is not None:
                     job._cols.j_counts[job._row] = 0
                     job._cols.j_touched[job._row] = True
@@ -1068,8 +1226,9 @@ class SchedulerCache:
         self.events.append(("FailedScheduling", key, message))
 
     def record_job_status_event(self, job: JobInfo) -> None:
-        """Unschedulable event for a Pending/Unknown PodGroup and fit-error
-        conditions for its Allocated and Pending tasks (cache.go:688-719)."""
+        """Unschedulable event for a Pending/Unknown PodGroup, or a PDB job
+        with Pending tasks, and fit-error conditions for its Allocated and
+        Pending tasks (cache.go:688-719)."""
         self._apply_status_ops(self._render_job_status_ops(job))
 
     def _render_job_status_ops(self, job: JobInfo) -> list:
@@ -1079,13 +1238,15 @@ class SchedulerCache:
         pg = job.pod_group
         pg_unsched = (pg is not None and not pg.shadow
                       and pg.phase in (PodGroupPhase.PENDING, PodGroupPhase.UNKNOWN))
+        pdb_unsched = job.pdb is not None and bool(
+            job.task_status_index.get(TaskStatus.PENDING))
         has_stuck = (job.task_status_index.get(TaskStatus.ALLOCATED)
                      or job.task_status_index.get(TaskStatus.PENDING))
-        if not (pg_unsched or has_stuck):
+        if not (pg_unsched or pdb_unsched or has_stuck):
             return []
         base = job.job_fit_errors or job.fit_error()
         ops = []
-        if pg_unsched:
+        if pg_unsched or pdb_unsched:
             ops.append(("event", ("Unschedulable", job.uid, base)))
         for status in (TaskStatus.ALLOCATED, TaskStatus.PENDING):
             for task in job.task_status_index.get(status, {}).values():
@@ -1099,6 +1260,47 @@ class SchedulerCache:
                 self.events.append(op[1])
             else:
                 self._task_unschedulable_key(op[1], op[2], require_pod=staged)
+
+    def update_job_status(self, job: JobInfo, prev_status=None) -> None:
+        """An isolated session's per-job status writeback (UpdatePodGroup,
+        cache.go:722-736): the session's derived PodGroup status is copied
+        onto the cache's own PodGroup and written; a condition-only update
+        is rate-limited to one write per 60 s plus jitter
+        (job_updater.go:20-31).  Events and conditions accompany every
+        pass, rate-limited or not."""
+        pg = job.pod_group
+        if pg is None:
+            return
+        write = True
+        with self._lock:
+            own = self.jobs.get(job.uid)
+            if own is None:
+                return  # deleted mid-cycle
+            own_pg = own.pod_group
+            if prev_status is not None:
+                condition_only = prev_status == (pg.phase, pg.running, pg.failed,
+                                                 pg.succeeded)
+            else:
+                condition_only = (own_pg is not None and own_pg.phase == pg.phase
+                                  and (own_pg.running, own_pg.failed, own_pg.succeeded)
+                                  == (pg.running, pg.failed, pg.succeeded))
+            now = time.monotonic()
+            if condition_only and now < self._status_next_write.get(job.uid, 0.0):
+                write = False
+            if write:
+                self._status_next_write[job.uid] = (
+                    now + float(self._jitter.uniform(60.0, 90.0)))
+                if own_pg is not None:
+                    own_pg.phase = pg.phase
+                    own_pg.conditions = list(pg.conditions)
+                    own_pg.running = pg.running
+                    own_pg.failed = pg.failed
+                    own_pg.succeeded = pg.succeeded
+                # the cache's PodGroup changed: the next delta open re-reads it
+                self.dirty.note_job(job.uid)
+        if write and not self._status_degraded():
+            self.status_updater.update_pod_group(pg)
+        self.record_job_status_event(job)
 
     def update_job_statuses_bulk(self, updates) -> None:
         """The close's status pass for ``updates`` [(job, changed,
@@ -1246,11 +1448,50 @@ class SchedulerCache:
     # ------------------------------------------------------------------
     # session view (cache.go:584-654)
     # ------------------------------------------------------------------
+    def _job_in_session(self, uid: str, job: JobInfo) -> bool:
+        """The session membership filter: a job enters with a PodGroup or a
+        PDB (cache.go:625-633) and a known queue."""
+        if job.pod_group is None and job.pdb is None:
+            return False
+        if job.queue not in self.queues:
+            logger.warning("job %s queue %s not found, skipped", uid, job.queue)
+            return False
+        return True
+
+    def _resolve_job_priority(self, job: JobInfo) -> int:
+        """PriorityClass resolution (cache.go:610-620): the named class if
+        it exists, else the global default."""
+        pg = job.pod_group
+        pc = (self.priority_classes.get(pg.priority_class)
+              if pg is not None and pg.priority_class else None)
+        return pc.value if pc is not None else self.default_priority
+
+    def snapshot(self) -> ClusterInfo:
+        """An isolated session's ClusterInfo: deep clones of the Ready
+        nodes, every queue, and every session job (``_job_in_session``),
+        each job's priority resolved.  Clones are never column-bound, and
+        dict order is the cache's."""
+        with self._lock:
+            ci = ClusterInfo(self.spec)
+            for name, node in self.nodes.items():
+                if node.ready:
+                    ci.nodes[name] = node.clone()
+            for name, q in self.queues.items():
+                ci.queues[name] = q.clone()
+            for uid, job in self.jobs.items():
+                if not self._job_in_session(uid, job):
+                    continue
+                clone = job.clone()
+                clone.priority = self._resolve_job_priority(job)
+                ci.jobs[uid] = clone
+            return ci
+
     def session_view(self) -> ClusterInfo:
         """The exclusive session's ClusterInfo: shallow views over the live
-        objects — Ready nodes, every queue, and every job with a PodGroup in
-        a known queue, its priority resolved from its PriorityClass
-        (cache.go:610-633).  The caller holds the session gate."""
+        objects — Ready nodes, every queue, and every job with a PodGroup or
+        a PDB in a known queue, its priority resolved from its
+        PriorityClass (cache.go:610-633).  The caller holds the session
+        gate."""
         with self._lock:
             ci = ClusterInfo(self.spec)
             ci.nodes = {name: n for name, n in self.nodes.items() if n.ready}
@@ -1258,12 +1499,12 @@ class SchedulerCache:
             pcs_get = self.priority_classes.get
             for uid, job in self.jobs.items():
                 pg = job.pod_group
-                if pg is None:
+                if pg is None and job.pdb is None:
                     continue
                 if job.queue not in self.queues:
                     logger.warning("job %s queue %s not found, skipped", uid, job.queue)
                     continue
-                pc = pcs_get(pg.priority_class) if pg.priority_class else None
+                pc = pcs_get(pg.priority_class) if pg is not None and pg.priority_class else None
                 job.priority = pc.value if pc is not None else self.default_priority
                 ci.jobs[uid] = job
             return ci
@@ -1292,7 +1533,8 @@ class SchedulerCache:
             pcs_get = self.priority_classes.get
             for uid in delta.jobs:
                 job = self.jobs.get(uid)
-                member = job is not None and job.pod_group is not None
+                member = job is not None and (job.pod_group is not None
+                                              or job.pdb is not None)
                 if member and job.queue not in self.queues:
                     logger.warning("job %s queue %s not found, skipped", uid, job.queue)
                     member = False
@@ -1301,10 +1543,13 @@ class SchedulerCache:
                     pg_status.pop(uid, None)
                     continue
                 pg = job.pod_group
-                pc = pcs_get(pg.priority_class) if pg.priority_class else None
+                pc = pcs_get(pg.priority_class) if pg is not None and pg.priority_class else None
                 job.priority = pc.value if pc is not None else self.default_priority
                 jobs[uid] = job
-                pg_status[uid] = (pg.phase, pg.running, pg.failed, pg.succeeded)
+                if pg is not None:
+                    pg_status[uid] = (pg.phase, pg.running, pg.failed, pg.succeeded)
+                else:
+                    pg_status.pop(uid, None)
             ci.jobs = dict(jobs)
             return ci
 

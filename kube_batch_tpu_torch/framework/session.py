@@ -1,11 +1,16 @@
 """Session — the per-cycle runtime (framework/session.go,
 session_plugins.go, statement.go, framework.go).
 
-Mirrors ``kube_batch_tpu/framework/session.py`` in its exclusive form: the
-session takes the cache's own objects for the cycle (the cache defers
-ingest until close), the tier-configured plugins register their callbacks,
-and the mutation verbs (Allocate / Pipeline / Evict) feed the binder and
-the evictor.  The hot allocate path does not use the per-task verbs: it
+Mirrors ``kube_batch_tpu/framework/session.py``.  By default the session
+is exclusive: it takes the cache's own objects for the cycle (the cache
+defers ingest until close), the tier-configured plugins register their
+callbacks, and the mutation verbs (Allocate / Pipeline / Evict) feed the
+binder and the evictor.  ``open_session(..., isolated=True)`` is the
+reference's deep-cloned session instead: it works on ``cache.snapshot()``
+clones, bound to no column (``ssn.columns is None``), so the plugins and
+actions take their object branches and the allocate solve reads
+``api/snapshot.build_snapshot``; its decisions reach the cache only
+through the binder, evictor and status seams.  The hot allocate path does not use the per-task verbs: it
 solves on the device and replays the assignment (``actions/allocate.py``);
 the verbs serve the replay's per-task Statement path, backfill, reclaim
 and preempt.
@@ -19,12 +24,16 @@ jobs that must report.  The full forms stay as the oracles behind the JAX
 package's switches: ``cache.delta_enabled = False`` (``KB_SNAPSHOT_DELTA=0``)
 and ``KB_DELTA_CLOSE=0``.
 
-Not ported: isolated (deep-cloned) sessions for what-ifs, the tracer and
-metrics.
+A job defined by a PodDisruptionBudget alone has no PodGroup: the close
+records its events (Unschedulable while tasks stay Pending) and writes no
+status (job_updater.go:108-111).
+
+Not ported: the tracer and metrics.
 """
 
 from __future__ import annotations
 
+import time
 import uuid
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -87,13 +96,17 @@ class EventHandler:
     """Allocate/Deallocate hooks (framework/event.go:24-32).
 
     ``columnar_allocate_func(cols, job_sums)`` is the vectorized form the
-    allocate replay fires once with the [capJ, R] per-job-row resreq sums;
-    the per-task funcs serve the Statement verbs."""
+    column-session allocate replay fires once with the [capJ, R]
+    per-job-row resreq sums; ``batch_allocate_func(job, tasks,
+    total_resreq)`` the object-session replay's one call per job with the
+    presummed resreq (a handler without it gets per-task events); the
+    per-task funcs serve the Statement verbs."""
 
     def __init__(self, allocate_func=None, deallocate_func=None,
-                 columnar_allocate_func=None):
+                 batch_allocate_func=None, columnar_allocate_func=None):
         self.allocate_func = allocate_func
         self.deallocate_func = deallocate_func
+        self.batch_allocate_func = batch_allocate_func
         self.columnar_allocate_func = columnar_allocate_func
 
 
@@ -107,18 +120,23 @@ class FitFailure(Exception):
 
 class Session:
     def __init__(self, cache, cluster: ClusterInfo, tiers: List[Tier],
-                 device: torch.device, open_reuse=None, dirty_jobs=frozenset()):
+                 device: torch.device, exclusive: bool = True, open_reuse=None,
+                 dirty_jobs=frozenset()):
         self.uid = str(uuid.uuid4())
         self.cache = cache
         # where the session's device programs run
         self.device = device
         self.spec = cluster.spec
-        # the cache's own objects (no clone): the close unwinds what is
-        # session-only (pipelined and unready-allocated placements)
+        # exclusive: the cache's own objects (no clone), and the close unwinds
+        # what is session-only (pipelined and unready-allocated placements);
+        # isolated: clones, which die with the session
         self.jobs: Dict[str, JobInfo] = cluster.jobs
         self.nodes: Dict[str, NodeInfo] = cluster.nodes
         self.queues: Dict[str, QueueInfo] = cluster.queues
-        self.columns = cache.columns
+        self.exclusive = exclusive
+        # the cache's ColumnStore; None for an isolated session, whose
+        # clones are not column-bound
+        self.columns = cache.columns if exclusive else None
         # every task Pipelined / set ALLOCATED this session — reverted at
         # close unless it became durable (the reference's clone takes such
         # state to the grave)
@@ -156,7 +174,8 @@ class Session:
         else:
             at_open = self.pod_group_status_at_open
             for job in self.jobs.values():
-                _clear_fit_state(job)
+                if exclusive:
+                    _clear_fit_state(job)  # a clone starts clean
                 pg = job.pod_group
                 if pg is not None:
                     at_open[job.uid] = (pg.phase, pg.running, pg.failed, pg.succeeded)
@@ -177,6 +196,8 @@ class Session:
         # the StatusFlush a staged close returned (close_session), kept so
         # a close whose own finally raised after the stage loses nothing
         self.staged_flush = None
+        # an isolated open's cache.snapshot() wall ms (0 when exclusive)
+        self.clone_ms = 0.0
 
     def drop_job(self, uid: str) -> None:
         del self.jobs[uid]
@@ -202,9 +223,10 @@ class Session:
             return self._total_alloc_cache
         cols = self.columns
         total = self.spec.empty()
-        # the session's nodes are exactly the Ready rows; a mismatch falls
-        # back to the object loop
-        if len(self.nodes) > 64 and int(cols.n_valid.sum()) == len(self.nodes):
+        # the session's nodes are exactly the Ready rows; a mismatch (or an
+        # isolated session) takes the object loop
+        if (cols is not None and len(self.nodes) > 64
+                and int(cols.n_valid.sum()) == len(self.nodes)):
             total.vec = cols.n_alloc[cols.n_valid].sum(axis=0)
         else:
             for node in self.nodes.values():
@@ -215,6 +237,17 @@ class Session:
     # ---- registration (session_plugins.go:25-97) ------------------------
     def add_fn(self, kind: str, plugin_name: str, fn: Callable) -> None:
         self._fns.setdefault(kind, {})[plugin_name] = fn
+
+    def add_score_row(self, name: str, fn: Callable, weight: float = 1.0) -> None:
+        """Register a device score row: ``fn(snap) -> [T, N]`` float32 on
+        the snapshot's device, summed into the solve's score plane with
+        ``weight`` — the NodeOrderFn / BatchNodeOrderFn surface
+        (session_plugins.go:392-492) at the tensor level.  A plugin whose
+        policy also matters on the host replay paths registers a host
+        scorer through ``add_fn(NODE_ORDER, ...)`` too.  Use a module-level
+        function."""
+        self.score_weights = self.score_weights._replace(
+            extra_rows=self.score_weights.extra_rows + ((name, fn, weight),))
 
     def add_event_handler(self, handler: EventHandler) -> None:
         self.event_handlers.append(handler)
@@ -360,6 +393,16 @@ class Session:
             if fn is not None:
                 fn(Event(task))
 
+    def fire_batch_allocations(self, job: JobInfo, tasks, total_resreq) -> None:
+        """Allocate events for ``tasks`` (all of ``job``): one call per
+        handler with the batch form, per-task events for the others."""
+        for eh in self.event_handlers:
+            if eh.batch_allocate_func is not None:
+                eh.batch_allocate_func(job, tasks, total_resreq)
+            elif eh.allocate_func is not None:
+                for t in tasks:
+                    eh.allocate_func(Event(t))
+
     def fire_columnar_allocations(self, cols, job_sums) -> None:
         """One vectorized allocate-event pass for the whole replay."""
         for eh in self.event_handlers:
@@ -369,7 +412,8 @@ class Session:
     def all_handlers_columnar(self) -> bool:
         """Every handler with allocate-side effects has the columnar form —
         the allocate replay's gate for its vectorized path."""
-        return all(eh.columnar_allocate_func is not None or eh.allocate_func is None
+        return all(eh.columnar_allocate_func is not None
+                   or (eh.allocate_func is None and eh.batch_allocate_func is None)
                    for eh in self.event_handlers)
 
     def _place(self, task: TaskInfo, hostname: str, status: TaskStatus) -> None:
@@ -422,7 +466,7 @@ class Session:
                 and condition.transition_id == self.uid):
             self.unschedulable_marked.add(job.uid)
         cols = self.columns
-        if job._cols is cols and job._row >= 0:
+        if cols is not None and job._cols is cols and job._row >= 0:
             # conditions feed the close pass's need-record set and its
             # touched-row visit: the delta close must see this write
             cols.j_has_conds[job._row] = True
@@ -518,12 +562,17 @@ def _clear_fit_state(job: JobInfo) -> None:
 
 # ---- session lifecycle (framework/framework.go:30-62) -------------------
 
-def open_session(cache, tiers: List[Tier], device=None) -> Session:
-    """Open an exclusive scheduling session: take the cache's gate, view
-    its live objects, sync the column job rows, run every plugin's
-    OnSessionOpen, then drop gang-invalid jobs, marking them Unschedulable
-    (session.go:107-124).  ``device`` is where the session's device
-    programs run (None means CUDA; see ``kube_batch_tpu_torch.device``).
+def open_session(cache, tiers: List[Tier], device=None,
+                 isolated: bool = False) -> Session:
+    """Open a scheduling session: by default an exclusive one — take the
+    cache's gate, view its live objects, sync the column job rows — then
+    run every plugin's OnSessionOpen and drop gang-invalid jobs, marking
+    them Unschedulable (session.go:107-124).  ``device`` is where the
+    session's device programs run (None means CUDA; see
+    ``kube_batch_tpu_torch.device``).  ``isolated=True`` is the reference's
+    deep-cloned session (``cache.snapshot()``): no gate, no column rows,
+    the objects' branches throughout, and nothing of the session's own
+    state reaches the cache — what-if callers inspect it freely.
 
     The open is incremental when churn allows: with the delta enabled, a
     valid open cache, no queue or priority-class change and at most
@@ -535,6 +584,14 @@ def open_session(cache, tiers: List[Tier], device=None) -> Session:
     from kube_batch_tpu_torch.framework.interface import get_plugin_builder
 
     dev = resolve_device(device)
+    if isolated:
+        t0 = time.perf_counter()
+        cluster = cache.snapshot()
+        clone_ms = (time.perf_counter() - t0) * 1e3
+        ssn = Session(cache, cluster, tiers, dev, exclusive=False)
+        ssn.clone_ms = clone_ms
+        _open_plugins_and_gate(ssn, tiers, get_plugin_builder)
+        return ssn
     cache.begin_exclusive_session()
     oc = cache.open_cache
     try:
@@ -569,46 +626,7 @@ def open_session(cache, tiers: List[Tier], device=None) -> Session:
         else:
             cols.sync_session_rows(ssn)
         ssn.rows_synced = True
-        for tier in tiers:
-            for opt in tier.plugins:
-                plugin = get_plugin_builder(opt.name)(opt.arguments)
-                ssn.plugins.append(plugin)
-                plugin.on_session_open(ssn)
-        # the gang-validity gate, after the plugins registered their
-        # JobValid fns.  When gang is the only voter its verdict IS the
-        # count compare, so one counts-matrix expression finds the
-        # (normally sparse) invalid set and only those jobs take the full
-        # dispatch for their reason string.
-        valid_voters = set(ssn._fns.get(JOB_VALID, {}))
-        if valid_voters <= {"gang"} and ssn.jobs:
-            gate_jobs = []
-            if valid_voters:
-                rows, jobs_list = ssn.session_rows()
-                valid_num = cols.j_counts[rows][:, VALID_STATUSES].sum(axis=1)
-                gate_jobs = [(jobs_list[i].uid, jobs_list[i])
-                             for i in np.flatnonzero(valid_num < cols.j_min[rows])]
-        else:
-            gate_jobs = list(ssn.jobs.items())
-        dropped_rows = set()
-        for uid, job in gate_jobs:
-            reason = ssn.job_valid(job)
-            if reason is not None:
-                ssn.update_job_condition(job, PodGroupCondition(
-                    type="Unschedulable",
-                    status="True",
-                    transition_id=ssn.uid,
-                    reason="NotEnoughPods",
-                    message=reason,
-                ))
-                cache.record_job_status_event(job)
-                ssn.gate_dropped_jobs.append(job)
-                ssn.drop_job(uid)
-                if job._cols is cols and job._row >= 0:
-                    # the dropped job leaves the snapshot too; its row is
-                    # kept so the next delta open re-admits it to the vote
-                    cols.j_sess[job._row] = False
-                    dropped_rows.add(job._row)
-        oc.gate_dropped_rows = dropped_rows
+        oc.gate_dropped_rows = _open_plugins_and_gate(ssn, tiers, get_plugin_builder)
     except BaseException:
         # a half-opened session may have consumed dirty marks without
         # refreshing the open cache: the next open rebuilds from scratch
@@ -617,6 +635,80 @@ def open_session(cache, tiers: List[Tier], device=None) -> Session:
         cache.end_exclusive_session()
         raise
     return ssn
+
+
+def _open_plugins_and_gate(ssn: Session, tiers: List[Tier], get_plugin_builder) -> set:
+    """Run every plugin's OnSessionOpen, then the gang-validity gate
+    (session.go:107-124), after the plugins registered their JobValid fns.
+    Returns the column rows the gate dropped.  In a column session where
+    gang is the only voter its verdict IS the count compare, so one
+    counts-matrix expression finds the (normally sparse) invalid set and
+    only those jobs take the full dispatch for their reason string."""
+    for tier in tiers:
+        for opt in tier.plugins:
+            plugin = get_plugin_builder(opt.name)(opt.arguments)
+            ssn.plugins.append(plugin)
+            plugin.on_session_open(ssn)
+    cols = ssn.columns
+    valid_voters = set(ssn._fns.get(JOB_VALID, {}))
+    if cols is not None and ssn.rows_synced and valid_voters <= {"gang"} and ssn.jobs:
+        gate_jobs = []
+        if valid_voters:
+            rows, jobs_list = ssn.session_rows()
+            valid_num = cols.j_counts[rows][:, VALID_STATUSES].sum(axis=1)
+            gate_jobs = [(jobs_list[i].uid, jobs_list[i])
+                         for i in np.flatnonzero(valid_num < cols.j_min[rows])]
+    else:
+        gate_jobs = list(ssn.jobs.items())
+    dropped_rows = set()
+    for uid, job in gate_jobs:
+        reason = ssn.job_valid(job)
+        if reason is not None:
+            ssn.update_job_condition(job, PodGroupCondition(
+                type="Unschedulable",
+                status="True",
+                transition_id=ssn.uid,
+                reason="NotEnoughPods",
+                message=reason,
+            ))
+            ssn.cache.record_job_status_event(job)
+            ssn.gate_dropped_jobs.append(job)
+            ssn.drop_job(uid)
+            if cols is not None and job._cols is cols and job._row >= 0:
+                # the dropped job leaves the snapshot too; its row is kept
+                # so the next delta open re-admits it to the vote
+                cols.j_sess[job._row] = False
+                dropped_rows.add(job._row)
+    return dropped_rows
+
+
+def job_status(ssn: Session, job: JobInfo) -> None:
+    """Derive and set the PodGroup phase and counts (session.go:151-189):
+    the object form of the close's columnar pass.  A shadow PodGroup (made
+    for a plain pod, cache/util.go:42-60) carries no durable phase."""
+    pg = job.pod_group
+    if pg is None:
+        return
+    if pg.shadow:
+        pg.running = len(job.task_status_index.get(TaskStatus.RUNNING, {}))
+        pg.failed = len(job.task_status_index.get(TaskStatus.FAILED, {}))
+        pg.succeeded = len(job.task_status_index.get(TaskStatus.SUCCEEDED, {}))
+        return
+    unschedulable = any(c.type == "Unschedulable" and c.status == "True"
+                        and c.transition_id == ssn.uid for c in pg.conditions)
+    running = len(job.task_status_index.get(TaskStatus.RUNNING, {}))
+    if running and unschedulable:
+        pg.phase = PodGroupPhase.UNKNOWN
+    else:
+        allocated = job.task_num(TaskStatus.BOUND, TaskStatus.BINDING,
+                                 TaskStatus.RUNNING, TaskStatus.ALLOCATED)
+        if allocated >= pg.min_member:
+            pg.phase = PodGroupPhase.RUNNING
+        elif pg.phase != PodGroupPhase.INQUEUE:
+            pg.phase = PodGroupPhase.PENDING
+    pg.running = running
+    pg.failed = len(job.task_status_index.get(TaskStatus.FAILED, {}))
+    pg.succeeded = len(job.task_status_index.get(TaskStatus.SUCCEEDED, {}))
 
 
 def _mark_releasing(ssn: Session, task: TaskInfo) -> None:
@@ -686,7 +778,10 @@ def _close_status_columnar(ssn: Session):
                      + jc[rows_all, int(TaskStatus.ALLOCATED)]) > 0)
                  | (phase_codes == PHASE_CODE[PodGroupPhase.PENDING])
                  | (phase_codes == PHASE_CODE[PodGroupPhase.UNKNOWN])
-                 | cols.j_has_conds[rows_all])
+                 | cols.j_has_conds[rows_all]
+                 # PDB jobs with Pending tasks report every close
+                 | (~cols.j_has_pg[rows_all] & cols.j_pdb[rows_all]
+                    & (jc[rows_all, int(TaskStatus.PENDING)] > 0)))
         rows = rows_all[visit]
     else:
         rows = rows_all
@@ -695,7 +790,9 @@ def _close_status_columnar(ssn: Session):
     running_l = counts[:, int(TaskStatus.RUNNING)].tolist()
     failed_l = counts[:, int(TaskStatus.FAILED)].tolist()
     succ_l = counts[:, int(TaskStatus.SUCCEEDED)].tolist()
-    # phase derives from pg.min_member (session.go:151-189)
+    pending_l = counts[:, int(TaskStatus.PENDING)].tolist()
+    # phase derives from pg.min_member, not job.min_available, which a PDB
+    # overwrites on a job that has both (session.go:151-189)
     alloc_l = (counts[:, int(TaskStatus.BOUND)] + counts[:, int(TaskStatus.BINDING)]
                + counts[:, int(TaskStatus.RUNNING)]
                + counts[:, int(TaskStatus.ALLOCATED)]).tolist()
@@ -710,8 +807,14 @@ def _close_status_columnar(ssn: Session):
     updates = []
     rows_l = rows.tolist()
     j_phase = cols.j_phase
+    record_event = ssn.cache.record_job_status_event
     for i, job in enumerate(jobs_list):
         pg = job.pod_group
+        if pg is None:
+            # a PDB-defined job: events only (job_updater.go:108-111)
+            if job.pdb is not None and pending_l[i]:
+                record_event(job)
+            continue
         r, f, s = running_l[i], failed_l[i], succ_l[i]
         if pg.shadow:
             # synthesized groups carry no durable phase; changed counts
@@ -791,7 +894,31 @@ def close_session(ssn: Session, stage_flush: bool = False):
     try:
         for plugin in ssn.plugins:
             plugin.on_session_close(ssn)
-        if ssn.jobs:
+        if ssn.columns is None:
+            # an isolated session: the per-job object pass, each PodGroup's
+            # derived status copied onto the cache's own
+            qcounts: Dict[str, dict] = {}
+            for job in ssn.jobs.values():
+                if job.pod_group is None:
+                    # PDB-defined jobs: events only (job_updater.go:108-111;
+                    # unschedulable while tasks stay Pending, cache.go:699)
+                    if job.pdb is not None and job.task_status_index.get(
+                            TaskStatus.PENDING):
+                        ssn.cache.record_job_status_event(job)
+                    continue
+                job_status(ssn, job)
+                pg = job.pod_group
+                if not pg.shadow and pg.phase is not None:
+                    qc = qcounts.setdefault(job.queue, queue_phase_counts())
+                    qc[pg.phase.value.lower()] += 1
+                ssn.cache.update_job_status(
+                    job, prev_status=ssn.pod_group_status_at_open.get(job.uid))
+            _count_gate_dropped(ssn, qcounts)
+            if stage_flush:
+                flush = ssn.staged_flush = ssn.cache.stage_status_flush((), qcounts)
+            else:
+                ssn.cache.update_queue_statuses(qcounts)
+        elif ssn.jobs:
             updates, qcounts = _close_status_columnar(ssn)
             flush = ssn.staged_flush = ssn.cache.stage_status_flush(updates, qcounts)
             if not stage_flush:
@@ -806,18 +933,20 @@ def close_session(ssn: Session, stage_flush: bool = False):
             else:
                 ssn.cache.update_queue_statuses(qcounts)
     finally:
-        # Pipelined placements exist only inside a session, and a task
-        # still ALLOCATED belongs to a job that never turned ready: both
-        # revert, so they leak no accounting onto the cache
-        _revert_residue(ssn, ssn.pipelined_tasks, TaskStatus.PIPELINED,
-                        release_volumes=False)
-        _revert_residue(ssn, ssn.allocated_tasks, TaskStatus.ALLOCATED,
-                        release_volumes=True)
-        if not stage_flush:
-            # the binder acks land before the deferred ingest applies: a
-            # deferred pod update must see this cycle's bindings
-            ssn.cache.flush_binds()
-        ssn.cache.end_exclusive_session()
+        if ssn.exclusive:
+            # Pipelined placements exist only inside a session, and a task
+            # still ALLOCATED belongs to a job that never turned ready: both
+            # revert, so they leak no accounting onto the cache (an isolated
+            # session's clones just die)
+            _revert_residue(ssn, ssn.pipelined_tasks, TaskStatus.PIPELINED,
+                            release_volumes=False)
+            _revert_residue(ssn, ssn.allocated_tasks, TaskStatus.ALLOCATED,
+                            release_volumes=True)
+            if not stage_flush:
+                # the binder acks land before the deferred ingest applies: a
+                # deferred pod update must see this cycle's bindings
+                ssn.cache.flush_binds()
+            ssn.cache.end_exclusive_session()
         ssn.jobs = {}
         ssn.nodes = {}
         ssn.queues = {}

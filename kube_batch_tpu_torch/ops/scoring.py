@@ -1,8 +1,9 @@
 """Node scoring — the NodeOrderFn tier as additive [T, N] score rows.
 
 Mirrors ``kube_batch_tpu/ops/scoring.py``: least-requested,
-balanced-resource, binpack and the sparse preferred-affinity rows, summed
-under ``ScoreWeights`` (session_plugins.go:392-412).  The two semantic
+balanced-resource, binpack, the sparse preferred-affinity rows and the
+custom rows registered through ``Session.add_score_row``, summed under
+``ScoreWeights`` (session_plugins.go:392-412).  The two semantic
 columns (cpu, memory) are unrolled, so the largest intermediate is [T, N];
 the arithmetic is the JAX package's, operation for operation, so the f32
 scores are equal.
@@ -22,8 +23,15 @@ MAX_PRIORITY = 10.0
 class ScoreWeights(NamedTuple):
     """Per-row weights (nodeorder.go:34-43 plus binpack).
 
-    ``extra_rows`` is the JAX package's custom score-row seam; the port
-    does not carry it yet and :func:`score_matrix` raises if it is set."""
+    ``extra_rows`` is the score-row extension seam (the reference's
+    NodeOrderFn / BatchNodeOrderFn registration, session_plugins.go:392-492):
+    a tuple of ``(name, fn, weight)``, where ``fn(snap) -> [T, N]`` float32
+    on the snapshot's device is summed like the built-in rows.  ``snap`` may
+    be the compacted solve's row-gathered view, so a row reads its task
+    count from ``snap.task_req``.  Register through
+    ``Session.add_score_row``, with a module-level function: the row set is
+    part of the solve's configuration, and a custom row turns the warm
+    carry and the replay's columnar host placement off."""
 
     least_requested: float = 1.0
     balanced_resource: float = 1.0
@@ -89,10 +97,6 @@ def pod_affinity_preferred(snap: DeviceSnapshot) -> torch.Tensor:
 
 def score_matrix(snap: DeviceSnapshot, w: ScoreWeights) -> torch.Tensor:
     """Σ_k weight_k · row_k — Session.NodeOrderFn (session_plugins.go:392-412)."""
-    if w.extra_rows:
-        raise NotImplementedError(
-            "custom score rows (ScoreWeights.extra_rows) are not ported yet"
-        )
     s = torch.zeros((snap.task_req.shape[0], snap.node_alloc.shape[0]),
                     dtype=torch.float32, device=snap.task_req.device)
     if w.least_requested:
@@ -105,4 +109,7 @@ def score_matrix(snap: DeviceSnapshot, w: ScoreWeights) -> torch.Tensor:
         s = s + w.node_affinity * node_affinity_preferred(snap)
     if w.pod_affinity:
         s = s + w.pod_affinity * pod_affinity_preferred(snap)
+    for _name, fn, weight in w.extra_rows:
+        if weight:
+            s = s + weight * fn(snap)
     return s

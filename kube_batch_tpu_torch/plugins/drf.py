@@ -1,11 +1,12 @@
 """drf plugin (plugins/drf/drf.go) — dominant-resource fairness per job.
 
-Mirrors ``kube_batch_tpu/plugins/drf.py`` in its columnar form: registers
+Mirrors ``kube_batch_tpu/plugins/drf.py``: registers
 Preemptable (the preemptor's share after allocation must stay at or below
 the victim job's share after eviction), JobOrder (lower share first), and
 event handlers keeping each job's allocated resources current through the
 session (drf.go:135-154).  The device solve orders jobs by the same shares
-(ops/ordering.py).
+(ops/ordering.py).  A column session seeds the shares from one copy of
+the job ledger matrix; an isolated session from each job's ledger.
 """
 
 from __future__ import annotations
@@ -54,14 +55,20 @@ class DrfPlugin(Plugin):
 
     def on_session_open(self, ssn: fw.Session) -> None:
         self.total = ssn.total_allocatable().clone()
-        # one matrix copy seeds every job's allocated state; attrs are built
-        # lazily on first read, wrapping rows zero-copy
-        self._arr = ssn.columns.j_alloc.copy()
+        cols = ssn.columns
+        if cols is not None:
+            # one matrix copy seeds every job's allocated state; attrs are
+            # built lazily on first read, wrapping rows zero-copy
+            self._arr = cols.j_alloc.copy()
+        else:
+            # an isolated session: job.allocated IS the allocated tasks' sum
+            for job in ssn.jobs.values():
+                self.job_attrs[job.uid] = _JobAttr(job.allocated.clone())
         wrap = ssn.spec.wrap_vec
 
         def attr_for(uid: str):
             attr = self.job_attrs.get(uid)
-            if attr is None:
+            if attr is None and self._arr is not None:
                 job = ssn.jobs.get(uid)
                 if job is not None and job._row >= 0:
                     attr = self.job_attrs[uid] = _JobAttr(wrap(self._arr[job._row]))
@@ -111,6 +118,13 @@ class DrfPlugin(Plugin):
                 attr.allocated.sub_(event.task.resreq)
                 attr._dirty = True
 
+        def on_batch_allocate(job: JobInfo, tasks, total_resreq) -> None:
+            # linear in resreq: one presummed add per job
+            attr = attr_for(job.uid)
+            if attr is not None:
+                attr.allocated.add_(total_resreq)
+                attr._dirty = True
+
         def on_columnar_allocate(cols, job_sums) -> None:
             # one matrix add for the whole replay
             self._arr += job_sums
@@ -120,7 +134,9 @@ class DrfPlugin(Plugin):
         ssn.add_fn(fw.JOB_ORDER, self.name, job_order)
         ssn.add_event_handler(fw.EventHandler(
             allocate_func=on_allocate, deallocate_func=on_deallocate,
-            columnar_allocate_func=on_columnar_allocate))
+            batch_allocate_func=on_batch_allocate,
+            columnar_allocate_func=(on_columnar_allocate
+                                    if self._arr is not None else None)))
 
     def on_session_close(self, ssn: fw.Session) -> None:
         self.total = None

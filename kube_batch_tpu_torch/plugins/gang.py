@@ -69,17 +69,22 @@ class GangPlugin(Plugin):
         ssn.add_fn(fw.JOB_PIPELINED, self.name, lambda job: job.pipelined())
 
     def on_session_close(self, ssn: fw.Session) -> None:
-        """(gang.go:132-175) mark still-unready jobs Unschedulable.  One
-        counts-matrix expression finds the (normally sparse) unready set."""
+        """(gang.go:132-175) mark still-unready jobs Unschedulable.  In a
+        column session one counts-matrix expression finds the (normally
+        sparse) unready set."""
         if not ssn.jobs:
             return
         cols = ssn.columns
-        rows, jobs_list = ssn.session_rows()
-        counts = cols.j_counts[rows]
-        ready = counts[:, READY_STATUSES].sum(axis=1) >= cols.j_min[rows]
-        has_tasks = counts.sum(axis=1) > 0
-        for i in np.flatnonzero(~ready & has_tasks):
-            job = jobs_list[i]
+        if cols is not None and ssn.rows_synced:
+            rows, jobs_list = ssn.session_rows()
+            counts = cols.j_counts[rows]
+            ready = counts[:, READY_STATUSES].sum(axis=1) >= cols.j_min[rows]
+            has_tasks = counts.sum(axis=1) > 0
+            candidates = [jobs_list[i] for i in np.flatnonzero(~ready & has_tasks)]
+        else:
+            candidates = [job for job in ssn.jobs.values()
+                          if not job.ready() and job.tasks]
+        for job in candidates:
             fit_errors = [fe.error() for fe in job.nodes_fit_errors.values()]
             message = job.fit_error() + (f"; {fit_errors[0]}" if fit_errors else "")
             job.job_fit_errors = message  # read by record_job_status_event

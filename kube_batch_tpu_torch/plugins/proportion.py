@@ -63,26 +63,40 @@ class ProportionPlugin(Plugin):
     def on_session_open(self, ssn: fw.Session) -> None:
         spec = ssn.spec
         self.total = ssn.total_allocatable().clone()
-        # queue attrs are one segment sum over the job ledger matrices of
-        # the synced session rows (proportion.go:67-99)
         cols = ssn.columns
-        rows = np.flatnonzero(cols.j_sess)
-        qrows = cols.j_queue[rows]
-        capQ = cols.queues.cap
-        alloc_m = np.zeros((capQ, spec.n))
-        request_m = np.zeros((capQ, spec.n))
-        np.add.at(alloc_m, qrows, cols.j_alloc[rows])
-        np.add.at(request_m, qrows, cols.j_alloc[rows] + cols.j_pend[rows])
-        self._qalloc, self._jq_rows, self._jq_vals = alloc_m, rows, qrows
-        wrap = spec.wrap_vec
-        for qi in np.unique(qrows).tolist():
-            qinfo = ssn.queues.get(cols.queue_names[qi])
-            if qinfo is None:
-                continue
-            attr = _QueueAttr(qinfo, spec)
-            attr.allocated = wrap(alloc_m[qi])
-            attr.request = wrap(request_m[qi])
-            self.queue_attrs[qinfo.name] = attr
+        if cols is not None and ssn.rows_synced:
+            # queue attrs are one segment sum over the job ledger matrices
+            # of the synced session rows (proportion.go:67-99)
+            rows = np.flatnonzero(cols.j_sess)
+            qrows = cols.j_queue[rows]
+            capQ = cols.queues.cap
+            alloc_m = np.zeros((capQ, spec.n))
+            request_m = np.zeros((capQ, spec.n))
+            np.add.at(alloc_m, qrows, cols.j_alloc[rows])
+            np.add.at(request_m, qrows, cols.j_alloc[rows] + cols.j_pend[rows])
+            self._qalloc, self._jq_rows, self._jq_vals = alloc_m, rows, qrows
+            wrap = spec.wrap_vec
+            for qi in np.unique(qrows).tolist():
+                qinfo = ssn.queues.get(cols.queue_names[qi])
+                if qinfo is None:
+                    continue
+                attr = _QueueAttr(qinfo, spec)
+                attr.allocated = wrap(alloc_m[qi])
+                attr.request = wrap(request_m[qi])
+                self.queue_attrs[qinfo.name] = attr
+        else:
+            # an isolated session: queue attrs from the session's jobs,
+            # request = allocated + pending off each job's ledgers
+            for job in ssn.jobs.values():
+                if job.queue not in ssn.queues:
+                    continue
+                attr = self.queue_attrs.get(job.queue)
+                if attr is None:
+                    attr = self.queue_attrs[job.queue] = _QueueAttr(
+                        ssn.queues[job.queue], spec)
+                attr.allocated.add_(job.allocated)
+                attr.request.add_(job.allocated)
+                attr.request.add_(job.pending_request)
         self._waterfill(spec)
 
         def queue_order(l: QueueInfo, r: QueueInfo) -> int:
@@ -152,6 +166,13 @@ class ProportionPlugin(Plugin):
                 attr.allocated.sub_(event.task.resreq)
                 attr._dirty = True
 
+        def on_batch_allocate(job: JobInfo, tasks, total_resreq) -> None:
+            # linear in resreq: one presummed add per job
+            if job.queue in self.queue_attrs:
+                attr = self.queue_attrs[job.queue]
+                attr.allocated.add_(total_resreq)
+                attr._dirty = True
+
         def on_columnar_allocate(cols, job_sums) -> None:
             # one segment sum for the whole replay
             np.add.at(self._qalloc, self._jq_vals, job_sums[self._jq_rows])
@@ -163,7 +184,9 @@ class ProportionPlugin(Plugin):
         ssn.add_fn(fw.JOB_ENQUEUEABLE, self.name, job_enqueueable)
         ssn.add_event_handler(fw.EventHandler(
             allocate_func=on_allocate, deallocate_func=on_deallocate,
-            columnar_allocate_func=on_columnar_allocate))
+            batch_allocate_func=on_batch_allocate,
+            columnar_allocate_func=(on_columnar_allocate
+                                    if self._qalloc is not None else None)))
 
     def _waterfill(self, spec) -> None:
         """Deserved by weighted max-min (proportion.go:101-154)."""

@@ -11,6 +11,8 @@
     python -m kube_batch_tpu_torch.testing.cycle_drive --loop
         [--tasks 50000] [--nodes 5000] [--feed 20] [--period 1.0]
         [--device ...]
+    python -m kube_batch_tpu_torch.testing.cycle_drive --features
+        [--tasks 50000] [--nodes 5000] [--device ...]
 
 The first two drives run three cycles of ``Scheduler.run_once`` under
 the shipped five-action conf (``enqueue, reclaim, allocate, backfill,
@@ -81,6 +83,16 @@ that every arrival was bound exactly once and that ``stop()`` drained
 (an empty staging buffer, the writeback joined), and counts the kernel
 launches of the loop's run (the warmup's excluded).
 
+The feature drive (:func:`drive_features`) builds the headline cluster
+with PodDisruptionBudget gangs, claims on a PV ledger and on missing PVs
+(``synthetic_cluster``'s feature options), adds a custom score row
+(:func:`rack_affinity_row`, through a plugin's ``add_score_row``) to the
+shipped conf, and runs two exclusive cycles and one isolated
+(:func:`isolated_cycle`) with new PDB gangs, claims and plain gangs
+arrived for it to place; it checks the PDB gangs and the PV ledger after
+each (:func:`feature_checks`) and can hold K1 and K2 against their plain
+versions on cycle 1's plane (:func:`hold_kernels`).
+
 After each cycle the drive checks the column store against the object
 model, every node's ``idle ≥ −quanta`` and ``used ≤ allocatable +
 quanta``, that no pod was bound twice, and the evictions: every evicted
@@ -132,17 +144,21 @@ from kube_batch_tpu_torch.api.snapshot import DeviceSnapshot
 from kube_batch_tpu_torch.api.types import PodGroupPhase, PodPhase, TaskStatus
 from kube_batch_tpu_torch.cache.fake import FakeBinder
 from kube_batch_tpu_torch.framework.conf import load_scheduler_conf, shipped_conf_path
+from kube_batch_tpu_torch.framework.interface import Plugin
 from kube_batch_tpu_torch.ops import kernels
 from kube_batch_tpu_torch.scheduler import Scheduler
 from kube_batch_tpu_torch.testing.synthetic import (
     CPU_CHOICES,
     MEM_CHOICES,
+    NODE_CPU,
     synthetic_cluster,
     synthetic_overcommit_cluster,
 )
 
 GANG = 4
 N_QUEUES = 3
+#: the feature drive's cycles: two exclusive, then one isolated
+FEATURE_PLAN = ("exclusive", "exclusive", "isolated")
 #: the switches of the four cross-cycle mechanisms (delta open, resident
 #: snapshot, delta close, warm candidate-table carry); all "0" is the oracle
 ORACLE_SWITCHES = ("KB_SNAPSHOT_DELTA", "KB_DEVICE_CACHE", "KB_DELTA_CLOSE",
@@ -262,6 +278,35 @@ def kubelet(cache, evicted: List[str]) -> Dict[str, int]:
     return {"evicted_deleted": deleted, "started_running": len(started)}
 
 
+def isolated_cycle(sched, stages: Dict[str, float] = None):
+    """One cycle of ``sched``'s actions in an isolated session
+    (``open_session(..., isolated=True)``: ``cache.snapshot()`` clones, the
+    objects' branches, the object snapshot), closed and its binds joined,
+    the counterpart of the JAX package's isolated session driven the same
+    way.  ``stages`` receives the wall ms of open (the clone included),
+    clone, each action and close.  Returns the closed session."""
+    from kube_batch_tpu_torch.framework.session import close_session, open_session
+
+    cache = sched.cache
+    t0 = time.perf_counter()
+    ssn = open_session(cache, sched.conf.tiers, sched.device, isolated=True)
+    ssn.action_names = [a.name for a in sched.actions]
+    if stages is not None:
+        stages["open"] = (time.perf_counter() - t0) * 1e3
+        stages["clone"] = ssn.clone_ms
+    for action in sched.actions:
+        ta = time.perf_counter()
+        action.execute(ssn)
+        if stages is not None:
+            stages["action:" + action.name] = (time.perf_counter() - ta) * 1e3
+    tc = time.perf_counter()
+    close_session(ssn)
+    cache.flush_binds()
+    if stages is not None:
+        stages["close"] = (time.perf_counter() - tc) * 1e3
+    return ssn
+
+
 def add_arrivals(cache, n_pods: int, seed: int, tag: str) -> None:
     """``n_pods`` pending pods in new gangs of 4 over the cluster's
     queues, requests drawn like ``synthetic_cluster``'s; each PodGroup
@@ -284,6 +329,44 @@ def add_arrivals(cache, n_pods: int, seed: int, tag: str) -> None:
             requests={"cpu": float(cpu[i]), "memory": float(mem[i])},
             annotations={GROUP_NAME_ANNOTATION: f"{tag}{i // GANG}"},
             phase=PodPhase.PENDING, creation_index=10**6 + i))
+
+
+def add_feature_arrivals(cache, n_pods: int, seed: int, tag: str) -> None:
+    """``n_pods`` pending pods in new gangs of 4 carrying the feature
+    drive's inputs, requests drawn like ``synthetic_cluster``'s: every
+    fourth gang (from the first) is defined by a PodDisruptionBudget
+    (owner-linked pods in the default queue, every second of these with a
+    member asking for twice a node's cpu, so it binds nothing); the gang
+    after each PDB gang claims one new wildcard PV per pod from the
+    cache's ledger; the rest are plain PodGroup gangs."""
+    from kube_batch_tpu_torch.api.pod import PersistentVolume, PodDisruptionBudget
+
+    rng = np.random.default_rng(seed)
+    queues = sorted(q for q in cache.queues if q != cache.default_queue)
+    cpu = rng.choice(CPU_CHOICES, n_pods)
+    mem = rng.choice(MEM_CHOICES, n_pods)
+    for j in range(-(-n_pods // GANG)):
+        lo, hi = j * GANG, min((j + 1) * GANG, n_pods)
+        pdb, claims = j % 4 == 0, j % 4 == 1
+        if pdb:
+            cache.add_pdb(PodDisruptionBudget(
+                name=f"{tag}pdb{j}", namespace="bench", min_available=hi - lo,
+                owner=f"rs-{tag}{j}", creation_index=10**6 + j))
+        else:
+            cache.add_pod_group(PodGroup(
+                name=f"{tag}{j}", namespace="bench", min_member=hi - lo,
+                queue=queues[j % len(queues)], creation_index=10**6 + j))
+        for i in range(lo, hi):
+            if claims:
+                cache.volume_binder.add_pv(PersistentVolume(name=f"pv-{tag}{i}"))
+            cache.add_pod(Pod(
+                name=f"{tag}-t{i}", namespace="bench",
+                requests={"cpu": 2 * NODE_CPU if pdb and j % 8 == 4 and i == lo
+                          else float(cpu[i]), "memory": float(mem[i])},
+                annotations={} if pdb else {GROUP_NAME_ANNOTATION: f"{tag}{j}"},
+                owner=f"rs-{tag}{j}" if pdb else None,
+                phase=PodPhase.PENDING, creation_index=10**6 + i,
+                volume_claims=(f"claim-{tag}{i}",) if claims else ()))
 
 
 def observed(cache) -> dict:
@@ -782,6 +865,241 @@ def _loop_mode(pipelined: bool, n_tasks, n_nodes, offsets, period, seed, device,
                 launches=launches, device=str(sched.device))
 
 
+def rack_affinity_row(snap):
+    """A custom score row of the JAX package's test row's form (a [T, N]
+    preference read off the node index, ``tests/test_allocate_solve.py``
+    ``_prefer_last_node_row``), per task class: a task asking for m GiB of
+    memory prefers the nodes whose index is m modulo 8 (a rack of an
+    eighth of the cluster).  Unlike the test's prefer-the-last-node row it
+    keeps the gangs spread — every task of a round preferring one node
+    would serialize the bidding.  Module level, as
+    ``Session.add_score_row`` asks; it reads only snapshot fields, so the
+    compacted solve's row-gathered view gets the same rows."""
+    N = snap.node_alloc.shape[0]
+    rack = torch.arange(N, device=snap.node_alloc.device) % 8
+    want = (snap.task_req[:, 1] / (2.0 ** 30)).to(torch.int64) % 8
+    return ((rack[None, :] == want[:, None]) & snap.node_valid[None, :]).to(torch.float32)
+
+
+class RackAffinityPlugin(Plugin):
+    """A plugin that registers :func:`rack_affinity_row` (weight 1, beside
+    the built-in 0..10 rows) on every session."""
+
+    name = "rack-affinity"
+
+    def on_session_open(self, ssn) -> None:
+        ssn.add_score_row("rack-affinity", rack_affinity_row, weight=1.0)
+
+
+def features_conf():
+    """The shipped conf with :class:`RackAffinityPlugin` in its last tier
+    (registered on first use)."""
+    from kube_batch_tpu_torch.framework.conf import PluginOption
+    from kube_batch_tpu_torch.framework.interface import register_plugin_builder
+
+    register_plugin_builder(RackAffinityPlugin.name, RackAffinityPlugin)
+    conf = load_scheduler_conf(shipped_conf_path())
+    conf.tiers[-1].plugins.append(PluginOption(name=RackAffinityPlugin.name))
+    return conf
+
+
+def feature_checks(cache) -> Dict[str, int]:
+    """The PDB gang and PV ledger invariants after a cycle; raises on a
+    violation.  Every PDB gang is bound all or nothing; no PV is reserved
+    or bound twice, and none is reserved after the cycle; every bound pod
+    with a claim sits on a node its PV reaches; no claim on a missing PV
+    is bound."""
+    allocated = (TaskStatus.BINDING, TaskStatus.BOUND, TaskStatus.RUNNING,
+                 TaskStatus.ALLOCATED)
+    pdb_bound = pdb_blocked = 0
+    for uid, job in cache.jobs.items():
+        if job.pdb is None:
+            continue
+        n = job.task_num(*allocated)
+        if 0 < n < job.min_available:
+            fail(f"PDB gang {uid} bound {n} of {job.min_available}")
+        pdb_bound += n >= job.min_available
+        pdb_blocked += n == 0
+    vb = cache.volume_binder
+    bound = list(vb.bound.values())
+    reserved = [pv for res in vb.reservations.values() for pv in res.values()]
+    if len(set(bound)) != len(bound) or set(bound) & set(reserved):
+        fail("a PV is bound twice")
+    if reserved:
+        fail(f"{len(reserved)} PV reservations outlived the cycle")
+    with_claims = impossible = 0
+    for key, node in cache.binder.binds.items():
+        pod = cache.pods.get(key)
+        if pod is None or not pod.volume_claims:
+            continue
+        with_claims += 1
+        for claim in pod.volume_claims:
+            pv = vb.pvs.get(vb.bound.get(claim, ""))
+            if pv is None:
+                fail(f"{key} bound without a PV for {claim}")
+            if not vb._reachable(pv, node):
+                fail(f"{key} bound on {node}, which its PV {pv.name} does not reach")
+    for pod in cache.pods.values():
+        if any(vb.bound.get(c, "").startswith("pv-gone") for c in pod.volume_claims):
+            impossible += 1
+            if pod.key() in cache.binder.binds:
+                fail(f"{pod.key()} bound with a claim on a missing PV")
+    return {"pdb_gangs_bound": pdb_bound, "pdb_gangs_blocked": pdb_blocked,
+            "pvs_bound": len(bound), "bound_pods_with_claims": with_claims,
+            "impossible_claims_unbound": impossible}
+
+
+def hold_kernels(dev, config) -> Dict[str, dict]:
+    """K1 and K2 against their plain versions on a solve's device snapshot
+    ``dev`` and its score plane under ``config.weights`` (custom rows
+    included): K1 over every row, K2 over up to 8 192 pending rows (a
+    compacted cycle's table).
+    Every output must be bit-exact; raises otherwise.  On CPU tensors
+    both sides are the plain versions."""
+    from kube_batch_tpu_torch.ops.feasibility import static_predicates
+    from kube_batch_tpu_torch.ops.kernels import (
+        NEG,
+        masked_best_node_raw_plain,
+        masked_topk_blocks_plain,
+    )
+    from kube_batch_tpu_torch.ops.scoring import score_matrix
+
+    score = score_matrix(dev, config.weights)
+    static_ok = static_predicates(dev)
+    k1_args = (score, static_ok, dev.task_req, dev.node_idle, dev.node_releasing,
+               dev.task_pending, dev.quanta)
+    rows = torch.nonzero(dev.task_pending).flatten()[:8192].to(torch.int32)
+    score_static = torch.where(static_ok, score, NEG)[rows.long()]
+    k2_args = (score_static, dev.task_req[rows.long()], dev.node_idle, dev.node_releasing,
+               rows, dev.quanta)
+    out = {}
+    for name, kernel, plain, args in (
+            ("K1", kernels.masked_best_node_raw, masked_best_node_raw_plain, k1_args),
+            ("K2", kernels.masked_topk_blocks, masked_topk_blocks_plain, k2_args)):
+        got, want = kernel(*args), plain(*args)
+        for i, (g, w) in enumerate(zip(got, want)):
+            if not torch.equal(g, w):
+                fail(f"{name} output {i} differs from its plain version on the plane "
+                     "with the custom row")
+        out[name] = {"shape": list(args[0].shape), "max_abs_err": 0.0}
+    return out
+
+
+def drive_features(n_tasks: int, n_nodes: int, pvc_pods: int, pvc_impossible: int,
+                   pdb_gang_frac: float = 0.05, seed: int = 0, device=None,
+                   hold_first: bool = False, keep_states: bool = False) -> dict:
+    """The feature drive: ``synthetic_cluster(n_tasks, n_nodes,
+    gang_size=4, n_queues=3)`` with ``pdb_gang_frac`` of its gangs defined
+    by PodDisruptionBudgets, ``pvc_pods`` claims on a PV ledger and
+    ``pvc_impossible`` claims on missing PVs, under the shipped conf plus a
+    custom score row (:func:`features_conf`), one cycle per
+    :data:`FEATURE_PLAN` entry: ``Scheduler.run_once`` for "exclusive",
+    :func:`isolated_cycle` for "isolated".  The exclusive cycles bind all
+    that fits, so before the isolated cycle about ``n_tasks / 32`` pods
+    arrive (:func:`add_feature_arrivals`: PDB gangs, claims on new PVs,
+    plain gangs) for its decisions to place.  After every cycle
+    :func:`feature_checks`, the column
+    store, the node ledgers and double binds are checked.  With
+    ``hold_first`` the first cycle's allocate solve input is kept and K1
+    and K2 are held against their plain versions on it
+    (:func:`hold_kernels`), after that cycle's launches were read.  Each
+    cycle records its wall by stage, allocate's phases (``snapshot_build``
+    is the object snapshot on an isolated cycle), the clone ms, binds,
+    the jobs the volume pre-check demoted, kernel launches and (on the
+    card) host syncs; with ``keep_states`` also :func:`observed`, the
+    event record (sorted) and the PV ledger."""
+    from kube_batch_tpu_torch.actions import allocate as allocate_mod
+
+    t = time.perf_counter()
+    cache = synthetic_cluster(n_tasks, n_nodes, gang_size=GANG, n_queues=N_QUEUES, seed=seed,
+                              pdb_gang_frac=pdb_gang_frac, pvc_pods=pvc_pods,
+                              pvc_impossible=pvc_impossible)
+    ingest_s = time.perf_counter() - t
+    sched = Scheduler(cache, conf=features_conf(), device=device)
+    allocate = {a.name: a for a in sched.actions}["allocate"]
+    captured: list = []
+    orig_dispatch = allocate_mod.dispatch_allocate_solve
+
+    def recording(snap, config, **kw):
+        captured.append((snap, config))
+        return orig_dispatch(snap, config, **kw)
+
+    cycles, states, held = [], [], None
+    try:
+        for c, kind in enumerate(FEATURE_PLAN):
+            arrivals = 0
+            if kind == "isolated":
+                arrivals = GANG * max(2, n_tasks // (32 * GANG))
+                add_feature_arrivals(cache, arrivals, seed + 100 + c, "late")
+            binds_before = len(cache.binder.binds)
+            kernels.reset_launches()
+            if hold_first and c == 0:
+                allocate_mod.dispatch_allocate_solve = recording
+            stages: Dict[str, float] = {}
+            gc.collect()
+            gc.disable()
+            try:
+                with count_syncs(sched.device) as seen:
+                    t = time.perf_counter()
+                    if kind == "isolated":
+                        isolated_cycle(sched, stages)
+                    else:
+                        sched.run_once()
+                        stages = dict(sched.last_cycle_ms)
+                    if sched.device.type == "cuda":
+                        torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t) * 1e3
+            finally:
+                gc.enable()
+                allocate_mod.dispatch_allocate_solve = orig_dispatch
+            launches = dict(kernels.launches)
+            errs = cache.columns.check_consistency(cache)
+            if errs:
+                fail(f"features cycle {c + 1}: column store disagrees with objects: {errs[:5]}")
+            inv = node_invariants(cache)
+            if any(inv.values()):
+                fail(f"features cycle {c + 1}: node invariants violated: {inv}")
+            channel = cache.binder.channel
+            if len(set(channel)) != len(channel):
+                fail(f"features cycle {c + 1}: a pod was bound twice")
+            checks = feature_checks(cache)
+            if hold_first and c == 0:
+                if not captured:
+                    fail("features cycle 1: allocate dispatched no solve")
+                held = hold_kernels(*captured[0])
+                captured.clear()
+            cycles.append(dict(
+                cycle=c + 1, session=kind, arrivals=arrivals, wall_ms=wall_ms,
+                stages_ms=stages,
+                clone_ms=stages.get("clone", 0.0),
+                allocate_ms=dict(allocate.last_phase_ms),
+                mode="compacted" if allocate.last_topk is not None else "full",
+                rounds=allocate.last_solve_rounds, warm=allocate.last_warm,
+                new_binds=len(cache.binder.binds) - binds_before,
+                binds=len(cache.binder.binds), evicts=len(cache.evictor.evicts),
+                volume_demoted_jobs=allocate.last_fallback.get("volume_demoted_jobs", 0),
+                fallback=dict(allocate.last_fallback), launches=launches,
+                syncs=seen[0] if sched.device.type == "cuda" else None,
+                checks=checks, invariants=inv))
+            if keep_states:
+                vb = cache.volume_binder
+                states.append(dict(observed(cache), events=sorted(cache.events),
+                                   pv_bound=dict(vb.bound),
+                                   pv_reserved={k: dict(v) for k, v in vb.reservations.items()}))
+    finally:
+        sched.close()
+        cache.stop()
+    if cache.dispatch_failures or cache.resync.parked_total:
+        fail(f"{cache.dispatch_failures} bind dispatches failed, "
+             f"{cache.resync.parked_total} binds or evictions parked for resync")
+    report = dict(device=str(sched.device), ingest_s=ingest_s, cycles=cycles,
+                  shape=[n_tasks, n_nodes], pdb_gang_frac=pdb_gang_frac,
+                  pvc_pods=pvc_pods, pvc_impossible=pvc_impossible, held=held)
+    if keep_states:
+        report["states"] = states
+    return report
+
+
 def drive_guard(n_tasks: int, n_nodes: int, arrivals: int, bundle_dir: str,
                 cooldown: int = 2, seed: int = 0, device=None) -> dict:
     """The guard plane's drive (shipped conf, ``synthetic_cluster(n_tasks,
@@ -952,6 +1270,7 @@ def main() -> None:
     ap.add_argument("--overcommit", action="store_true")
     ap.add_argument("--steady", action="store_true")
     ap.add_argument("--loop", action="store_true")
+    ap.add_argument("--features", action="store_true")
     ap.add_argument("--feed", type=int, default=20)
     ap.add_argument("--period", type=float, default=1.0)
     ap.add_argument("--leg", default="defaults",
@@ -967,7 +1286,12 @@ def main() -> None:
     ap.add_argument("--device", default=None)
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
-    if args.loop:
+    if args.features:
+        # chip_smoke's shares: 4 % of the pods claim a PV, 0.1 % a missing one
+        out = drive_features(args.tasks, args.nodes, round(0.04 * args.tasks),
+                             max(1, round(0.001 * args.tasks)), device=args.device,
+                             hold_first=True)
+    elif args.loop:
         out = drive_loop(args.tasks, args.nodes, args.feed, args.period,
                          device=args.device)
     elif args.steady:

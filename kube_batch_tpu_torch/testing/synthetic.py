@@ -10,7 +10,9 @@ generator's output equals the JAX package's:
     ``gpu_node_frac`` of the nodes carry
   synthetic_cluster, synthetic_overcommit_cluster — a real
     ``SchedulerCache`` built through its ingest handlers, for the whole
-    scheduling cycle
+    scheduling cycle; ``synthetic_cluster`` optionally adds the features
+    the JAX package's generator lacks (PodDisruptionBudget gangs, claims on
+    a PV ledger), drawn from a generator of their own
 """
 
 from __future__ import annotations
@@ -236,39 +238,122 @@ def synthetic_cluster(
     n_queues: int = 2,
     seed: int = 0,
     host_ports_frac: float = 0.0,
+    pdb_gang_frac: float = 0.0,
+    pvc_pods: int = 0,
+    pvc_impossible: int = 0,
 ):
     """A pending synthetic workload through the real cache handlers: gangs
     of ``gang_size`` over ``n_queues`` queues on identical nodes.  A
     ``host_ports_frac`` of the tasks asks for a hostPort from a 64-port
     pool, a host-only constraint that routes their job through the allocate
-    replay's slow path.  Returns the ``SchedulerCache`` (fake binder)."""
-    from kube_batch_tpu_torch.api.pod import GROUP_NAME_ANNOTATION, Node, Pod, PodGroup, Queue
+    replay's slow path.  Returns the ``SchedulerCache`` (fake binder).
+
+    The features below draw from their own generator (seeded from
+    ``seed``), so with all of them off the cluster is the JAX package's:
+
+    - ``pdb_gang_frac`` of the gangs are defined by a PodDisruptionBudget
+      (the legacy gang source): no PodGroup, the pods owned by controller
+      ``rs-pg<j>``, ``min_available`` the gang size, in the ``default``
+      queue (added).  Every fourth such gang has a member asking for twice
+      a node's cpu, so it never fits and must bind nothing.
+    - ``pvc_pods`` pods claim one PersistentVolume each from a
+      ``StandalonePVBinder`` (attached before the nodes, so node ingest
+      feeds it labels) holding as many PVs: half restricted by hostname
+      topology to one node each and pre-bound to their claim (the node
+      carries its ``kubernetes.io/hostname`` label and the pod selects it,
+      as a local-volume user pins the pod), half wildcard.
+    - ``pvc_impossible`` more pods claim PVCs whose durable binding names a
+      PV that does not exist: they can never bind."""
+    from kube_batch_tpu_torch.api.pod import (
+        GROUP_NAME_ANNOTATION,
+        HOSTNAME_TOPOLOGY,
+        Node,
+        PersistentVolume,
+        Pod,
+        PodDisruptionBudget,
+        PodGroup,
+        Queue,
+    )
     from kube_batch_tpu_torch.api.types import PodPhase
     from kube_batch_tpu_torch.cache.cache import SchedulerCache
 
     rng = np.random.default_rng(seed)
-    cache = SchedulerCache(spec=ResourceSpec(scalar_names=(GPU,)))
+    frng = np.random.default_rng([seed, 8])
+    n_jobs = -(-n_tasks // gang_size)
+    volume_binder = None
+    pinned: dict = {}   # pod index → (claim, node)
+    claims: dict = {}   # pod index → claim
+    if pvc_pods or pvc_impossible:
+        from kube_batch_tpu_torch.cache.volume import StandalonePVBinder
+
+        volume_binder = StandalonePVBinder()
+        picks = frng.choice(n_tasks, pvc_pods + pvc_impossible, replace=False).tolist()
+        n_pinned = pvc_pods // 2
+        stride = max(1, n_nodes // max(1, n_pinned))
+        for k, i in enumerate(picks):
+            if k < n_pinned:
+                pinned[i] = (f"claim-{k}", f"n{(k * stride) % n_nodes}")
+                claims[i] = f"claim-{k}"
+            elif k < pvc_pods:
+                claims[i] = f"claim-{k}"
+            else:
+                claims[i] = f"ghost-{k}"
+                # a durable binding to a PV that is gone
+                volume_binder.bound[f"ghost-{k}"] = f"pv-gone-{k}"
+    cache = SchedulerCache(spec=ResourceSpec(scalar_names=(GPU,)),
+                           volume_binder=volume_binder)
+
+    pdb_jobs = (frng.random(n_jobs) < pdb_gang_frac) if pdb_gang_frac > 0 else None
     for q in range(n_queues):
         cache.add_queue(Queue(name=f"q{q}", weight=q + 1))
+    if pdb_jobs is not None and pdb_jobs.any():
+        cache.add_queue(Queue(name=cache.default_queue))
+    pinned_nodes = {node for _claim, node in pinned.values()}
     for i in range(n_nodes):
-        cache.add_node(Node(name=f"n{i}", allocatable={
-            "cpu": NODE_CPU, "memory": NODE_MEM, "pods": NODE_PODS}))
-    n_jobs = -(-n_tasks // gang_size)
+        name = f"n{i}"
+        cache.add_node(Node(
+            name=name, allocatable={"cpu": NODE_CPU, "memory": NODE_MEM, "pods": NODE_PODS},
+            labels={HOSTNAME_TOPOLOGY: name} if name in pinned_nodes else {}))
+    if volume_binder is not None:
+        for k, (claim, node) in enumerate(sorted(pinned.values())):
+            volume_binder.add_pv(PersistentVolume(
+                name=f"pv-{claim}", node=node, claim=claim,
+                node_terms=[[(HOSTNAME_TOPOLOGY, "In", (node,))]]))
+        for k in range(pvc_pods - len(pinned)):
+            volume_binder.add_pv(PersistentVolume(name=f"pv-w{k}"))
+    too_large = set()
+    n_pdb = 0
     for j in range(n_jobs):
+        size = min(gang_size, n_tasks - j * gang_size)
+        if pdb_jobs is not None and pdb_jobs[j]:
+            cache.add_pdb(PodDisruptionBudget(
+                name=f"pdb{j}", namespace="bench", min_available=size,
+                owner=f"rs-pg{j}", creation_index=j))
+            if n_pdb % 4 == 0:
+                too_large.add(j * gang_size)
+            n_pdb += 1
+            continue
         cache.add_pod_group(PodGroup(
-            name=f"pg{j}", namespace="bench",
-            min_member=min(gang_size, n_tasks - j * gang_size),
+            name=f"pg{j}", namespace="bench", min_member=size,
             queue=f"q{j % n_queues}", creation_index=j))
     ported = rng.random(n_tasks) < host_ports_frac if host_ports_frac > 0 else None
     for i in range(n_tasks):
+        j = i // gang_size
+        cpu = float(rng.choice(CPU_CHOICES))
+        mem = float(rng.choice(MEM_CHOICES))
+        ports = ((7000 + int(rng.integers(64)),)
+                 if ported is not None and ported[i] else ())
+        pdb = pdb_jobs is not None and pdb_jobs[j]
+        pin = pinned.get(i)
         cache.add_pod(Pod(
             name=f"t{i}", namespace="bench",
-            requests={"cpu": float(rng.choice(CPU_CHOICES)),
-                      "memory": float(rng.choice(MEM_CHOICES))},
-            annotations={GROUP_NAME_ANNOTATION: f"pg{i // gang_size}"},
+            requests={"cpu": 2 * NODE_CPU if i in too_large else cpu, "memory": mem},
+            annotations={} if pdb else {GROUP_NAME_ANNOTATION: f"pg{j}"},
+            owner=f"rs-pg{j}" if pdb else None,
             phase=PodPhase.PENDING,
             creation_index=i,
-            host_ports=((7000 + int(rng.integers(64)),)
-                        if ported is not None and ported[i] else ()),
+            host_ports=ports,
+            node_selector={HOSTNAME_TOPOLOGY: pin[1]} if pin else {},
+            volume_claims=(claims[i],) if i in claims else (),
         ))
     return cache

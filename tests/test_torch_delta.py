@@ -54,10 +54,9 @@ GiB = float(1 << 30)
 JAX = types.SimpleNamespace(pod=jpod, types=jtypes)
 PORT = types.SimpleNamespace(pod=ppod, types=ptypes)
 
-#: the session job-row columns both packages keep (the JAX package's
-#: j_pdb has no counterpart: the port has no PodDisruptionBudgets)
+#: the session job-row columns both packages keep
 JOB_ROWS = ("j_sess", "j_min", "j_queue", "j_prio", "j_creation", "j_sched",
-            "j_has_pg", "j_shadow", "j_phase", "j_has_conds")
+            "j_has_pg", "j_shadow", "j_pdb", "j_phase", "j_has_conds")
 
 
 def node_event(pkg, i: int):
@@ -153,6 +152,65 @@ class Churner:
         if r < 0.95:
             return self.node_churn()
         return self.requeue_gang()
+
+
+class PdbChurner(Churner):
+    """The churner plus PodDisruptionBudget gangs: owner-linked pods whose
+    PDB arrives before or after them, PDBs deleted (the pods fall back to
+    shadow singletons) and re-added, and PDB gangs completing."""
+
+    def __init__(self, cache, rng, pkg, n_queues: int = 2):
+        super().__init__(cache, rng, pkg, n_queues)
+        self.owners = []  # owner uids with live pods
+        self.pdbs = {}    # owner → the PDB ingested for it
+
+    def add_pdb_gang(self) -> list:
+        pod = self.pkg.pod
+        self.serial += 1
+        owner = f"rs{self.serial}"
+        size = int(self.rng.integers(2, 4))
+        pdb = pod.PodDisruptionBudget(name=f"pdb-{owner}", namespace="churn",
+                                      min_available=size, owner=owner,
+                                      creation_index=self.serial)
+        pods = [("add_pod", pod.Pod(
+            name=f"{owner}-{k}", namespace="churn", uid=f"pod-{owner}-{k}",
+            requests={"cpu": float(self.rng.choice([250.0, 500.0])), "memory": 1 * GiB},
+            owner=owner, phase=self.pkg.types.PodPhase.PENDING,
+            creation_index=self.serial * 100 + k)) for k in range(size)]
+        self.owners.append(owner)
+        self.pdbs[owner] = pdb
+        # the PDB before or after its pods (a shadow PodGroup then yields)
+        if self.rng.random() < 0.5:
+            return [("add_pdb", pdb)] + pods
+        return pods + [("add_pdb", pdb)]
+
+    def toggle_pdb(self) -> list:
+        if not self.owners:
+            return []
+        owner = self.owners[int(self.rng.integers(len(self.owners)))]
+        job = self.cache.jobs.get(f"churn/{owner}")
+        if job is not None and job.pdb is not None:
+            return [("delete_pdb", self.pdbs[owner])]
+        return [("add_pdb", self.pdbs[owner])]
+
+    def complete_pdb_gang(self) -> list:
+        if not self.owners:
+            return []
+        owner = self.owners.pop(int(self.rng.integers(len(self.owners))))
+        job = self.cache.jobs.get(f"churn/{owner}")
+        keys = sorted(job.tasks) if job is not None else []
+        return ([("delete_pdb", self.pdbs.pop(owner))]
+                + [("delete_pod", self.cache.pods[k]) for k in keys if k in self.cache.pods])
+
+    def step(self) -> list:
+        r = self.rng.random()
+        if r < 0.2:
+            return self.add_pdb_gang()
+        if r < 0.35:
+            return self.toggle_pdb()
+        if r < 0.45:
+            return self.complete_pdb_gang()
+        return super().step()
 
 
 def feed(cache, events) -> None:
@@ -288,6 +346,61 @@ def test_delta_cycles_match_jax(seed):
         assert_fit_state_recorded(pcache, where)
     assert paths.count("delta") >= 5, paths
     assert pcache.columns.check_consistency(pcache) == []
+    jcache.stop()
+
+
+@pytest.mark.parametrize("seed", [3, 11])
+def test_pdb_churn_rows_match_full_open_and_jax(seed):
+    """PDB events stamp the dirty tracker like the JAX package's: after
+    each step, the delta-synced job rows (j_pdb among them) and the
+    snapshot equal a forced full rescan and the JAX package's, the
+    job-alloc float32 twin equals a fresh cast of the ledger, and both
+    packages decide alike (default conf)."""
+    rng = np.random.default_rng(seed)
+    jcache, pcache = both_clusters()
+    jconf = jax_parse_conf(DEFAULT_CONF)
+    pconf = parse_scheduler_conf(DEFAULT_CONF)
+    apply(jcache, pcache, [("add_queue", JAX.pod.Queue(name="default", uid="udefault"))])
+    jactions = JaxScheduler(jcache, conf=jconf).actions
+    pactions = Scheduler(pcache, conf=pconf, device="cpu").actions
+    churn = PdbChurner(jcache, rng, JAX)
+    for _ in range(3):
+        apply(jcache, pcache, churn.add_gang() + churn.add_pdb_gang())
+    cols = pcache.columns
+    paths, pdb_rows = [], 0
+    for cycle in range(12):
+        apply(jcache, pcache, churn.step())
+        where = f"seed {seed} cycle {cycle}"
+        jssn = jax_open(jcache, jconf.tiers)
+        pssn = open_session(pcache, pconf.tiers, "cpu")
+        try:
+            paths.append(pcache.last_open_path)
+            assert jcache.last_open_path == pcache.last_open_path, where
+            psnap, _ = cols.device_snapshot(pssn)
+            got = snapshot_arrays(psnap)
+            rows = {f: getattr(cols, f).copy() for f in JOB_ROWS}
+            pdb_rows += int(cols.j_pdb[cols.j_sess].sum())
+            assert_arrays_equal(rows, {f: getattr(jcache.columns, f) for f in JOB_ROWS},
+                                where + " job rows vs JAX")
+            jsnap, _ = jcache.columns.device_snapshot(jssn)
+            assert_arrays_equal(got, snapshot_arrays(jsnap), where + " snapshot vs JAX")
+            cols.sync_session_rows(pssn)   # the forced full rescan
+            assert_arrays_equal({f: getattr(cols, f) for f in JOB_ROWS}, rows,
+                                where + " job rows vs full")
+            full, _ = cols.device_snapshot(pssn)
+            assert_arrays_equal(snapshot_arrays(full), got, where + " snapshot vs full")
+            assert np.array_equal(cols.job_alloc32(), cols.j_alloc.astype(np.float32)), where
+            run_actions(jactions, jssn)
+            run_actions(pactions, pssn)
+        finally:
+            jax_close(jssn)
+            close_session(pssn)
+        _assert_same(observed(jcache), observed(pcache), where)
+        assert sorted(jcache.events) == sorted(pcache.events), where
+        assert cols.check_consistency(pcache) == [], where
+        assert np.array_equal(cols.job_alloc32(), cols.j_alloc.astype(np.float32)), where
+    assert paths.count("delta") >= 4, paths
+    assert pdb_rows > 0
     jcache.stop()
 
 

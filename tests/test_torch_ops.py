@@ -121,10 +121,17 @@ def test_score_matrix_matches_jax(weights):
 
 
 def test_score_matrix_rejects_custom_rows():
-    snap = _rich_snapshot(0)
-    w = scoring.ScoreWeights(extra_rows=(("x", lambda s: 0, 1.0),))
-    with pytest.raises(NotImplementedError):
-        scoring.score_matrix(snapshot_from_numpy(snap, "cpu"), w)
+    """Custom rows are summed into the plane; a row that does not
+    broadcast to [T, N] is rejected."""
+    snap = snapshot_from_numpy(_rich_snapshot(0), "cpu")
+    T, N = snap.task_req.shape[0], snap.node_alloc.shape[0]
+    base = scoring.score_matrix(snap, scoring.ScoreWeights())
+    row = torch.arange(N, dtype=torch.float32).expand(T, N)
+    w = scoring.ScoreWeights(extra_rows=(("x", lambda s: row, 2.0),))
+    assert torch.equal(scoring.score_matrix(snap, w), base + 2.0 * row)
+    bad = scoring.ScoreWeights(extra_rows=(("bad", lambda s: torch.zeros(T + 1, N), 1.0),))
+    with pytest.raises(RuntimeError):
+        scoring.score_matrix(snap, bad)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])

@@ -102,9 +102,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     cycles under the shipped conf (reclaim evicting; the second open a
     delta, its device programs reading resident tensors; the guard on),
     then starting and stopping a pipelined ``run_forever`` that binds an
-    arrival, leaves no jax and
-    no kube_batch_tpu module loaded (kube_batch_tpu_torch itself shares the
-    prefix, so the match is exact on the package name)."""
+    arrival, then the feature paths — a PV ledger, PDB gangs and a custom
+    score row through the feature drive's exclusive and isolated cycles,
+    and ``build_snapshot`` of a ``cache.snapshot()`` — leaves no jax, no
+    kube_batch_tpu and no yaml module loaded (kube_batch_tpu_torch itself
+    shares the prefix, so the match is exact on the package name)."""
     code = textwrap.dedent("""
         import sys
         import threading
@@ -155,8 +157,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             t.join(30)
         assert not t.is_alive() and loop._wb_future is None
         assert loop_cache._ingest_staged == [] and loop.wake_reasons["floor"] >= 0
+        import kube_batch_tpu_torch.cache.volume
+        from kube_batch_tpu_torch.api.snapshot import build_snapshot
+        from kube_batch_tpu_torch.testing.cycle_drive import drive_features
+        r = drive_features(256, 32, 16, 2, pdb_gang_frac=0.2, device="cpu",
+                           hold_first=True)
+        assert [c["session"] for c in r["cycles"]] == ["exclusive", "exclusive", "isolated"]
+        assert r["cycles"][0]["checks"]["bound_pods_with_claims"] > 0
+        assert r["cycles"][-1]["clone_ms"] > 0 and r["held"]["K1"]["max_abs_err"] == 0.0
+        assert r["cycles"][-1]["new_binds"] > 0
+        fsnap, fmeta = build_snapshot(synthetic_cluster(64, 8).snapshot())
+        assert fmeta.n_tasks == 64 and fsnap.task_pending.sum() == 64
         bad = sorted(n for n in sys.modules
-                     if n in ("jax", "jaxlib") or n.startswith(("jax.", "jaxlib."))
+                     if n in ("jax", "jaxlib", "yaml") or n.startswith(("jax.", "jaxlib.", "yaml."))
                      or n == "kube_batch_tpu" or n.startswith("kube_batch_tpu."))
         print("LOADED", bad)
     """)
