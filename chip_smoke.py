@@ -71,7 +71,13 @@ K1 and K2 held bit-exact on the plane with the row; at 4 096 × 1 024 the
 card and the CPU must decide identically.  The headline and
 overcommit drives at 4 096 × 1 024 (with host ports) and 2 048 / 1 024 /
 256 run with the defaults on the card and as the oracle on the CPU, and
-must bind and evict identically.  Each phase prints one JSON line; any
+must bind and evict identically.  The what-if phase (``drive_whatif``)
+holds K1 at a probe gang's explicit rows against its plain version, checks
+the read plane's oracle contract at 50 000 × 5 000 (each probed gang,
+submitted alone, binds exactly at its probed nodes; the eviction verdict
+evicts exactly its victims), serves 16 clients × 25 requests beside three
+live steady cycles, and answers 32 requests identically on the card and
+the CPU at 4 096 × 1 024.  Each phase prints one JSON line; any
 failure raises (non-zero exit).  The last three lines are the kernels'
 summary, the card's name and power limit, and ``{"ok": true, "device":
 ...}``.
@@ -832,6 +838,37 @@ def phase_cycle_features():
     return r
 
 
+def phase_whatif(k1_main, steady_defaults):
+    """The read plane on the card (``cycle_drive.drive_whatif``): K1 at a
+    64-member probe gang's rows (gaps, rows past the task axis) bit-exact
+    against its plain version and timed; the oracle contract at 50k × 5k
+    (eight gangs probed on the frozen cluster, each then submitted alone:
+    a feasible verdict binds exactly at its nodes, the eviction verdict on
+    the filled node evicts exactly its victims through preempt); 16
+    clients × 25 requests served beside 3 steady cycles (no error, no
+    version going back, every node in its lease, every swap's retirement
+    re-armed, fewer dispatches than requests); and the same 32 requests,
+    with and without evictions, answered identically on the card and on
+    the CPU at 4 096 × 1 024."""
+    from kube_batch_tpu_torch.testing.cycle_drive import drive_whatif
+
+    r = drive_whatif(N_TASKS, N_NODES, device="cuda")
+    oracle = r["oracle"]
+    launches = sum(g["k1_launches"] for g in oracle)
+    if not all(g["k1_launches"] for g in oracle):
+        fail(f"whatif: a probe launched no K1: {[g['k1_launches'] for g in oracle]}")
+    if r["cross_device"] is None:
+        fail("whatif: the card-against-CPU part did not run")
+    serving = r["serving"]
+    emit("whatif", conf="shipped", shape=[N_TASKS, N_NODES], setup_s=r["setup_s"],
+         k1_probe_rows=r["k1_probe_rows"], flush=r["flush"], k1_main_path_ms=k1_main["ms"],
+         k1_main_path_bound_ms=k1_main["bound_ms"],
+         oracle=oracle, k1_launches=launches, serving=serving,
+         steady_defaults_wall_ms_p50=steady_defaults["wall_ms_p50"],
+         cross_device=r["cross_device"])
+    return r, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -866,6 +903,7 @@ def main() -> int:
     phase_guard()
     features = phase_cycle_features()
     phase_cycle_cross_device()
+    whatif, whatif_launches = phase_whatif(kern["K1"], steady["defaults"]["steady"])
     cycle_launches = {name: {f"cycle{c['cycle']}": c["launches"][name]
                              for c in cycle["cycles"]}
                       for name in KERNELS}
@@ -912,7 +950,13 @@ def main() -> int:
              steady_launches=steady_launches["masked_best_node_raw"],
              pipelined_steady_launches=pipelined_launches["masked_best_node_raw"],
              loop_launches=loop_launches["masked_best_node_raw"],
-             features_launches=features_launches["masked_best_node_raw"]),
+             features_launches=features_launches["masked_best_node_raw"],
+             whatif_launches=whatif_launches,
+             probe_rows_shape=whatif["k1_probe_rows"]["shape"],
+             probe_rows_ms=whatif["k1_probe_rows"]["ms"],
+             probe_rows_plain_ms=whatif["k1_probe_rows"]["plain_ms"],
+             probe_rows_bound_ms=whatif["k1_probe_rows"]["bound_ms"],
+             probe_rows_max_abs_err=whatif["k1_probe_rows"]["max_abs_err"]),
         dict(name="masked_topk_blocks", route="cuda",
              source=src + "topk_blocks.cu",
              replaces="kube_batch_tpu/ops/pallas_kernels.py:216",

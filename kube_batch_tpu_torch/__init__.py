@@ -14,7 +14,9 @@ tensors swapped in; the gang-constrained solve on the device, warm-started
 and guarded; one readback; the host replay into binds, volume
 reservations through the PV ledger) and backfill — and closes the session
 with the PodGroup and queue statuses; ``Scheduler.run_forever`` is the
-event-driven pipelined loop.  The layout mirrors the JAX package path for
+event-driven pipelined loop.  Beside the cycle, a query plane
+(``serve.QueryPlane``) answers what-if requests ("would this gang fit,
+where, and what would it evict?") against the lease each cycle publishes.  The layout mirrors the JAX package path for
 path, so each module's counterpart is found at the same name:
 
   api/        — resources, the ingest objects, task / job / node / queue
@@ -29,11 +31,14 @@ path, so each module's counterpart is found at the same name:
                 nodeorder, binpack
   ops/        — feasibility, scoring (with custom rows), fairness,
                 ordering, the assignment and eviction solves, the
-                admission gate, the invariant sentinels, and the three
+                admission gate, the invariant sentinels, the what-if
+                probe, and the three
                 hand-written kernels (``ops/kernels.py``,
                 ``ops/admission.py`` over ``csrc/*.cu``)
   actions/    — enqueue, reclaim, allocate, backfill, preempt
   guard/      — the guard plane and its bundles
+  serve/      — the query plane: the snapshot lease, the micro-batcher,
+                the what-if plane
   utils/      — invariant assertions, the priority queue, switches, the
                 one-thread worker
   scheduler.py — the serial and pipelined loops

@@ -35,8 +35,11 @@ full solve, a demoted ``warm`` the cold build, and every
 ``KB_AUDIT_EVERY``-th engaged dispatch is compared with the full solve
 after the host replay.  The fit-error histogram reads the same resident
 tensors as the solve, launched before the host replay and read after it,
-with no swap in between.  Not ported: the sharded solve, the query lease,
-and the tracer and metrics.
+with no swap in between.  When a query plane is attached
+(``serve/plane.py``), every cycle publishes its what-if lease here
+(``republish_query_lease``): after the solve's swap, and on the idle and
+empty paths when ingest moved the version since the last publish.  Not
+ported: the sharded solve, and the tracer and metrics.
 """
 
 from __future__ import annotations
@@ -264,6 +267,34 @@ def dispatch_allocate_solve(snap: DeviceSnapshot, config: AllocateConfig,
     return allocate_solve(snap, config), "single", None, ginfo([], None, config)
 
 
+def republish_query_lease(ssn, snap=None, meta=None, build=None) -> None:
+    """The what-if lease publish: every publish path (allocate's solve and
+    its idle and empty cycles, and the re-arms after reclaim's, preempt's
+    and backfill's swaps) goes through here, so the gate, the version
+    token and the failure policy live once.
+
+    Every swap retires the published lease (``serve/lease.py``), and
+    reclaim, backfill and preempt all swap after allocate's publish, so
+    each re-arms right after its dispatch, or serving would stay dark
+    until the next cycle's allocate.  ``resident_snap`` is memoized on the
+    ``snap`` object the caller's dispatch used, so a re-arm does no device
+    work.  ``build`` is the lazy (snap, meta) builder of the idle and
+    empty paths: it runs only when a publish is owed (a plane attached, a
+    column session, and no live lease at the open's version).  A failed
+    publish degrades serving, never the cycle."""
+    qp = getattr(ssn.cache, "query_plane", None)
+    if qp is None or ssn.columns is None:
+        return
+    try:
+        if not qp.needs_publish(int(getattr(ssn.cache, "last_open_version", 0))):
+            return
+        if build is not None:
+            snap, meta = build()
+        qp.publish_session(ssn, snap, meta)
+    except Exception:  # noqa: BLE001 — the write path outranks serving
+        logger.exception("whatif lease publication failed")
+
+
 def result_binds(res: AllocateResult, meta: SnapshotMeta) -> List[Tuple[str, str]]:
     """The (task key, node name) pairs the host replay would bind, in task
     order: every surviving non-pipelined placement (after the solve's last
@@ -385,6 +416,8 @@ class AllocateAction(Action):
         self._host_place_count = 0
         self._ports_by_node = None
         if not ssn.jobs or not ssn.nodes:
+            # an empty (or node-less) cluster still serves what-ifs
+            republish_query_lease(ssn, build=lambda: build_session_snapshot(ssn))
             return
         cols = ssn.columns
         if cols is not None and not cols.has_schedulable_pending():
@@ -392,6 +425,9 @@ class AllocateAction(Action):
             # the solve and the replay
             self.last_phase_ms = {"snapshot_build": 0.0, "upload": 0.0,
                                   "solve": 0.0, "fit_errors": 0.0, "replay": 0.0}
+            # an idle cluster is when capacity-planning what-ifs arrive: the
+            # lease is rebuilt only when ingest moved the version
+            republish_query_lease(ssn, build=lambda: build_session_snapshot(ssn))
             return
         t0 = time.perf_counter()
         snap, meta = build_session_snapshot(ssn)
@@ -414,6 +450,8 @@ class AllocateAction(Action):
         audit_dev = None
         if ginfo["engaged"] and gp.audit_due("allocate"):
             audit_dev = allocate_solve(dev, config._replace(topk=0))
+        # the lease shares this dispatch's swap (memoized on the same snap)
+        republish_query_lease(ssn, snap, meta)
         sentinel = ginfo["sentinel"]
         T = meta.n_tasks
         (assigned, pipelined, rounds, exhausted, reentries, verdict, vhist,

@@ -12,7 +12,8 @@ Mirrors ``kube_batch_tpu/actions/backfill.py``.  Two passes:
   restricted to gang-safe jobs (at or above MinAvailable, or not gangs),
   so no partial gang can commit, and replays the result through a
   throwaway ``AllocateAction``.  The solve is cold (no carried table) and
-  guarded like allocate's: a condemned result binds nothing.
+  guarded like allocate's: a condemned result binds nothing; its swap
+  re-arms the what-if lease.
   ``backfill.realRequests: "false"`` on any tier turns it off.
 """
 
@@ -27,6 +28,7 @@ from kube_batch_tpu_torch.actions.allocate import (
     dispatch_allocate_solve,
     dispatch_topk,
     plan_topk_bucket,
+    republish_query_lease,
     session_allocate_config,
 )
 from kube_batch_tpu_torch.api.columns import resident_snap
@@ -117,6 +119,10 @@ class BackfillAction(Action):
         # allocate's deltas
         result, _mode, _topk, ginfo = dispatch_allocate_solve(
             dev, session_allocate_config(ssn), plan=plan, cols=cols, guard=gp)
+        # this swap retired the what-if lease: re-arm it off the same
+        # resident snapshot.  The gang-safe job_schedulable mask is
+        # invisible to a probe, whose only job row is the appended one
+        republish_query_lease(ssn, snap, meta)
         sentinel = ginfo["sentinel"]
         assigned, pipelined, *_, verdict, vhist, echeck = _read_back(result, T, sentinel)
         if sentinel is not None and not consume_assignment_sentinel(

@@ -14,9 +14,9 @@ onto the freed resources.
 the column store and the resident tensors, as in allocate (an isolated
 session's from its cloned objects, every job included); the guard's
 sentinel follows the solve, and the three result fields and its verdict
-come back in one transfer (a condemned solve evicts nothing).  Not
-ported: the mesh dispatch and its shadow audit, and the query-lease
-republish.
+come back in one transfer (a condemned solve evicts nothing).  The
+solve's swap re-arms the what-if lease.  Not ported: the mesh dispatch and
+its shadow audit.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from kube_batch_tpu_torch.actions.allocate import build_session_snapshot
+from kube_batch_tpu_torch.actions.allocate import build_session_snapshot, republish_query_lease
 from kube_batch_tpu_torch.api.columns import resident_snap
 from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.framework.interface import Action
@@ -116,6 +116,10 @@ def solve_claims(ssn, mode: str):
         result, rounds, *sentinel = evict_sentinel_solve(dev, config)
     else:
         result, rounds = evict_solve(dev, config)
+    # this swap retired the what-if lease: re-arm it off the same
+    # (memoized) resident snapshot, so serving is not dark until the next
+    # cycle's allocate
+    republish_query_lease(ssn, snap, meta)
     T = meta.n_tasks
     Tc = result.claim_node.shape[0]
     # one readback: the three result fields, and the sentinel's verdict,

@@ -43,12 +43,19 @@ dropped on axis growth, resident drops and device changes.
 
 The job-alloc float32 twin (``job_alloc32``) is refreshed like the node
 ledgers' twins: at exactly the rows the ``note_job_alloc`` choke points
-marked.  Not ported: the JAX package's mesh-sharded residency and its
-swap guard.
+marked.
+
+The query plane's seams: ``peek_task_rows`` (the rows the next pods would
+occupy: the what-if probe's tie-hash rows) and ``resident_swap_guard``
+(a context-manager factory that every swap's writes run inside: the
+query plane's ``LeaseBroker.swap_guard``, which waits out in-flight
+probes and retires the lease whose tensors the swap rewrites).  Not
+ported: the JAX package's mesh-sharded residency.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 from typing import Dict, List, Optional, Set
 
@@ -118,22 +125,27 @@ def resident_snap(cols, snap, device):
     out = cache.memo(snap)
     if out is not None:
         return out
-    upload = StagedUpload(dev)
-    made = cols.resident_features(snap, upload)
-    made.update(cols.per_cycle_resident(snap, upload))
-    for name in DeviceSnapshot._fields:
-        if name not in made:
-            handle = upload.add(host_field(name, getattr(snap, name)))
-            made[name] = lambda h=handle: upload.tensor(h)
-    try:
-        upload.run()
-        out = DeviceSnapshot(**{name: made[name]() for name in DeviceSnapshot._fields})
-    except BaseException:
-        # the mirrors already describe this swap: after a failed transfer
-        # or scatter the next swap must start cold, not trust them
-        cols.drop_resident()
-        raise
-    cache.remember(snap, out)
+    guard = cols.resident_swap_guard
+    with guard() if guard is not None else contextlib.nullcontext():
+        # the swap rewrites resident tensors in place (the scatters, the
+        # full uploads and the memo), so a query plane's guard parks its
+        # probes and retires the lease that holds them for its duration
+        upload = StagedUpload(dev)
+        made = cols.resident_features(snap, upload)
+        made.update(cols.per_cycle_resident(snap, upload))
+        for name in DeviceSnapshot._fields:
+            if name not in made:
+                handle = upload.add(host_field(name, getattr(snap, name)))
+                made[name] = lambda h=handle: upload.tensor(h)
+        try:
+            upload.run()
+            out = DeviceSnapshot(**{name: made[name]() for name in DeviceSnapshot._fields})
+        except BaseException:
+            # the mirrors already describe this swap: after a failed transfer
+            # or scatter the next swap must start cold, not trust them
+            cols.drop_resident()
+            raise
+        cache.remember(snap, out)
     # this swap's row-exact delta record feeds the warm-table carry (the
     # memoized repeat above never re-notifies it)
     st = cols._warm_tables.get(dev)
@@ -179,6 +191,23 @@ class _Axis:
 
     def free(self, row: int) -> None:
         self._free.append(row)
+
+    def peek(self, k: int) -> List[int]:
+        """The rows the next k ``alloc()`` calls would hand out, without
+        changing the allocator: the free list pops from its end, and once
+        it runs out the axis grows and hands out rows ascending from the
+        old capacity."""
+        out: List[int] = []
+        i = len(self._free) - 1
+        grown = self.cap
+        for _ in range(k):
+            if i >= 0:
+                out.append(self._free[i])
+                i -= 1
+            else:
+                out.append(grown)
+                grown += 1
+        return out
 
 
 class ColumnStore:
@@ -309,6 +338,10 @@ class ColumnStore:
         # called as on_swap(snap, tensors) after every swap that was not a
         # repeat (drives use it to check the tensors against a full upload)
         self.on_swap = None
+        # the query plane's seam (serve/lease.LeaseBroker.swap_guard): a
+        # context-manager factory every swap's writes run inside; None (no
+        # plane attached) costs the swap nothing
+        self.resident_swap_guard = None
         # which path the most recent session row sync took
         self.last_snapshot_path = "full"
 
@@ -805,6 +838,13 @@ class ColumnStore:
 
     def has_schedulable_pending(self) -> bool:
         return bool(np.any(self.schedulable_pending_mask()))
+
+    def peek_task_rows(self, k: int) -> List[int]:
+        """The task rows the next k ingested pods would occupy (nothing
+        changes): the what-if probe's tie-hash rows (``ops/probe.py``).
+        Exact against a frozen cache; ingest in between shifts the
+        allocator, and the probe's answer is then one of the tied nodes."""
+        return self.tasks.peek(k)
 
     def has_running_victims(self) -> bool:
         """Any live task Running on a node — without one the eviction solve

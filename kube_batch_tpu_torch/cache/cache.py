@@ -152,6 +152,9 @@ class SchedulerCache:
         self.last_open_path = "full"
         self.last_churn = 0.0
         self.last_open_version = 0
+        # the query plane, when one is attached (serve/plane.QueryPlane sets
+        # it); the actions publish their what-if leases to it
+        self.query_plane = None
         # --priority-class toggle (options.go:30, consumed cache.go:352,378)
         self.resolve_priority = resolve_priority
         self.binder = binder if binder is not None else FakeBinder()

@@ -6,7 +6,10 @@
 //                & (fit(req[t], idle[n]) | fit(req[t], releasing[n]))
 // masks infeasible cells to NEG and takes the lexicographic argmax
 // (score desc, tie hash desc, node index asc) — the JAX package's
-// `_best_node` with first-index ties.  Outputs: best [T] i32 (block-local
+// `_best_node` with first-index ties.  The row part of the tie hash is
+// `(t0 + t) * H1`, or `rows[t] * H1` when `rows` is not null (the what-if
+// probe's G rows, at the global task rows the gang would occupy, which need
+// not be contiguous).  Outputs: best [T] i32 (block-local
 // node index), val [T] f32, hash [T] f32, chose_idle [T] (the idle fit at
 // the pick).  Rows with no feasible cell (and rows that are not pending)
 // still get a defined pick: the first column of highest hash, val NEG.
@@ -59,7 +62,8 @@ masked_best_node_kernel(const float* __restrict__ score,
                         const float* __restrict__ idle,
                         const float* __restrict__ releasing,
                         const uint8_t* __restrict__ pending,
-                        const float* __restrict__ quanta, int T, int N, int t0,
+                        const float* __restrict__ quanta,
+                        const int32_t* __restrict__ rows, int T, int N, int t0,
                         int n0, int32_t* __restrict__ best_out,
                         float* __restrict__ val_out,
                         float* __restrict__ hash_out,
@@ -87,7 +91,10 @@ masked_best_node_kernel(const float* __restrict__ score,
     warp_pend |= pend[i];
 #pragma unroll
     for (int r = 0; r < R; ++r) req[i][r] = live[i] ? task_req[t * R + r] : 0.f;
-    hx[i] = (static_cast<uint32_t>(t0) + static_cast<uint32_t>(t)) * kbt::H1;
+    const uint32_t trow =
+        rows != nullptr ? (live[i] ? static_cast<uint32_t>(rows[t]) : 0u)
+                        : static_cast<uint32_t>(t0) + static_cast<uint32_t>(t);
+    hx[i] = trow * kbt::H1;
     vec[i] = live[i] &&
              (reinterpret_cast<uintptr_t>(score + t * N) & 15) == 0 &&
              (reinterpret_cast<uintptr_t>(static_ok + t * N) & 3) == 0;
@@ -240,15 +247,16 @@ masked_best_node_kernel(const float* __restrict__ score,
 template <int R>
 void launch(const float* score, const uint8_t* static_ok, const float* task_req,
             const float* idle, const float* releasing, const uint8_t* pending,
-            const float* quanta, int T, int N, int t0, int n0, int32_t* best,
-            float* val, float* hash, uint8_t* chose_idle, cudaStream_t stream) {
+            const float* quanta, const int32_t* rows, int T, int N, int t0,
+            int n0, int32_t* best, float* val, float* hash, uint8_t* chose_idle,
+            cudaStream_t stream) {
   constexpr int ROWS = kbt::rows_per_warp<R>();
   const long long rows_per_cta = static_cast<long long>(kbt::WARPS) * ROWS;
   const long long blocks = (T + rows_per_cta - 1) / rows_per_cta;
   masked_best_node_kernel<R, ROWS, kbt::chunk_cols<R>()>
       <<<static_cast<unsigned>(blocks), kbt::WARPS * 32, 0, stream>>>(
-          score, static_ok, task_req, idle, releasing, pending, quanta, T, N,
-          t0, n0, best, val, hash, chose_idle);
+          score, static_ok, task_req, idle, releasing, pending, quanta, rows,
+          T, N, t0, n0, best, val, hash, chose_idle);
 }
 
 }  // namespace
@@ -258,18 +266,20 @@ extern "C" const char* kbt_error_string(int code) {
 }
 
 // Launches K1 on `stream`; returns cudaGetLastError() (0 = launched).
+// `rows` may be null: the tie hash then takes rows t0 + t.
 extern "C" int kbt_masked_best_node(const float* score, const uint8_t* static_ok,
                                     const float* task_req, const float* idle,
                                     const float* releasing,
                                     const uint8_t* pending, const float* quanta,
-                                    int T, int N, int R, int t0, int n0,
+                                    const int32_t* rows, int T, int N, int R,
+                                    int t0, int n0,
                                     int32_t* best, float* val, float* hash,
                                     uint8_t* chose_idle, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
 #define KBT_K1(RR)                                                          \
   case RR:                                                                  \
     launch<RR>(score, static_ok, task_req, idle, releasing, pending, quanta, \
-               T, N, t0, n0, best, val, hash, chose_idle, s);               \
+               rows, T, N, t0, n0, best, val, hash, chose_idle, s);         \
     break;
   switch (R) {
     KBT_K1(1) KBT_K1(2) KBT_K1(3) KBT_K1(4)

@@ -15,8 +15,9 @@ engaged cycle re-promotes.  Time counts in scheduling cycles
 
 Every trip also runs the heal hook (``ColumnStore.drop_resident``: the
 next dispatch uploads every column in full, and the carried warm tables
-go) and, when the caller supplies one, a lazy bundle dump.  Every state
-transition happens under one leaf lock; heals and dumps run outside it.
+go; the query plane's lease is retired) and, when the caller supplies
+one, a lazy bundle dump.  Every state transition happens under one leaf
+lock; heals and dumps run outside it.
 
 The JAX package's metrics calls are not ported (the port has no metrics
 module); the plane keeps its counters (``verdicts_consumed``,
@@ -274,12 +275,17 @@ def guard_of(cache) -> GuardPlane:
 
 def make_heal(ssn):
     """The trip heal: drop the resident device state (a corrupted column
-    is cured by the next dispatch's full upload; the warm tables go too)."""
+    is cured by the next dispatch's full upload; the warm tables go too)
+    and retire the published what-if lease: a condemned solve's snapshot
+    must not keep serving probes, which wait for the next clean publish."""
     cols = ssn.columns
+    qp = getattr(ssn.cache, "query_plane", None)
 
     def heal():
         if cols is not None:
             cols.drop_resident()
+        if qp is not None:
+            qp.broker.retire()
 
     return heal
 

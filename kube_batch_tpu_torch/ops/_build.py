@@ -13,22 +13,27 @@ passed: it would fold K2's ``x + 0.0f`` (the -0.0 canonicalisation) and
 relax the IEEE compares the kernels rely on.  The library is rebuilt
 when the hash of the sources and flags changes; a failed build raises
 with nvcc's output.
+
+The build and the load run under one module lock: the first kernel call
+may come from several threads at once (the scheduling cycle, the query
+plane's batcher and its prewarm thread), and only one of them may run
+nvcc and load the library; the others wait for it and share the handle.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 import hashlib
 import os
 import re
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
-from typing import List
+from typing import List, Optional
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -37,6 +42,10 @@ LIB_NAME = "libkbt_kernels.so"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+#: serializes the build and the load (reentrant: the load builds)
+_LOCK = threading.RLock()
+_LIB: Optional[ctypes.CDLL] = None
 
 
 @dataclasses.dataclass
@@ -82,6 +91,11 @@ def _run_all(cmds: List[List[str]]) -> List[str]:
 def build(force: bool = False) -> BuildInfo:
     """The kernel library, compiled if it is missing or stale (or if
     ``force``)."""
+    with _LOCK:
+        return _build(force)
+
+
+def _build(force: bool) -> BuildInfo:
     lib = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
     digest = source_hash()
@@ -147,14 +161,24 @@ def ptxas_summary(out: str) -> List[str]:
     return lines
 
 
-@functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
     """The built kernel library with every entry point's signature
     declared (pointers and the stream as ``c_void_p``, so none is cut to
-    32 bits)."""
-    lib = ctypes.CDLL(str(build().path))
+    32 bits), built and loaded once per process."""
+    global _LIB
+    lib = _LIB
+    if lib is not None:
+        return lib
+    with _LOCK:
+        if _LIB is None:
+            _LIB = _load(build().path)
+        return _LIB
+
+
+def _load(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.kbt_masked_best_node.argtypes = [P] * 7 + [I] * 5 + [P] * 4 + [P]
+    lib.kbt_masked_best_node.argtypes = [P] * 8 + [I] * 5 + [P] * 4 + [P]
     lib.kbt_masked_best_node.restype = I
     lib.kbt_masked_topk_blocks.argtypes = [P] * 6 + [I] * 4 + [P] * 4 + [P]
     lib.kbt_masked_topk_blocks.restype = I

@@ -143,17 +143,20 @@ def _resolve_conflicts(cand, choice, rank, fit_req, acct_req, budget, quanta):
     return _scatter_perm(order, accept_s), delta
 
 
-def round_head_parts(snap: DeviceSnapshot, config: AllocateConfig):
+def round_head_parts(snap: DeviceSnapshot, config: AllocateConfig, rows=None):
     """``(head, static_ok, score)``: the single-program round head
     ``head(idle, releasing, pending) -> (best, has, chose_idle)`` — kernel
-    K1 over the full [T, N] matrices — and its loop-invariant inputs."""
+    K1 over the full [T, N] matrices — and its loop-invariant inputs.
+    ``rows`` [T] i32 (the what-if probe's) are the global task rows the
+    tie hash is taken at, in place of the snapshot's own rows; the JAX
+    package's explicit ``tie_hash`` is this, computed inside K1."""
     static_ok = static_predicates(snap)
     score = score_matrix(snap, config.weights)
 
     def head(idle, releasing, pending):
         best, val, _hash, chose = masked_best_node_raw(
             score, static_ok, snap.task_req, idle, releasing, pending,
-            snap.quanta,
+            snap.quanta, rows=rows,
         )
         return best, val > NEG, chose
 

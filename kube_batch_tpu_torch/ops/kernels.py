@@ -77,15 +77,20 @@ def _tie_break_hash(T: int, N: int, t0: int = 0, n0: int = 0,
 
 
 def masked_best_node_raw_plain(score, static_ok, task_req, idle, releasing,
-                               pending, quanta, t0: int = 0, n0: int = 0):
+                               pending, quanta, t0: int = 0, n0: int = 0,
+                               rows=None):
     """K1 in tensor ops: (best [T] i32, val [T] f32, hash [T] f32,
-    chose_idle [T] bool)."""
+    chose_idle [T] bool).  ``rows`` [T] i32, when given, are the global task
+    rows the tie hash is taken at (in place of ``t0 + arange(T)``)."""
     T, N = score.shape
     fit_idle = fits(task_req, idle, quanta)
     feas = static_ok & pending[:, None] & (fit_idle | fits(task_req, releasing, quanta))
     masked = torch.where(feas, score, NEG)
     val = masked.amax(dim=1)
-    hashes = _tie_break_hash(T, N, t0, n0, score.device)
+    if rows is None:
+        rows = torch.arange(T, dtype=torch.int32, device=score.device) + t0
+    hashes = tie_break_hash_rows(
+        rows, torch.arange(N, dtype=torch.int32, device=score.device) + n0)
     hm = torch.where(masked >= val[:, None], hashes, -1)
     best = hm.argmax(dim=1)  # first index among full ties
     chose = fit_idle.gather(1, best[:, None])[:, 0]
@@ -145,13 +150,17 @@ def _raise_on(lib, rc: int, name: str) -> None:
 
 
 def masked_best_node_raw(score, static_ok, task_req, idle, releasing,
-                         pending, quanta, t0: int = 0, n0: int = 0):
+                         pending, quanta, t0: int = 0, n0: int = 0, rows=None):
     """K1, the fused round head: (best [T] i32, val [T] f32, hash [T] f32,
     chose_idle [T] bool) over a [T, N] block whose global origin is
-    (``t0``, ``n0``); ``best`` is block-local.  See csrc/best_node.cu."""
+    (``t0``, ``n0``); ``best`` is block-local.  ``rows`` [T] i32, when
+    given, are the global task rows of the block's rows for the tie hash
+    (the what-if probe's, which need not be contiguous); ``t0`` is then
+    unused.  See csrc/best_node.cu."""
     if not _kernel_device(score):
         return masked_best_node_raw_plain(score, static_ok, task_req, idle,
-                                          releasing, pending, quanta, t0, n0)
+                                          releasing, pending, quanta, t0, n0,
+                                          rows)
     from kube_batch_tpu_torch.ops._build import load_library
 
     dev = score.device
@@ -167,6 +176,8 @@ def masked_best_node_raw(score, static_ok, task_req, idle, releasing,
     _check("releasing", releasing, f32, (N, R), dev)
     _check("pending", pending, torch.bool, (T,), dev)
     _check("quanta", quanta, f32, (R,), dev)
+    if rows is not None:
+        _check("rows", rows, torch.int32, (T,), dev)
     best = torch.empty(T, dtype=torch.int32, device=dev)
     val = torch.empty(T, dtype=f32, device=dev)
     hsh = torch.empty(T, dtype=f32, device=dev)
@@ -178,7 +189,8 @@ def masked_best_node_raw(score, static_ok, task_req, idle, releasing,
         rc = lib.kbt_masked_best_node(
             score.data_ptr(), static_ok.data_ptr(), task_req.data_ptr(),
             idle.data_ptr(), releasing.data_ptr(), pending.data_ptr(),
-            quanta.data_ptr(), T, N, R, int(t0), int(n0), best.data_ptr(),
+            quanta.data_ptr(), None if rows is None else rows.data_ptr(),
+            T, N, R, int(t0), int(n0), best.data_ptr(),
             val.data_ptr(), hsh.data_ptr(), chose.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )

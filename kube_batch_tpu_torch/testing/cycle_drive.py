@@ -13,6 +13,8 @@
         [--device ...]
     python -m kube_batch_tpu_torch.testing.cycle_drive --features
         [--tasks 50000] [--nodes 5000] [--device ...]
+    python -m kube_batch_tpu_torch.testing.cycle_drive --whatif
+        [--tasks 50000] [--nodes 5000] [--device ...] [--profile]
 
 The first two drives run three cycles of ``Scheduler.run_once`` under
 the shipped five-action conf (``enqueue, reclaim, allocate, backfill,
@@ -92,6 +94,18 @@ shipped conf, and runs two exclusive cycles and one isolated
 arrived for it to place; it checks the PDB gangs and the PV ledger after
 each (:func:`feature_checks`) and can hold K1 and K2 against their plain
 versions on cycle 1's plane (:func:`hold_kernels`).
+
+The what-if drive (:func:`drive_whatif`) runs the read plane on
+:func:`whatif_cluster` (the headline cluster with one node filled by
+evictable single-pod jobs, every pending pod deleted, a lease
+published): K1 held at a probe gang's explicit rows
+(:func:`hold_k1_rows`), a flush of 32 gangs timed without and with
+evictions (:func:`whatif_flush`), the oracle contract gang by gang
+(:func:`whatif_oracle`: each probed gang is submitted alone and must
+bind at exactly its probed nodes, or evict exactly its probed victims),
+16 clients served beside three steady cycles (:func:`whatif_serving`),
+and on the card the same requests answered identically on the card and
+the CPU at 4 096 × 1 024 (:func:`whatif_cross_device`).
 
 After each cycle the drive checks the column store against the object
 model, every node's ``idle ≥ −quanta`` and ``used ≤ allocatable +
@@ -640,6 +654,53 @@ def drive_overcommit(n_running: int, n_pending: int, n_nodes: int, seed: int = 0
     return dict(running=n_running, pending=n_pending, nodes=n_nodes, **report)
 
 
+def reserve_wobble(cache, n_tasks: int) -> None:
+    """Reserve the steady churn's ceiling, so the axes never grow mid-drive."""
+    cache.columns.reserve(n_tasks=int(n_tasks * 1.15),
+                          n_jobs=int(n_tasks / GANG * 1.15) + 8)
+
+
+def steady_churn(cache, n_tasks: int, seed: int = 0, churn_frac: float = 0.02,
+                 wobble: float = 0.1) -> Callable[[int], dict]:
+    """bench.py's churn_step as ``churn(c)``: complete ``churn_frac`` of the
+    gangs whose pods are all bound, then refill with gangs of 4 to
+    ``n_tasks × (1 + wobble·U(−1, 1))`` pods."""
+    rng = np.random.default_rng(seed)
+    serial = itertools.count(1_000_000)
+
+    def churn(c: int) -> dict:
+        k = max(1, int(len(cache.jobs) * churn_frac))
+        done = 0
+        for uid, job in list(cache.jobs.items()):
+            if done >= k:
+                break
+            pods = [cache.pods.get(key) for key in job.tasks]
+            if not pods or any(p is None or p.node_name is None for p in pods):
+                continue
+            for p in sorted(pods, key=lambda p: p.name):
+                cache.delete_pod(p)
+            cache.delete_pod_group(uid)
+            done += 1
+        want = int(n_tasks * (1.0 + wobble * float(rng.uniform(-1, 1))))
+        arrived = 0
+        while len(cache.pods) + GANG <= want:
+            j = next(serial)
+            cache.add_pod_group(PodGroup(name=f"mc{j}", namespace="bench",
+                                         min_member=GANG, queue=f"q{j % N_QUEUES}",
+                                         creation_index=j))
+            for i in range(GANG):
+                cache.add_pod(Pod(
+                    name=f"mc{j}-{i}", namespace="bench",
+                    requests={"cpu": float(rng.choice(CPU_CHOICES)),
+                              "memory": float(rng.choice(MEM_CHOICES))},
+                    annotations={GROUP_NAME_ANNOTATION: f"mc{j}"},
+                    phase=PodPhase.PENDING, creation_index=j * 10 + i))
+            arrived += GANG
+        return {"completed_gangs": done, "arrived": arrived}
+
+    return churn
+
+
 def drive_steady(n_tasks: int, n_nodes: int, cycles: int = 8, warmup_cycles: int = 2,
                  churn_frac: float = 0.02, wobble: float = 0.1, seed: int = 0,
                  device=None, leg: str = "defaults", check_swaps: bool = False,
@@ -656,45 +717,9 @@ def drive_steady(n_tasks: int, n_nodes: int, cycles: int = 8, warmup_cycles: int
         t = time.perf_counter()
         cache = synthetic_cluster(n_tasks, n_nodes, gang_size=GANG, n_queues=N_QUEUES,
                                   seed=seed)
-        # the wobble's ceiling, reserved so the axes never grow mid-drive
-        cache.columns.reserve(n_tasks=int(n_tasks * 1.15),
-                              n_jobs=int(n_tasks / GANG * 1.15) + 8)
+        reserve_wobble(cache, n_tasks)
         ingest_s = time.perf_counter() - t
-        rng = np.random.default_rng(seed)
-        serial = itertools.count(1_000_000)
-
-        def churn(c: int) -> dict:
-            """bench.py's churn_step: complete churn_frac of the gangs
-            whose pods are all bound, then refill to the wobbled count."""
-            k = max(1, int(len(cache.jobs) * churn_frac))
-            done = 0
-            for uid, job in list(cache.jobs.items()):
-                if done >= k:
-                    break
-                pods = [cache.pods.get(key) for key in job.tasks]
-                if not pods or any(p is None or p.node_name is None for p in pods):
-                    continue
-                for p in sorted(pods, key=lambda p: p.name):
-                    cache.delete_pod(p)
-                cache.delete_pod_group(uid)
-                done += 1
-            want = int(n_tasks * (1.0 + wobble * float(rng.uniform(-1, 1))))
-            arrived = 0
-            while len(cache.pods) + GANG <= want:
-                j = next(serial)
-                cache.add_pod_group(PodGroup(name=f"mc{j}", namespace="bench",
-                                             min_member=GANG, queue=f"q{j % N_QUEUES}",
-                                             creation_index=j))
-                for i in range(GANG):
-                    cache.add_pod(Pod(
-                        name=f"mc{j}-{i}", namespace="bench",
-                        requests={"cpu": float(rng.choice(CPU_CHOICES)),
-                                  "memory": float(rng.choice(MEM_CHOICES))},
-                        annotations={GROUP_NAME_ANNOTATION: f"mc{j}"},
-                        phase=PodPhase.PENDING, creation_index=j * 10 + i))
-                arrived += GANG
-            return {"completed_gangs": done, "arrived": arrived}
-
+        churn = steady_churn(cache, n_tasks, seed, churn_frac, wobble)
         report = run_cycles(cache, device, churn, ingest_s, keep_states, profile,
                             n_cycles=warmup_cycles + cycles, check_swaps=check_swaps,
                             pipelined=leg == "pipelined")
@@ -1265,12 +1290,468 @@ def drive_guard(n_tasks: int, n_nodes: int, arrivals: int, bundle_dir: str,
                 device=str(dev))
 
 
+#: the what-if drive's probed gangs in queue q0, counts 1–8: (count, cpu,
+#: pinned node, evictions).  "full" is the node the fillers fill (its
+#: gang's verdict is an eviction; last, since its claim stays pending
+#: while the victims release), "free" a node pinned by hostname too
+WHATIF_GANGS = (
+    (2, 250.0, "free", False),
+    (3, 1000.0, None, False),
+    (4, 4000.0, None, False),
+    (5, 250.0, None, False),
+    (6, 1000.0, None, False),
+    (7, 4000.0, None, False),
+    (8, 250.0, None, False),
+    (1, 4000.0, "full", True),
+)
+#: the what-if drive's pinned nodes, and the fillers that fill the first
+WHATIF_NODES = {"full": "n0", "free": "n1"}
+WHATIF_FILLERS = 8
+#: the request mix of the serving part and of the card-vs-CPU part
+#: (bench.py's whatif_serving_bench): counts U{1..8}, these cpus, 1 GiB
+WHATIF_CPU = (250.0, 1000.0, 4000.0)
+#: the plane's batch and window (bench.py's whatif_serving_bench); a
+#: timed flush and the card-vs-CPU part send one full batch
+WHATIF_BATCH, WHATIF_WINDOW_S = 32, 0.002
+#: the serving part: client threads, requests each, and the steady cycles
+#: run beside them
+WHATIF_CLIENTS, WHATIF_REQUESTS, WHATIF_CYCLES = 16, 25, 3
+#: the card-vs-CPU part's cluster
+WHATIF_MID = (4096, 1024)
+
+
+def whatif_body(count: int, cpu: float, node=None, evictions: bool = False,
+                priority: int = 0) -> dict:
+    """A what-if request for a gang of ``count`` members in queue q0."""
+    from kube_batch_tpu_torch.api.pod import HOSTNAME_TOPOLOGY
+
+    body = {"queue": "q0", "count": count, "priority": priority,
+            "requests": {"cpu": cpu, "memory": float(2**30)}, "evictions": evictions}
+    if node is not None:
+        body["node_selector"] = {HOSTNAME_TOPOLOGY: node}
+    return body
+
+
+def probe_now(qp, body: dict) -> dict:
+    """One request through a plane made with start_thread=False, flushed
+    on this thread."""
+    fut = qp.submit(body)
+    qp.batcher.tick(now=qp.batcher.clock.monotonic() + 1e6)
+    return fut.result(timeout=600)
+
+
+def whatif_cluster(n_tasks: int, n_nodes: int, seed: int = 0, device=None):
+    """The what-if drive's frozen cluster: ``synthetic_cluster(n_tasks,
+    n_nodes, gang_size=4, n_queues=3)`` through the handlers, the two
+    pinned nodes labelled with their hostname, and ``WHATIF_FILLERS``
+    single-pod q0 jobs (MinAvailable 1, so evictable) pinned to the "full"
+    node, each asking for its share of a node's cpu.  A plane
+    (start_thread=False) is attached; two cycles of the shipped conf run,
+    every pod still pending is deleted (nothing else competes with the
+    probes), the fillers start Running (a victim runs), and a third cycle
+    publishes the lease.  Returns (cache, scheduler, plane)."""
+    from kube_batch_tpu_torch.api.pod import HOSTNAME_TOPOLOGY
+    from kube_batch_tpu_torch.serve.plane import QueryPlane
+
+    cache = synthetic_cluster(n_tasks, n_nodes, gang_size=GANG, n_queues=N_QUEUES, seed=seed)
+    reserve_wobble(cache, n_tasks)
+    for name in WHATIF_NODES.values():
+        node = cache.nodes[name].node
+        cache.update_node(dataclasses.replace(
+            node, labels={**node.labels, HOSTNAME_TOPOLOGY: name}))
+    for k in range(WHATIF_FILLERS):
+        cache.add_pod_group(PodGroup(name=f"fill{k}", namespace="bench", min_member=1,
+                                     queue="q0", creation_index=2 * 10**6 + k))
+        cache.add_pod(Pod(
+            name=f"fill{k}", namespace="bench",
+            requests={"cpu": NODE_CPU / WHATIF_FILLERS, "memory": float(2**30)},
+            annotations={GROUP_NAME_ANNOTATION: f"fill{k}"}, phase=PodPhase.PENDING,
+            creation_index=2 * 10**6 + k,
+            node_selector={HOSTNAME_TOPOLOGY: WHATIF_NODES["full"]}))
+    sched = Scheduler(cache, conf=load_scheduler_conf(shipped_conf_path()), device=device)
+    qp = QueryPlane(cache, max_batch=WHATIF_BATCH, start_thread=False)
+    for _ in range(2):
+        sched.run_once()
+    for pod in [p for p in cache.pods.values() if p.node_name is None]:
+        cache.delete_pod(pod)
+    for uid in [u for u, j in cache.jobs.items() if not j.tasks and j.pod_group is not None]:
+        cache.delete_pod_group(uid)
+    for k in range(WHATIF_FILLERS):
+        pod = cache.pods.get(f"bench/fill{k}")
+        if pod is not None:
+            cache.update_pod(dataclasses.replace(pod, phase=PodPhase.RUNNING))
+    sched.run_once()
+    if qp.broker.current() is None:
+        fail("whatif: the cycle published no lease")
+    return cache, sched, qp
+
+
+def hold_k1_rows(lease) -> dict:
+    """K1 at explicit rows on a 64-member probe gang's plane of ``lease``
+    (the lease's peeked rows, then rows past the task axis at a stride of
+    5), against its plain version, bit-exact; on a CUDA lease also timed
+    (CUDA events) against its bound."""
+    from kube_batch_tpu_torch.ops.feasibility import static_predicates
+    from kube_batch_tpu_torch.ops.kernels import masked_best_node_raw_plain
+    from kube_batch_tpu_torch.ops.probe import _gang_view
+    from kube_batch_tpu_torch.ops.scoring import score_matrix
+
+    snap = lease.snap
+    dev = snap.task_req.device
+    T, R = snap.task_req.shape
+    G = 64
+    rng = np.random.default_rng(G)
+    req = torch.zeros((G, R), dtype=torch.float32)
+    req[:, 0] = torch.from_numpy(rng.choice(WHATIF_CPU, G).astype(np.float32))
+    req[:, 1] = float(2**30)
+    req[:, 2] = 1.0
+    i32 = dict(dtype=torch.int32, device=dev)
+    view = _gang_view(snap, req.to(dev), torch.ones(G, dtype=torch.bool, device=dev),
+                      torch.tensor(G, **i32), torch.tensor(0, **i32), torch.tensor(0, **i32),
+                      torch.zeros_like(snap.task_sel_bits[0]),
+                      torch.tensor(False, device=dev), torch.zeros_like(snap.task_tol_bits[0]))
+    rows = list(lease.probe_rows[:G // 2]) + [T + 3 + 5 * k for k in range(G // 2)]
+    inp = dict(score=score_matrix(view, lease.config.weights).contiguous(),
+               static_ok=static_predicates(view).contiguous(), task_req=view.task_req,
+               idle=snap.node_idle, releasing=snap.node_releasing,
+               pending=view.task_pending, quanta=snap.quanta,
+               rows=torch.tensor(rows, dtype=torch.int32, device=dev))
+    out = {"shape": list(inp["score"].shape), "rows_beyond_T": G // 2}
+    if dev.type != "cuda":
+        got = kernels.masked_best_node_raw(**inp)
+        want = masked_best_node_raw_plain(**inp)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail("K1 at the probe's rows differs from its plain version")
+        return dict(out, max_abs_err=0.0)
+    from kube_batch_tpu_torch.testing.kernel_bench import k1_bound, run_case
+
+    r = run_case(kernels.masked_best_node_raw, masked_best_node_raw_plain, inp, 20, 3)
+    b_ms, b_by = k1_bound(inp)
+    return dict(out, **r, bound_ms=b_ms, bound_by=b_by, bound_fraction=b_ms / r["ms"])
+
+
+def _submit_whatif_gang(cache, name: str, body: dict, serial: int) -> List[str]:
+    """The probed gang, submitted as a client posts it: its PodGroup, then
+    ``count`` pods in member order, created after everything in the
+    cluster.  Returns the pod keys."""
+    created = 5 * 10**7 + 100 * serial
+    cache.add_pod_group(PodGroup(name=name, namespace="bench", min_member=body["count"],
+                                 queue=body["queue"], creation_index=created))
+    keys = []
+    for k in range(body["count"]):
+        cache.add_pod(Pod(name=f"{name}-{k}", namespace="bench",
+                          requests=dict(body["requests"]),
+                          annotations={GROUP_NAME_ANNOTATION: name},
+                          phase=PodPhase.PENDING, priority=body["priority"],
+                          creation_index=created + k,
+                          node_selector=dict(body.get("node_selector", {}))))
+        keys.append(f"bench/{name}-{k}")
+    return keys
+
+
+def whatif_oracle(cache, sched, qp) -> List[dict]:
+    """The oracle contract on the frozen cluster, gang by gang
+    (``WHATIF_GANGS``): probe, then submit the gang alone and run one
+    cycle.  A lease is the snapshot its cycle's solve consumed, so it
+    holds none of that cycle's own binds: before each probe but the first
+    an idle cycle (nothing pending) publishes the lease of the state the
+    gang's cycle will see.  A feasible verdict must bind exactly at its
+    nodes, an eviction verdict must evict exactly its victims (through
+    preempt), and every gang not pinned to the full node must be
+    feasible.  Records each probe's latency, K1 launches and host syncs."""
+    dev = sched.device
+    out = []
+    for i, (count, cpu, node, evictions) in enumerate(WHATIF_GANGS):
+        if i:
+            sched.run_once()
+        if (cache.columns.has_schedulable_pending()
+                or qp.broker.current().version != cache.last_open_version):
+            fail(f"whatif gang {i}: the lease does not describe an idle cycle's state")
+        body = whatif_body(count, cpu, WHATIF_NODES.get(node), evictions,
+                           priority=100 if evictions else 0)
+        kernels.reset_launches()
+        with count_syncs(dev) as syncs:
+            t = time.perf_counter()
+            resp = probe_now(qp, body)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            probe_ms = (time.perf_counter() - t) * 1e3
+        launches = kernels.launches["masked_best_node_raw"]
+        lease = qp.broker.current()
+        if resp["snapshot_version"] != lease.version:
+            fail(f"whatif gang {i}: answered at {resp['snapshot_version']}, lease {lease.version}")
+        keys = _submit_whatif_gang(cache, f"whatif{i}", body, i)
+        n_ev = len(cache.evictor.evicts)
+        sched.run_once()
+        bound = [cache.binder.binds.get(k) for k in keys]
+        evicted = sorted(cache.evictor.evicts[n_ev:])
+        rec = dict(gang=i, count=count, cpu=cpu, pinned=node, evictions=evictions,
+                   feasible=resp["feasible"], committed=resp["committed"],
+                   nodes=resp["nodes"], bound=bound, probe_ms=probe_ms,
+                   k1_launches=launches, syncs=syncs[0] if dev.type == "cuda" else None,
+                   version=resp["snapshot_version"])
+        if resp["feasible"] and bound != resp["nodes"]:
+            fail(f"whatif gang {i}: probed at {resp['nodes']}, bound at {bound}")
+        if node != "full" and not resp["feasible"]:
+            fail(f"whatif gang {i}: {count} × {cpu} cpu reported infeasible: {resp}")
+        if evictions:
+            ev = resp["evictions"]
+            rec.update(victims=ev["victims"], claim_nodes=ev["claim_nodes"],
+                       covered=ev["covered"], evicted=evicted)
+            if evicted != ev["victims"]:
+                fail(f"whatif gang {i}: probed victims {ev['victims']}, evicted {evicted}")
+            if node == "full" and not (ev["victims"] and ev["covered"]):
+                fail(f"whatif gang {i}: no covered eviction on the full node: {ev}")
+        if dev.type == "cuda" and launches == 0:
+            fail(f"whatif gang {i}: the probe launched no K1")
+        out.append(rec)
+    return out
+
+
+def whatif_serving(cache, sched, n_tasks: int, seed: int = 0) -> dict:
+    """bench.py's whatif_serving_bench beside live cycles: a threaded plane
+    (``WHATIF_BATCH``, ``WHATIF_WINDOW_S``, and the lease wait a deployment
+    has, ``KB_WHATIF_TIMEOUT_S``) answers ``WHATIF_CLIENTS`` client threads
+    of ``WHATIF_REQUESTS`` requests each (counts U{1..8}, cpu from
+    ``WHATIF_CPU``, 1 GiB, one in four with evictions) while this thread
+    runs ``WHATIF_CYCLES`` cycles of the steady drive (the kubelet pass,
+    then the churn; the first pass, which starts every bound pod, runs
+    before the window).  Each cycle records its wall, stages and
+    allocate phases, the ms its swaps waited for in-flight probes, and
+    the ms the lease was dark (retired, not yet re-armed).  Checks: no
+    request failed; each client's versions never decrease; every
+    answered node is in its lease's meta; every swap retired the lease
+    and every cycle ended with one live; fewer dispatches than requests
+    served."""
+    from kube_batch_tpu_torch.serve.plane import QueryPlane
+
+    qp = QueryPlane(cache, max_batch=WHATIF_BATCH, window_s=WHATIF_WINDOW_S)
+    broker = qp.broker
+    allocate = {a.name: a for a in sched.actions}["allocate"]
+    nodes_by_version: Dict[int, set] = {}
+    publish = qp.broker.publish
+
+    def recording_publish(lease):
+        nodes_by_version.setdefault(lease.version, set()).update(
+            n for n in lease.meta.node_names if n)
+        publish(lease)
+
+    qp.broker.publish = recording_publish
+    swaps = [0]
+    cols = cache.columns
+    try:
+        n_ev = len(cache.evictor.evicts)
+        kubelet(cache, [])
+        sched.run_once()  # the new plane's first lease
+        churn = steady_churn(cache, n_tasks, seed + 7)
+        retired0, published0 = broker.retired, broker.published
+        served0, dispatches0 = qp.requests_served, qp.dispatches
+        broker.dark_longest_s = 0.0
+        cols.on_swap = lambda snap, out: swaps.__setitem__(0, swaps[0] + 1)
+        answers: Dict[int, list] = {}
+        errors: List[str] = []
+        lock = threading.Lock()
+
+        def client(k: int) -> None:
+            rng = np.random.default_rng([seed, k])
+            mine = []
+            try:
+                for _ in range(WHATIF_REQUESTS):
+                    body = whatif_body(int(rng.integers(1, 9)), float(rng.choice(WHATIF_CPU)),
+                                       evictions=bool(rng.random() < 0.25))
+                    t = time.perf_counter()
+                    resp = qp.submit(body).result(timeout=600)
+                    mine.append(((time.perf_counter() - t) * 1e3, resp))
+            except Exception as e:  # noqa: BLE001 — counted, the drive fails on it
+                with lock:
+                    errors.append(f"{type(e).__name__}: {e}")
+            with lock:
+                answers[k] = mine
+
+        threads = [threading.Thread(target=client, args=(k,), daemon=True)
+                   for k in range(WHATIF_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        walls, log, leaseless = [], [], []
+        for c in range(1, WHATIF_CYCLES + 1):
+            kubelet(cache, cache.evictor.evicts[n_ev:])
+            n_ev = len(cache.evictor.evicts)
+            churn(c)
+            wait0, dark0, swaps0 = broker.swap_wait_s, broker.dark_s, swaps[0]
+            t = time.perf_counter()
+            sched.run_once()
+            if sched.device.type == "cuda":
+                torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+            log.append(dict(wall_ms=walls[-1], open_path=cache.last_open_path,
+                            stages_ms=dict(sched.last_cycle_ms),
+                            allocate_ms=dict(allocate.last_phase_ms),
+                            swaps=swaps[0] - swaps0,
+                            swap_wait_ms=(broker.swap_wait_s - wait0) * 1e3,
+                            dark_ms=(broker.dark_s - dark0) * 1e3))
+            if broker.current() is None:
+                leaseless.append(c)
+        cycles_s = time.perf_counter() - t0
+        for t in threads:
+            t.join(timeout=900)
+        elapsed = time.perf_counter() - t0
+        cols.on_swap = None
+        served = qp.requests_served - served0
+        dispatches = qp.dispatches - dispatches0
+        retired = broker.retired - retired0
+        published = broker.published - published0
+        dark_longest_ms = broker.dark_longest_s * 1e3
+    finally:
+        cols.on_swap = None
+        qp.close()
+    if errors:
+        fail(f"whatif serving: {len(errors)} clients failed: {errors[:3]}")
+    lat = sorted(ms for mine in answers.values() for ms, _r in mine)
+    for k, mine in answers.items():
+        versions = [r["snapshot_version"] for _ms, r in mine]
+        if versions != sorted(versions):
+            fail(f"whatif serving: client {k}'s versions went back: {versions}")
+        for _ms, r in mine:
+            known = nodes_by_version.get(r["snapshot_version"], set())
+            named = [n for n in r["nodes"] + r.get("evictions", {}).get("claim_nodes", [])
+                     if n is not None]
+            if any(n not in known for n in named):
+                fail(f"whatif serving: nodes {named} not in lease {r['snapshot_version']}")
+    if len(lat) != WHATIF_CLIENTS * WHATIF_REQUESTS:
+        fail(f"whatif serving: {len(lat)} answers of {WHATIF_CLIENTS * WHATIF_REQUESTS}")
+    if retired < swaps[0] or leaseless:
+        fail(f"whatif serving: {retired} retirements for {swaps[0]} swaps, leaseless "
+             f"after cycles {leaseless}")
+    if not 0 < dispatches < served:
+        fail(f"whatif serving: {dispatches} dispatches for {served} requests")
+    return dict(clients=WHATIF_CLIENTS, requests=served, dispatches=dispatches,
+                mean_batch_size=served / dispatches,
+                dispatches_per_100_requests=100.0 * dispatches / served,
+                latency_ms={"p50": float(np.percentile(lat, 50)),
+                            "p99": float(np.percentile(lat, 99)),
+                            "mean": float(np.mean(lat))},
+                qps=served / elapsed, elapsed_s=elapsed, cycles_s=cycles_s,
+                cycle_wall_ms=walls, cycles=log, swaps=swaps[0], retired=retired,
+                published=published, dark_longest_ms=dark_longest_ms,
+                lease_wait_s=qp.dispatch_timeout, max_batch=WHATIF_BATCH,
+                window_s=WHATIF_WINDOW_S)
+
+
+def whatif_flush(qp, seed: int = 0, profile: bool = False) -> dict:
+    """``qp.batcher.max_batch`` requests of the serving mix (every eighth
+    pinned to the full node) in one flush against the frozen lease,
+    without and with evictions: each flush's wall (to its last answer,
+    the card synchronised), K1 launches and host syncs, or with
+    ``profile`` its :func:`device_profile` in place of the syncs (the
+    profiler slows the host: take the walls from a run without it)."""
+    bodies = whatif_requests(qp.batcher.max_batch, seed)
+    dev = qp.broker.current().snap.task_req.device
+    out = {}
+    for ev in (False, True):
+        kernels.reset_launches()
+        with (device_profile(dev) if profile else count_syncs(dev)) as seen:
+            t = time.perf_counter()
+            futs = [qp.submit(dict(b, evictions=ev)) for b in bodies]
+            qp.batcher.tick(now=qp.batcher.clock.monotonic() + 1e6)
+            answers = [f.result(timeout=600) for f in futs]
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+        out["evictions" if ev else "plain"] = dict(
+            gangs=len(answers), ms=ms, k1_launches=kernels.launches["masked_best_node_raw"],
+            syncs=seen[0] if dev.type == "cuda" and not profile else None,
+            feasible=sum(r["feasible"] for r in answers),
+            **(seen if profile else {}))
+    return out
+
+
+def whatif_requests(n: int, seed: int) -> List[dict]:
+    """``n`` seeded requests of the serving mix, every eighth pinned to the
+    full node at 4000 cpu (an eviction verdict when evictions are on)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        if i % 8 == 7:
+            out.append(whatif_body(1, 4000.0, WHATIF_NODES["full"]))
+        else:
+            out.append(whatif_body(int(rng.integers(1, 9)), float(rng.choice(WHATIF_CPU))))
+    return out
+
+
+def whatif_cross_device(device, seed: int = 0) -> dict:
+    """The same ``WHATIF_BATCH`` requests, without and with evictions, to
+    the frozen ``WHATIF_MID`` cluster built the same way on the CPU (K1's
+    plain version) and on ``device``: each set is one flush, and the
+    answers must be identical."""
+    answers = {}
+    bodies = whatif_requests(WHATIF_BATCH, seed)
+    for leg, dev in (("cpu", "cpu"), ("device", device)):
+        cache, sched, qp = whatif_cluster(*WHATIF_MID, seed, dev)
+        try:
+            got = {}
+            for ev in (False, True):
+                futs = [qp.submit(dict(b, evictions=ev)) for b in bodies]
+                qp.batcher.tick(now=qp.batcher.clock.monotonic() + 1e6)
+                got[ev] = [f.result(timeout=600) for f in futs]
+            answers[leg] = got
+            dispatches = qp.dispatches
+        finally:
+            qp.close()
+            sched.close()
+            cache.stop()
+        if dispatches != 2:
+            fail(f"whatif cross-device {leg}: {dispatches} dispatches for two flushes")
+    for ev in (False, True):
+        for i, (a, b) in enumerate(zip(answers["cpu"][ev], answers["device"][ev])):
+            if a != b:
+                fail(f"whatif cross-device: request {i} (evictions {ev}) answered "
+                     f"differently: {a} / {b}")
+    with_victims = sum(1 for r in answers["device"][True] if r["evictions"]["victims"])
+    if not with_victims:
+        fail("whatif cross-device: no answer named a victim")
+    return dict(shape=list(WHATIF_MID), requests=WHATIF_BATCH,
+                feasible=sum(r["feasible"] for r in answers["device"][False]),
+                with_victims=with_victims, equal="every response, with and without evictions")
+
+
+def drive_whatif(n_tasks: int, n_nodes: int, seed: int = 0, device=None,
+                 profile: bool = False) -> dict:
+    """The read plane's drive: the oracle contract on the frozen
+    ``whatif_cluster`` (:func:`whatif_oracle`, with K1 held at the probe's
+    rows first, :func:`hold_k1_rows`, and a flush of 32 gangs without and
+    with evictions timed, :func:`whatif_flush`), then serving beside live cycles on
+    the same cache (:func:`whatif_serving`), then the card against the CPU
+    at ``WHATIF_MID`` (:func:`whatif_cross_device`, skipped on
+    a CPU run).  ``profile`` profiles the timed flushes.  Raises on any
+    failed check; returns the report."""
+    t = time.perf_counter()
+    cache, sched, qp = whatif_cluster(n_tasks, n_nodes, seed, device)
+    setup_s = time.perf_counter() - t
+    try:
+        k1_rows = hold_k1_rows(qp.broker.current())
+        flush = whatif_flush(qp, seed, profile)
+        oracle = whatif_oracle(cache, sched, qp)
+        qp.close()
+        serving = whatif_serving(cache, sched, n_tasks, seed)
+    finally:
+        qp.close()
+        sched.close()
+        cache.stop()
+    cross = (whatif_cross_device(sched.device, seed)
+             if sched.device.type == "cuda" else None)
+    return dict(tasks=n_tasks, nodes=n_nodes, device=str(sched.device), setup_s=setup_s,
+                k1_probe_rows=k1_rows, flush=flush, oracle=oracle, serving=serving,
+                cross_device=cross)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--overcommit", action="store_true")
     ap.add_argument("--steady", action="store_true")
     ap.add_argument("--loop", action="store_true")
     ap.add_argument("--features", action="store_true")
+    ap.add_argument("--whatif", action="store_true")
     ap.add_argument("--feed", type=int, default=20)
     ap.add_argument("--period", type=float, default=1.0)
     ap.add_argument("--leg", default="defaults",
@@ -1286,7 +1767,9 @@ def main() -> None:
     ap.add_argument("--device", default=None)
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
-    if args.features:
+    if args.whatif:
+        out = drive_whatif(args.tasks, args.nodes, device=args.device, profile=args.profile)
+    elif args.features:
         # chip_smoke's shares: 4 % of the pods claim a PV, 0.1 % a missing one
         out = drive_features(args.tasks, args.nodes, round(0.04 * args.tasks),
                              max(1, round(0.001 * args.tasks)), device=args.device,

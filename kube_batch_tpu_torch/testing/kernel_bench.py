@@ -20,13 +20,23 @@ For an A/B of two trees in one call, run this file by path with
 ``ops/admission.py``).
 ``chip_smoke.py`` takes its cases and bounds from here.  Needs a CUDA
 device.
+
+    python -m kube_batch_tpu_torch.testing.kernel_bench --sass 'masked_best_node_kernel<4, 4, 1024>'
+
+builds the library afresh and prints instead one kernel instance's ptxas
+line (registers, shared memory, spills) and its SASS (``cuobjdump
+-sass``), one instruction a line without addresses or encodings, so that
+two trees' builds can be compared with ``diff``, then one line for each
+loop (a backward branch): its span, length and opcode counts.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -168,12 +178,14 @@ def k2_case(snap, P, n_cols=None):
 
 def k1_bound(inp):
     """K1's bound on these inputs: a pending row's score and static_ok are
-    read once; a row that is not pending needs none of its bytes."""
+    read once; a row that is not pending needs none of its bytes (the
+    probe's explicit ``rows``, when given, are read once too)."""
     T, N = inp["score"].shape
     R = inp["task_req"].shape[1]
     n_pend = int(inp["pending"].sum())
     ins = n_pend * N * (4 + 1) + nbytes(
-        *(inp[k] for k in ("task_req", "idle", "releasing", "pending", "quanta")))
+        *(inp[k] for k in ("task_req", "idle", "releasing", "pending", "quanta", "rows")
+          if inp.get(k) is not None))
     outs = T * (4 + 4 + 4 + 1)
     # per pending cell: 2R budget adds, 2R compares, the tie hash (7 integer
     # ops), the mask select and the two-key compare; per other cell the hash
@@ -339,10 +351,56 @@ def run_case(kernel, plain, inp, reps, plain_reps=0):
     return out
 
 
+def kernel_sass(name: str) -> str:
+    """The kernel instance ``name`` (as the build's ptxas summary names
+    it) in a fresh build of the library: its ptxas line, then its SASS,
+    one instruction a line."""
+    from kube_batch_tpu_torch.ops._build import _kernel_name, build, nvcc_path
+
+    info = build(force=True)
+    ptxas = [ln for ln in info.ptxas if ln.startswith(name + ":")]
+    cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
+    dump = subprocess.run([str(cuobjdump), "-sass", str(info.path)],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    for block in re.split(r"\n\s*Function : ", dump)[1:]:
+        mangled, _, body = block.partition("\n")
+        if _kernel_name(mangled.strip()) == name:
+            return "\n".join(["// ptxas: " + "; ".join(ptxas)] + [
+                m.group(1).strip()
+                for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s*(.*?;)", body)])
+    raise SystemExit(f"kernel_bench: no kernel {name!r} in the library")
+
+
+def sass_loops(sass: str) -> list:
+    """The loops of ``kernel_sass``'s listing: for each backward branch,
+    the span of instruction indices it closes, its length and the count of
+    each opcode in it (16-byte instructions from address 0)."""
+    ins = [ln for ln in sass.splitlines() if not ln.startswith("//")]
+    out = []
+    for i, ln in enumerate(ins):
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", ln)
+        if m and int(m.group(1), 16) // 16 <= i:
+            t = int(m.group(1), 16) // 16
+            ops = {}
+            for x in ins[t:i + 1]:
+                op = re.sub(r"^@!?U?P\w+\s+", "", x).split()[0].split(".")[0]
+                ops[op] = ops.get(op, 0) + 1
+            out.append(dict(span=[t, i], n=i - t + 1, ops=ops))
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--sass", metavar="KERNEL",
+                    help="print this kernel instance's SASS and exit")
     args = ap.parse_args()
+    if args.sass:
+        sass = kernel_sass(args.sass)
+        print(sass)
+        for loop in sass_loops(sass):
+            print("// loop " + json.dumps(loop))
+        return
     if not torch.cuda.is_available():
         raise SystemExit("kernel_bench: no CUDA device is available")
 

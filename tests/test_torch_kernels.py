@@ -479,3 +479,55 @@ def test_k2_kernel_forced_ties(cuda_device):
     col, tied = first_max_hash_col(inp["rows"].cpu().numpy(), np.arange(64))
     assert tied[:4].all()
     np.testing.assert_array_equal(got[3][:, 0].cpu().numpy(), col)
+
+
+def test_library_builds_and_loads_once_from_many_threads(tmp_path, monkeypatch):
+    """The first kernel call may come from the cycle, the query plane's
+    batcher and its prewarm thread at once: with nvcc stubbed (each call
+    slow, to widen the race), eight threads asking for the library run one
+    build (one compile per source and one link) and share one handle."""
+    import sys
+    import threading
+    import time
+
+    from kube_batch_tpu_torch.ops import _build
+
+    calls = []
+
+    def fake_nvcc(cmds):
+        calls.append(len(cmds))
+        time.sleep(0.05)
+        for cmd in cmds:
+            out = cmd[cmd.index("-o") + 1]
+            with open(out, "wb") as f:
+                f.write(b"stub")
+        return ["" for _ in cmds]
+
+    handle = object()
+    loads = []
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_run_all", fake_nvcc)
+    monkeypatch.setattr(_build, "_load", lambda path: loads.append(path) or handle)
+    monkeypatch.setattr(_build, "_LIB", None)
+    start = threading.Barrier(8)
+    got = []
+
+    def first_call():
+        start.wait()
+        got.append(_build.load_library())
+
+    threads = [threading.Thread(target=first_call) for _ in range(8)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    n_sources = len(list(_build.CSRC_DIR.glob("*.cu")))
+    assert calls == [n_sources, 1], "one compile per source and one link, once"
+    assert len(loads) == 1 and len(got) == 8 and all(h is handle for h in got)
+    assert (tmp_path / "build" / _build.LIB_NAME).exists()

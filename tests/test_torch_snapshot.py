@@ -104,7 +104,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     then starting and stopping a pipelined ``run_forever`` that binds an
     arrival, then the feature paths — a PV ledger, PDB gangs and a custom
     score row through the feature drive's exclusive and isolated cycles,
-    and ``build_snapshot`` of a ``cache.snapshot()`` — leaves no jax, no
+    and ``build_snapshot`` of a ``cache.snapshot()`` — then the read plane
+    (a query plane whose batcher thread answers one what-if request,
+    evictions on, after one cycle published its lease) leaves no jax, no
     kube_batch_tpu and no yaml module loaded (kube_batch_tpu_torch itself
     shares the prefix, so the match is exact on the package name)."""
     code = textwrap.dedent("""
@@ -168,6 +170,22 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         assert r["cycles"][-1]["new_binds"] > 0
         fsnap, fmeta = build_snapshot(synthetic_cluster(64, 8).snapshot())
         assert fmeta.n_tasks == 64 and fsnap.task_pending.sum() == 64
+        import kube_batch_tpu_torch.ops.probe
+        import kube_batch_tpu_torch.serve.batcher
+        import kube_batch_tpu_torch.serve.lease
+        from kube_batch_tpu_torch.serve import QueryPlane
+        wcache = synthetic_cluster(64, 8)
+        qp = QueryPlane(wcache, max_batch=4, window_s=0.001, prewarm=True)
+        try:
+            wsched = Scheduler(wcache, conf=load_scheduler_conf(shipped_conf_path()),
+                               device="cpu")
+            wsched.run_once()
+            resp = qp.submit({"queue": "q0", "count": 2, "evictions": True,
+                              "requests": {"cpu": 250, "memory": 2**30}}).result(60)
+            assert resp["feasible"] and resp["snapshot_version"] > 0
+            assert qp.dispatches == 1 and qp.requests_served == 1
+        finally:
+            qp.close()
         bad = sorted(n for n in sys.modules
                      if n in ("jax", "jaxlib", "yaml") or n.startswith(("jax.", "jaxlib.", "yaml."))
                      or n == "kube_batch_tpu" or n.startswith("kube_batch_tpu."))
