@@ -34,8 +34,9 @@ the delta session open and close, and device programs reading resident
 tensors refreshed by row scatters.
 
 The steady-state drive (``cycle_steady``, ``drive_steady``: the JAX
-package's ``bench.py`` ``multicycle_bench``) runs 2 + 8 back-to-back
-cycles on the 50 000-pod cluster — 2 % of the bound gangs complete and
+package's ``bench.py`` ``multicycle_bench``) runs 2 + 4 back-to-back
+cycles on the 50 000-pod cluster (the bench's 8 measured cycles cut to 4
+for the script's time; ``cycle_drive --steady`` runs 8) — 2 % of the bound gangs complete and
 arrivals refill the pod count within ±10 % before each — five times: with
 the defaults (delta open and close, resident snapshot, the warm
 candidate-table carry, the guard plane), with ``KB_WARM=0`` (cold), with
@@ -77,7 +78,15 @@ the read plane's oracle contract at 50 000 × 5 000 (each probed gang,
 submitted alone, binds exactly at its probed nodes; the eviction verdict
 evicts exactly its victims), serves 16 clients × 25 requests beside three
 live steady cycles, and answers 32 requests identically on the card and
-the CPU at 4 096 × 1 024.  Each phase prints one JSON line; any
+the CPU at 4 096 × 1 024.  The replicate phase (``drive_replicate``)
+runs the steady drive at 50 000 × 5 000 without and with a replication
+publisher, with the per-cycle checks of every drive; a follower on the
+card applies every record and, in the cycles it follows, must answer
+four gangs and a sweep as the leader's lease of that record does (its
+probes launch K1 on tensors filled from the wire), resync warm after a
+dropped frame, get a full frame past a ring of 4 and re-adopt warm on a
+restart; at 4 096 × 1 024 a card follower and a CPU follower must answer
+32 requests identically.  Each phase prints one JSON line; any
 failure raises (non-zero exit).  The last three lines are the kernels'
 summary, the card's name and power limit, and ``{"ok": true, "device":
 ...}``.
@@ -113,7 +122,7 @@ OC_RUNNING, OC_PENDING = 40_000, 20_000
 MID_OC = dict(n_running=2048, n_pending=1024, n_nodes=256)
 # the steady-state drive: warmup and measured cycles (bench.py:151), and its
 # legs (cycle_drive.LEGS: defaults, KB_WARM=0, KB_GUARD=0, the oracle)
-STEADY_WARMUP, STEADY_CYCLES = 2, 8
+STEADY_WARMUP, STEADY_CYCLES = 2, 4
 STEADY_LEGS = ("defaults", "cold", "noguard", "oracle", "pipelined")
 # the loop drive: single-pod arrivals and the serial loop's tick (bench.py:1215)
 LOOP_FEED, LOOP_PERIOD = 20, 1.0
@@ -869,6 +878,33 @@ def phase_whatif(k1_main, steady_defaults):
     return r, launches
 
 
+def phase_replicate():
+    """The replication stream on the card (``cycle_drive.drive_replicate``):
+    the steady drive at 50k × 5k with a query plane, first without a
+    publisher, then with the publisher and a follower on the same card
+    pulling in process: in the cycles the follower follows, after every
+    record, before the leader's next swap, four gangs (one with evictions)
+    and a sweep go to both planes and must be answered identically; in the
+    others the publisher runs alone (its cost on the wall) and the
+    follower catches up after the cycle; a dropped frame resyncs warm
+    (only the changed fields uploaded again), a follower past a ring of 4
+    gets a synthesized full frame, and a restarted pull loop re-adopts
+    warm; then at 4 096 × 1 024 a card follower and a CPU follower of one
+    leader answer 32 requests identically, with and without evictions."""
+    from kube_batch_tpu_torch.testing.cycle_drive import drive_replicate
+
+    r = drive_replicate(N_TASKS, N_NODES, device="cuda")
+    if not r["follower_k1_launches"]:
+        fail("replicate: the follower's probes launched no K1")
+    if r["cross_device"] is None:
+        fail("replicate: the card-against-CPU part did not run")
+    if r["counters"]["encode_errors"]:
+        fail(f"replicate: {r['counters']['encode_errors']} encodes failed")
+    emit("replicate", conf="shipped", shape=[N_TASKS, N_NODES],
+         **{k: v for k, v in r.items() if k not in ("tasks", "nodes")})
+    return r
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -904,6 +940,7 @@ def main() -> int:
     features = phase_cycle_features()
     phase_cycle_cross_device()
     whatif, whatif_launches = phase_whatif(kern["K1"], steady["defaults"]["steady"])
+    replicate = phase_replicate()
     cycle_launches = {name: {f"cycle{c['cycle']}": c["launches"][name]
                              for c in cycle["cycles"]}
                       for name in KERNELS}
@@ -952,6 +989,7 @@ def main() -> int:
              loop_launches=loop_launches["masked_best_node_raw"],
              features_launches=features_launches["masked_best_node_raw"],
              whatif_launches=whatif_launches,
+             replicate_follower_launches=replicate["follower_k1_launches"],
              probe_rows_shape=whatif["k1_probe_rows"]["shape"],
              probe_rows_ms=whatif["k1_probe_rows"]["ms"],
              probe_rows_plain_ms=whatif["k1_probe_rows"]["plain_ms"],

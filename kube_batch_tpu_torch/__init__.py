@@ -16,7 +16,9 @@ reservations through the PV ledger) and backfill — and closes the session
 with the PodGroup and queue statuses; ``Scheduler.run_forever`` is the
 event-driven pipelined loop.  Beside the cycle, a query plane
 (``serve.QueryPlane``) answers what-if requests ("would this gang fit,
-where, and what would it evict?") against the lease each cycle publishes.  The layout mirrors the JAX package path for
+where, and what would it evict?") against the lease each cycle publishes,
+and a replication publisher streams each lease's state to followers that
+answer the same from their own resident copy.  The layout mirrors the JAX package path for
 path, so each module's counterpart is found at the same name:
 
   api/        — resources, the ingest objects, task / job / node / queue
@@ -39,6 +41,9 @@ path, so each module's counterpart is found at the same name:
   guard/      — the guard plane and its bundles
   serve/      — the query plane: the snapshot lease, the micro-batcher,
                 the what-if plane
+  replicate/  — the replication stream: the KBR1 codec, the leader's
+                publisher, the follower that serves what-ifs from it
+  k8s/        — the classified retry transport and circuit breaker
   utils/      — invariant assertions, the priority queue, switches, the
                 one-thread worker
   scheduler.py — the serial and pipelined loops

@@ -32,8 +32,7 @@ loaded from ``conf_path`` is reloaded at a cycle boundary when the file
 changes, and a broken edit keeps the running conf.  ``device=None`` means
 CUDA and raises without a card.
 
-Not ported (ROADMAP.md): the tracing spans, metrics and alerts (item 9),
-the replication barrier in ``drain_pipeline`` (item 6).
+Not ported (ROADMAP.md): the tracing spans, metrics and alerts (item 9).
 """
 
 from __future__ import annotations
@@ -326,10 +325,16 @@ class Scheduler:
                                   self.max_period)
 
     def drain_pipeline(self) -> None:
-        """Join the in-flight writeback stage and apply any staged ingest:
-        the deterministic post-cycle state that the serial run_once gives
-        inline."""
+        """Join the in-flight writeback stage and the replication encode, and
+        apply any staged ingest: the deterministic post-cycle state that the
+        serial run_once gives inline."""
         self._await_writeback()
+        # the replication publisher's encode overlaps the next cycle like the
+        # writeback stage: joined at the same barrier, so a drained pipeline
+        # has the cycle's record on the stream
+        rep = getattr(self.cache, "replication", None)
+        if rep is not None:
+            rep.barrier()
         self.cache.drain_staged_ingest()
 
     def _recover_failed_cycle(self) -> None:

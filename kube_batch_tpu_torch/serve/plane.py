@@ -14,7 +14,11 @@ Probe answers are oracle-exact on a frozen cache; the lease's
 ``snapshot_version`` tells clients which cache state answered them, and
 every verdict carries a ``staleness`` block (the lease's seq and version
 against the publisher's head; on a leader, ``head_fn`` unset, the lag is
-0 by construction).
+0 by construction).  With a replication publisher attached
+(``cache.replication``, ``replicate/publisher.py``) each publish first
+puts the lease's state on the stream and stamps the lease with the
+record's seq; a follower's plane (``replicate/follower.py``) sets
+``head_fn`` to its applier's head.
 
 Where the port differs from the JAX package:
 
@@ -266,6 +270,19 @@ class QueryPlane:
             queue_rows=queue_rows,
             unmodeled_gates=tuple(sorted(gates & {"drf", "proportion"})),
         )
+        pub = getattr(self.cache, "replication", None)
+        if pub is not None:
+            # the record goes onto the replication stream before the broker
+            # install, so the lease carries its seq and a leader's verdicts
+            # report the staleness coordinates a caught-up follower's do;
+            # the swap's own delta record rides along as the diff's fast path
+            try:
+                hint, hint_version = cols.export_delta_record(ssn.device)
+                seq = pub.publish_cycle(snap, meta, lease, delta_hint=hint,
+                                        cache_version=hint_version)
+                lease = lease._replace(seq=seq)
+            except Exception:  # noqa: BLE001 — replication must never stall the cycle
+                logger.exception("replication publish failed; followers will resync")
         self.broker.publish(lease)
         if self._prewarm:
             self._maybe_prewarm(lease)

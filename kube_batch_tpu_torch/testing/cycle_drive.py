@@ -15,6 +15,10 @@
         [--tasks 50000] [--nodes 5000] [--device ...]
     python -m kube_batch_tpu_torch.testing.cycle_drive --whatif
         [--tasks 50000] [--nodes 5000] [--device ...] [--profile]
+    python -m kube_batch_tpu_torch.testing.cycle_drive --replicate
+        [--tasks 50000] [--nodes 5000] [--device ...]
+    python -m kube_batch_tpu_torch.testing.cycle_drive --replicate-cost
+        [--tasks 50000] [--nodes 5000] [--device ...]
 
 The first two drives run three cycles of ``Scheduler.run_once`` under
 the shipped five-action conf (``enqueue, reclaim, allocate, backfill,
@@ -107,6 +111,31 @@ bind at exactly its probed nodes, or evict exactly its probed victims),
 and on the card the same requests answered identically on the card and
 the CPU at 4 096 × 1 024 (:func:`whatif_cross_device`).
 
+The replicate drive (:func:`drive_replicate`) runs the steady drive's
+cluster and churn twice with a query plane attached, both legs through
+the same loop and per-cycle checks as every drive: without a publisher,
+then with a ``ReplicationPublisher`` (a ring of 4) and a follower on the
+same device pulling in process (:class:`ReplicaCheck`, the loop's
+per-cycle hook).  :data:`REPLICATE_PLAN` says what the follower does in
+each steady cycle.  In the cycles it follows, every record is pulled and
+applied before the leader's next swap (the check rides the swap guard),
+and four gangs (one with evictions) and a sweep go to both planes: the
+answers must be equal, staleness included.  In the others the publisher
+runs alone and the follower catches up after the cycle's wall.  One
+frame is dropped (the next delta must be refused, the full frame after
+it adopted warm, uploading only what changed), the follower sits a cycle
+out so that its next catch-up is past the ring (it must get a full
+frame), and the pull loop restarts (``revalidate_resident`` must say
+warm).  On CUDA, :func:`replicate_cross_device` then feeds a card
+follower and a CPU follower the frames of a ``WHATIF_MID`` leader; both
+must answer 32 requests as the leader does.  It reports records per
+cycle, frame bytes, the publisher's and the follower's times, uploads,
+lag, probe times, the follower's K1 launches and the two legs' walls on
+the same churn: the publisher's cost in the cycles where it ran alone,
+and a lower bound in the followed ones (the checks' time, and the
+encode they join, taken out of the wall).  :func:`replicate_cost` runs
+the legs as two pairs in either order and reads the cost alone.
+
 After each cycle the drive checks the column store against the object
 model, every node's ``idle ≥ −quanta`` and ``used ≤ allocatable +
 quanta``, that no pod was bound twice, and the evictions: every evicted
@@ -153,7 +182,7 @@ import torch
 
 from kube_batch_tpu_torch.api.convert import host_field
 from kube_batch_tpu_torch.api.pod import GROUP_NAME_ANNOTATION, Pod, PodGroup
-from kube_batch_tpu_torch.api.resident import scatter_summary
+from kube_batch_tpu_torch.api.resident import PER_CYCLE_FIELDS, scatter_summary
 from kube_batch_tpu_torch.api.snapshot import DeviceSnapshot
 from kube_batch_tpu_torch.api.types import PodGroupPhase, PodPhase, TaskStatus
 from kube_batch_tpu_torch.cache.fake import FakeBinder
@@ -485,7 +514,11 @@ def run_cycles(cache, device, churn: Callable[[int], dict], ingest_s: float,
 
 
 def _run_cycles(sched, cache, churn, ingest_s, keep_states, profile, n_cycles,
-                check_swaps, pipelined) -> dict:
+                check_swaps, pipelined, hook=None) -> dict:
+    """The loop of :func:`run_cycles` on ``sched``.  ``hook`` (the replicate
+    drive's :class:`ReplicaCheck`) gets ``before(c)`` ahead of cycle ``c``
+    and ``after(c)`` once its wall is read; ``after`` returns the ms the
+    hook spent inside the cycle, which are taken out of its wall."""
     actions = {a.name: a for a in sched.actions}
     allocate = actions["allocate"]
     cols = cache.columns
@@ -506,6 +539,8 @@ def _run_cycles(sched, cache, churn, ingest_s, keep_states, profile, n_cycles,
         resident_before = cols.resident_counters().get("single", {})
         guard_before = guard_counters(cache)
         check.ms, check.swaps = 0.0, 0
+        if hook is not None:
+            hook.before(c)
         kernels.reset_launches()
         gc.collect()
         gc.disable()
@@ -537,6 +572,8 @@ def _run_cycles(sched, cache, churn, ingest_s, keep_states, profile, n_cycles,
         finally:
             gc.enable()
         launches = dict(kernels.launches)
+        if hook is not None:
+            wall_ms -= hook.after(c)
         swaps_checked = check.verify(f"cycle {c + 1}") if check_swaps else None
         errs = cache.columns.check_consistency(cache)
         if errs:
@@ -1745,6 +1782,512 @@ def drive_whatif(n_tasks: int, n_nodes: int, seed: int = 0, device=None,
                 cross_device=cross)
 
 
+#: the replicate drive's probe bodies after every applied record: four
+#: gangs in q0 (the last with evictions) and one sweep
+REPLICATE_GANGS = ((2, 250.0, False), (4, 1000.0, False), (8, 4000.0, False),
+                   (1, 4000.0, True))
+REPLICATE_SWEEP = {"queue": "q0", "max_count": 16,
+                   "requests": {"cpu": 1000.0, "memory": float(2**30)}}
+#: the leader's ring while the publisher is attached
+REPLICATE_RING = 4
+#: the replicate drive's warmup and steady cycles per leg (bench.py:151's)
+REPLICATE_WARMUP, REPLICATE_CYCLES = 2, 8
+#: what the follower does in each steady cycle of the publishing leg (the
+#: warmup cycles follow): ``follow`` joins, pulls and checks every record
+#: before the leader's next swap; ``drop`` does too but drops the cycle's
+#: first frame, so the next delta arrives past a gap and must be refused
+#: and the full frame after it adopted warm; ``alone`` leaves the publisher
+#: alone through the cycle and catches up after its wall; ``sitout`` does
+#: not catch up either, so the next catch-up is past the ring and gets a
+#: full frame.  The ``alone`` and ``sitout`` walls read the publisher's cost.
+REPLICATE_PLAN = ("follow", "alone", "drop", "alone", "follow", "sitout", "alone",
+                  "follow")
+#: the cost drive's legs, publisher off or on: two pairs, in either order
+REPLICATE_COST_ORDER = (False, True, True, False)
+
+
+class Loopback:
+    """``ApiTransport.get_bytes`` in process: serves ``pub.record_for``
+    (either package's publisher); ``down`` makes it fail as an unreachable
+    leader does, and ``lose`` loses one frame on the way (the frame after
+    the one asked for comes instead).  ``last_bytes`` is the size of the
+    last frame served."""
+
+    def __init__(self, pub) -> None:
+        self.pub = pub
+        self.down = False
+        self.lose = False
+        self.last_bytes = 0
+
+    def get_bytes(self, path: str, timeout: float = 60) -> bytes:
+        if self.down:
+            raise OSError("leader unreachable")
+        since = int(path.rsplit("since=", 1)[1])
+        if self.lose:
+            self.lose = False
+            since += 1
+        frame = self.pub.record_for(since)
+        self.last_bytes = len(frame)
+        return frame
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _canonical(resp: dict) -> str:
+    return json.dumps(resp, sort_keys=True)
+
+
+def _sweep_now(qp, body: dict) -> dict:
+    fut = qp.submit_sweep(body)
+    qp.batcher.tick(now=qp.batcher.clock.monotonic() + 1e6)
+    return fut.result(timeout=600)
+
+
+def make_follower(pub, device, **plane_kw):
+    """A follower with its own read-only cache and plane
+    (start_thread=False), pulling ``pub`` in process."""
+    from kube_batch_tpu_torch.replicate.follower import FollowerCache, ReplicationFollower
+    from kube_batch_tpu_torch.serve.plane import QueryPlane
+
+    fcache = FollowerCache()
+    fqp = QueryPlane(fcache, start_thread=False, **plane_kw)
+    return ReplicationFollower("http://in-process", cache=fcache, query_plane=fqp,
+                               transport=Loopback(pub), poll_s=0.001, device=device)
+
+
+def _pct(values, q):
+    return float(np.percentile(values, q)) if values else None
+
+
+class ReplicaCheck:
+    """The publishing leg's hook on :func:`_run_cycles`.  In the cycles
+    that :data:`REPLICATE_PLAN` follows, each record is joined, pulled and
+    applied before the leader's next swap (the check rides the swap guard;
+    the cycle's last record is checked after its wall), and the same
+    bodies go to both planes, whose answers must be equal (canonical JSON,
+    staleness included).  The check's time inside a cycle is taken out of
+    its wall, and with it the encode that the check joined, so a followed
+    cycle's wall is a lower bound of the leader's; the cycles the
+    publisher runs alone read its cost."""
+
+    def __init__(self, qp, pub, follower, device):
+        self.qp, self.pub, self.f, self.device = qp, pub, follower, device
+        self.mode = "follow"
+        self.pending = False       # a record published and not checked yet
+        self.dropped = None        # the dropped frame: None, "lost", "resynced"
+        self.sitting = False       # sat out: no catch-up until past the ring
+        self.records: List[dict] = []
+        self.pulls: List[dict] = []
+        self.resyncs: List[dict] = []
+        self.compared = 0
+        self.in_cycle_ms = 0.0
+        self.cycle = 0
+        self.follower_k1 = 0
+        self.probe_ms = {"leader": [], "follower": []}
+
+    # ---- the hook ---------------------------------------------------------
+    def before(self, c: int) -> None:
+        steady = c - REPLICATE_WARMUP
+        self.mode = REPLICATE_PLAN[steady] if steady >= 0 else "follow"
+        self.cycle, self.in_cycle_ms = c, 0.0
+
+    def after(self, c: int) -> float:
+        if self.mode == "sitout":
+            self.sitting = True
+        elif self.mode == "alone":
+            self.catch_up()
+        elif self.pending:
+            self.check()
+        self.pending = False
+        return self.in_cycle_ms
+
+    def publish_hook(self, publish):
+        def hooked(ssn, snap, meta):
+            publish(ssn, snap, meta)
+            self.records.append(dict(seq=len(self.records) + 1, cycle=self.cycle,
+                                     mode=self.mode, publish_ms=self.pub.last_publish_ms,
+                                     join_ms=self.pub.last_join_ms))
+            self.pending = True
+        return hooked
+
+    def guard(self, swap_guard):
+        @contextlib.contextmanager
+        def checked():
+            if self.pending and self.mode not in ("alone", "sitout"):
+                t = time.perf_counter()
+                self.check()
+                self.in_cycle_ms += (time.perf_counter() - t) * 1e3
+            with swap_guard():
+                yield
+        return checked
+
+    # ---- one record -------------------------------------------------------
+    def _probe_both(self, name, leader_fn, follower_fn):
+        t = time.perf_counter()
+        want = leader_fn()
+        _sync(self.device)
+        t1 = time.perf_counter()
+        k1 = kernels.launches["masked_best_node_raw"]
+        got = follower_fn()
+        _sync(self.device)
+        t2 = time.perf_counter()
+        self.follower_k1 += kernels.launches["masked_best_node_raw"] - k1
+        self.probe_ms["leader"].append((t1 - t) * 1e3)
+        self.probe_ms["follower"].append((t2 - t1) * 1e3)
+        if _canonical(got) != _canonical(want):
+            fail(f"replicate: {name} at seq {self.f.applier.applied_seq} answered "
+                 f"differently: leader {want} / follower {got}")
+        return got
+
+    def compare(self) -> None:
+        fqp = self.f.qp
+        for count, cpu, ev in REPLICATE_GANGS:
+            body = whatif_body(count, cpu, evictions=ev)
+            got = self._probe_both(f"gang {count}x{cpu}", lambda: probe_now(self.qp, body),
+                                   lambda: probe_now(fqp, body))
+            if got["staleness"]["lag_cycles"] != 0:
+                fail(f"replicate: a caught-up follower reports lag {got['staleness']}")
+        self._probe_both("sweep", lambda: _sweep_now(self.qp, REPLICATE_SWEEP),
+                         lambda: _sweep_now(fqp, REPLICATE_SWEEP))
+        self.compared += 1
+
+    def _join(self) -> None:
+        """Join the encode in flight: the last record's encode and size."""
+        t = time.perf_counter()
+        self.pub.barrier()
+        self.records[-1].update(barrier_ms=(time.perf_counter() - t) * 1e3,
+                                encode_ms=self.pub.last_encode_ms,
+                                frame_bytes=self.pub.last_frame_bytes)
+
+    def _pull(self, expect_kind=None) -> dict:
+        app = self.f.applier
+        lag = self.pub.counters()["head_seq"] - app.applied_seq
+        c0, s0, full0 = app.resident.counters(), app.static_uploads, app.full_adoptions
+        t = time.perf_counter()
+        outcome = self.f.run_once()
+        _sync(self.device)
+        total_ms = (time.perf_counter() - t) * 1e3
+        if outcome != "applied":
+            fail(f"replicate: the follower's pull gave {outcome!r}")
+        kind = "full" if app.full_adoptions > full0 else "delta"
+        if expect_kind is not None and kind != expect_kind:
+            fail(f"replicate: expected a {expect_kind} frame, got {kind}")
+        c1 = app.resident.counters()
+        pull = dict(seq=app.applied_seq, cycle=self.cycle, mode=self.mode, kind=kind,
+                    frame_bytes=self.f.transport.last_bytes, lag_before=lag,
+                    total_ms=total_ms, **{f"{k}_ms": v for k, v in app.last_ms.items()},
+                    full_uploads=c1["full_uploads"] - c0["full_uploads"],
+                    scatters=c1["scatter_updates"] - c0["scatter_updates"],
+                    clean=c1["clean_hits"] - c0["clean_hits"],
+                    static_uploads=app.static_uploads - s0)
+        self.pulls.append(pull)
+        return pull
+
+    def _past_gap(self) -> bool:
+        """After a dropped frame, once a later record is out: the next
+        frame comes past the gap and must be refused, and the full frame
+        that the follower asks for then must be adopted warm."""
+        app = self.f.applier
+        if self.dropped != "lost" or self.pub.counters()["head_seq"] < app.applied_seq + 2:
+            return False
+        self.dropped = "resynced"
+        self.f.transport.lose = True
+        if self.f.run_once() != "resync":
+            fail("replicate: a delta past a dropped frame was not refused")
+        self.resyncs.append(dict(self._pull("full"), why="gap", gaps=app.gaps,
+                                 per_cycle_changed=len(app.resident.delta_record)))
+        return True
+
+    def _to_head(self) -> None:
+        """Pull until the follower holds the head: past a dropped frame
+        the resync, past the ring one synthesized full frame, else the
+        ring's records in order; then compare the planes."""
+        self.sitting = False
+        app = self.f.applier
+        head = self.pub.counters()["head_seq"]
+        if not self._past_gap() and app.applied_seq < head:
+            past_ring = head - app.applied_seq > REPLICATE_RING
+            first = self._pull("full" if past_ring else None)
+            if past_ring:
+                self.resyncs.append(dict(first, why="ring", ring=REPLICATE_RING))
+        while app.applied_seq < head:
+            self._pull()
+        self.compare()
+
+    def check(self) -> None:
+        """The pending record, joined, then the follower brought to it;
+        in a ``drop`` cycle the first frame never reaches the follower."""
+        self.pending = False
+        self._join()
+        if self.mode == "drop" and self.dropped is None:
+            self.dropped = "lost"
+            return
+        self._to_head()
+
+    def catch_up(self) -> None:
+        """After an ``alone`` cycle's wall: the last encode joined, the
+        follower brought to the head; after a ``sitout``, not until it is
+        past the ring."""
+        if self.pending:
+            self._join()
+        head = self.pub.counters()["head_seq"]
+        if self.sitting and head - self.f.applier.applied_seq <= REPLICATE_RING:
+            return
+        self._to_head()
+
+
+def replicate_cross_device(device) -> dict:
+    """The what-if drive's frozen ``WHATIF_MID`` cluster (:func:`whatif_cluster`:
+    the full node holds evictable fillers) on ``device`` gets a publisher
+    and runs two more cycles of the shipped conf, a small gang arriving
+    before each; a follower on ``device`` and one on the CPU are fed the
+    same frames after each cycle and must answer the same ``WHATIF_BATCH``
+    requests identically (and as the leader does), with and without
+    evictions."""
+    from kube_batch_tpu_torch.replicate.publisher import ReplicationPublisher
+
+    cache, sched, qp = whatif_cluster(*WHATIF_MID, 0, device)
+    cache.replication = pub = ReplicationPublisher()
+    followers = {leg: make_follower(pub, dev, max_batch=WHATIF_BATCH)
+                 for leg, dev in (("device", device), ("cpu", "cpu"))}
+    try:
+        for c in (1, 2):
+            # a small gang arrives (the full node's fillers stay: a steady
+            # churn's arrivals would reclaim them), the pods bound before
+            # start Running, and a cycle publishes the next record
+            kubelet(cache, list(cache.evictor.evicts))
+            name = f"rep{c}"
+            cache.add_pod_group(PodGroup(name=name, namespace="bench", min_member=2,
+                                         queue="q1", creation_index=3 * 10**6 + c))
+            for i in range(2):
+                cache.add_pod(Pod(
+                    name=f"{name}-{i}", namespace="bench",
+                    requests={"cpu": 500.0, "memory": float(2**30)},
+                    annotations={GROUP_NAME_ANNOTATION: name}, phase=PodPhase.PENDING,
+                    creation_index=(3 * 10**6 + c) * 10 + i))
+            sched.run_once()
+            pub.barrier()
+            for f in followers.values():
+                while f.run_once() == "applied":
+                    pass
+        bodies = whatif_requests(WHATIF_BATCH, 0)
+        answers = {}
+        for leg, qpl in (("leader", qp), *((k, f.qp) for k, f in followers.items())):
+            got = {}
+            for ev in (False, True):
+                futs = [qpl.submit(dict(b, evictions=ev)) for b in bodies]
+                qpl.batcher.tick(now=qpl.batcher.clock.monotonic() + 1e6)
+                got[ev] = [f.result(timeout=600) for f in futs]
+            answers[leg] = got
+        for ev in (False, True):
+            for i, (a, b, c_) in enumerate(zip(answers["device"][ev], answers["cpu"][ev],
+                                               answers["leader"][ev])):
+                if not a == b == c_:
+                    fail(f"replicate cross-device: request {i} (evictions {ev}) answered "
+                         f"differently: card {a} / cpu {b} / leader {c_}")
+        seqs = {k: f.applier.applied_seq for k, f in followers.items()}
+        if len(set(seqs.values())) != 1 or seqs["cpu"] != pub.counters()["head_seq"]:
+            fail(f"replicate cross-device: followers at {seqs}, head {pub.counters()}")
+        with_victims = sum(1 for r in answers["device"][True] if r["evictions"]["victims"])
+        if not with_victims:
+            fail("replicate cross-device: no answer named a victim")
+    finally:
+        for f in followers.values():
+            f.qp.close()
+        pub.close()
+        qp.close()
+        sched.close()
+        cache.stop()
+    return dict(shape=list(WHATIF_MID), requests=WHATIF_BATCH, records=seqs["cpu"],
+                feasible=sum(r["feasible"] for r in answers["device"][False]),
+                with_victims=with_victims,
+                equal="card follower = CPU follower = leader, with and without evictions")
+
+
+def _replicate_leg(n_tasks: int, n_nodes: int, device, publish: bool) -> dict:
+    """One leg of the replicate drive on a fresh cluster: the steady drive
+    (seed 0) with a query plane attached, through :func:`_run_cycles` and
+    its per-cycle checks; with ``publish``, the publisher, a follower on
+    the same device and :class:`ReplicaCheck`, then the pull loop's warm
+    restart.  Raises on a failed check; returns the walls and the check."""
+    from kube_batch_tpu_torch.replicate.publisher import ReplicationPublisher
+    from kube_batch_tpu_torch.serve.plane import QueryPlane
+
+    t0 = time.perf_counter()
+    cache = synthetic_cluster(n_tasks, n_nodes, gang_size=GANG, n_queues=N_QUEUES, seed=0)
+    reserve_wobble(cache, n_tasks)
+    ingest_s = time.perf_counter() - t0
+    churn = steady_churn(cache, n_tasks, 0)
+    qp = QueryPlane(cache, start_thread=False)
+    sched = Scheduler(cache, conf=load_scheduler_conf(shipped_conf_path()), device=device)
+    cols = cache.columns
+    pub = follower = check = restart = None
+    # the full collection before each cycle then scans only what the drive
+    # made since: the cluster's millions of objects (and whatever the
+    # process held before) are set aside for the leg
+    gc.collect()
+    gc.freeze()
+    try:
+        if publish:
+            cache.replication = pub = ReplicationPublisher(ring_size=REPLICATE_RING)
+            follower = make_follower(pub, sched.device)
+            check = ReplicaCheck(qp, pub, follower, sched.device)
+            qp.publish_session = check.publish_hook(qp.publish_session)
+            cols.resident_swap_guard = check.guard(qp.broker.swap_guard)
+        report = _run_cycles(sched, cache, churn, ingest_s, False, False,
+                             REPLICATE_WARMUP + REPLICATE_CYCLES, False, False, hook=check)
+        if follower is not None:
+            _check_stream(check)
+            # a restart of the pull loop re-adopts the synced residency warm
+            seen = []
+            revalidate = follower.applier.revalidate_resident
+            follower.applier.revalidate_resident = lambda: seen.append(revalidate()) or seen[-1]
+            follower.start()
+            for _ in range(1000):
+                if seen:
+                    break
+                time.sleep(0.01)
+            follower.stop()
+            if not seen or seen[0]["mode"] != "warm":
+                fail(f"replicate: the restarted pull loop re-adopted {seen}")
+            restart = seen[0]
+    finally:
+        cols.resident_swap_guard = qp._swap_guard
+        if follower is not None:
+            follower.qp.close()
+        if pub is not None:
+            pub.close()
+        qp.close()
+        sched.close()
+        cache.stop()
+        gc.unfreeze()
+    return dict(walls=[c["wall_ms"] for c in report["cycles"]], check=check,
+                restart=restart, seconds=time.perf_counter() - t0)
+
+
+def _check_stream(check: ReplicaCheck) -> None:
+    """The publishing leg's stream: every record landed in order, the
+    dropped frame resynced warm (only what changed uploaded again), and
+    the catch-up past the ring took a full frame."""
+    head = check.pub.counters()["head_seq"]
+    if head != len(check.records):
+        fail(f"replicate: {len(check.records)} publishes, head at seq {head}")
+    if [r["why"] for r in check.resyncs] != ["gap", "ring"]:
+        fail(f"replicate: expected a gap resync, then a ring resync: {check.resyncs}")
+    gap = check.resyncs[0]
+    static_fields = len(DeviceSnapshot._fields) - len(PER_CYCLE_FIELDS)
+    if not (gap["full_uploads"] + gap["scatters"] == gap["per_cycle_changed"]
+            and gap["clean"] > 0 and gap["static_uploads"] < static_fields):
+        fail(f"replicate: the gap's warm re-adoption uploaded more than what changed: {gap}")
+    if check.f.applier.applied_seq != head:
+        fail(f"replicate: the follower ended at seq {check.f.applier.applied_seq}, head {head}")
+
+
+def _publisher_alone() -> List[int]:
+    """The cycles of a leg where the publisher ran with no check."""
+    return [REPLICATE_WARMUP + i for i, m in enumerate(REPLICATE_PLAN)
+            if m in ("alone", "sitout")]
+
+
+def drive_replicate(n_tasks: int, n_nodes: int, device=None) -> dict:
+    """The replication stream's drive (module docstring): the steady drive
+    with a query plane twice on the same seed, so both legs see the same
+    churn: without a publisher (``off``), then with the publisher and a
+    follower on the same device (``on``, :class:`ReplicaCheck` following
+    :data:`REPLICATE_PLAN`); then, on CUDA, the card against the CPU
+    (:func:`replicate_cross_device`).  Raises on any failed check; returns
+    the report."""
+    off = _replicate_leg(n_tasks, n_nodes, device, False)
+    on = _replicate_leg(n_tasks, n_nodes, device, True)
+    check = on["check"]
+    recs, pulls = check.records, check.pulls
+    deltas = [p for p in pulls if p["kind"] == "delta"]
+    alone = _publisher_alone()
+    followed = [REPLICATE_WARMUP + i for i, m in enumerate(REPLICATE_PLAN)
+                if m not in ("alone", "sitout")]
+
+    def stats(values):
+        return dict(p50=_pct(values, 50), max=max(values) if values else None)
+
+    device_name = str(torch.device("cuda" if device is None else device))
+    n_cycles = REPLICATE_WARMUP + REPLICATE_CYCLES
+    report = dict(
+        tasks=n_tasks, nodes=n_nodes, device=device_name, cycles=REPLICATE_CYCLES,
+        warmup_cycles=REPLICATE_WARMUP, plan=list(REPLICATE_PLAN),
+        off_s=off["seconds"], on_s=on["seconds"],
+        records=len(recs),
+        records_per_cycle=[sum(1 for r in recs if r["cycle"] == c) for c in range(n_cycles)],
+        checked=check.compared, counters=check.pub.counters(),
+        frame_bytes=dict(full=[p["frame_bytes"] for p in pulls if p["kind"] == "full"],
+                         delta=stats([p["frame_bytes"] for p in deltas])),
+        publisher_ms=dict(
+            publish=stats([r["publish_ms"] for r in recs if r["seq"] > 1]),
+            # the join of the previous encode inside publish_cycle: ~0 where
+            # the check joined it first, the real wait where the publisher
+            # ran alone
+            join_in_publish_alone=stats([r["join_ms"] for r in recs
+                                         if r["seq"] > 1 and r["cycle"] in alone]),
+            join_in_publish_followed=stats([r["join_ms"] for r in recs
+                                            if r["seq"] > 1 and r["cycle"] not in alone]),
+            check_barrier=stats([r["barrier_ms"] for r in recs
+                                 if r["seq"] > 1 and "barrier_ms" in r]),
+            encode=stats([r["encode_ms"] for r in recs if r["seq"] > 1 and "encode_ms" in r])),
+        follower_ms={k: stats([p[f"{k}_ms"] for p in deltas])
+                     for k in ("decode", "apply", "swap", "total")},
+        follower_full_ms={k: [p[f"{k}_ms"] for p in pulls if p["kind"] == "full"]
+                          for k in ("decode", "apply", "swap", "total")},
+        uploads={k: sum(p[k] for p in deltas)
+                 for k in ("full_uploads", "scatters", "clean", "static_uploads")},
+        lag_p99=_pct([p["lag_before"] for p in pulls], 99),
+        lag_p99_followed=_pct([p["lag_before"] for p in pulls if p["cycle"] not in alone], 99),
+        probe_ms=dict(leader=stats(check.probe_ms["leader"]),
+                      follower=stats(check.probe_ms["follower"])),
+        follower_k1_launches=check.follower_k1,
+        resyncs=check.resyncs, restart=on["restart"],
+        # the same cycles of the same churn, on less off: where the
+        # publisher ran alone (its cost), and where the checks ran (their
+        # time and the encode they joined taken out: a lower bound)
+        alone_cycles=alone,
+        wall_ms_p50=dict(off=_pct([off["walls"][c] for c in alone], 50),
+                         on=_pct([on["walls"][c] for c in alone], 50)),
+        wall_ms_alone_on_less_off=[on["walls"][c] - off["walls"][c] for c in alone],
+        wall_ms_followed_on_less_off=[on["walls"][c] - off["walls"][c] for c in followed],
+        wall_ms=dict(off=off["walls"], on=on["walls"]),
+    )
+    t = time.perf_counter()
+    report["cross_device"] = (replicate_cross_device(device)
+                              if torch.device(device_name).type == "cuda" else None)
+    report["cross_device_s"] = time.perf_counter() - t
+    return report
+
+
+def replicate_cost(n_tasks: int, n_nodes: int, device=None) -> dict:
+    """The publisher's cost on the leader's steady wall: the replicate
+    drive's legs in the order :data:`REPLICATE_COST_ORDER` (off, on, on,
+    off: two pairs, each order once), every publishing leg checked as in
+    :func:`drive_replicate`; each pair's walls are compared cycle by cycle
+    in the cycles where the publisher ran alone."""
+    legs = [_replicate_leg(n_tasks, n_nodes, device, publish)
+            for publish in REPLICATE_COST_ORDER]
+    alone = _publisher_alone()
+    pairs = []
+    for i in range(0, len(legs), 2):
+        order = REPLICATE_COST_ORDER[i:i + 2]
+        off, on = (legs[i], legs[i + 1]) if not order[0] else (legs[i + 1], legs[i])
+        diff = [on["walls"][c] - off["walls"][c] for c in alone]
+        pairs.append(dict(order=["on" if p else "off" for p in order],
+                          wall_ms_p50=dict(off=_pct([off["walls"][c] for c in alone], 50),
+                                           on=_pct([on["walls"][c] for c in alone], 50)),
+                          on_less_off=diff, on_less_off_p50=_pct(diff, 50),
+                          walls=dict(off=off["walls"], on=on["walls"])))
+    every = [d for p in pairs for d in p["on_less_off"]]
+    return dict(tasks=n_tasks, nodes=n_nodes, device=str(torch.device(
+        "cuda" if device is None else device)), alone_cycles=alone, pairs=pairs,
+        on_less_off_p50=_pct(every, 50), seconds=[leg["seconds"] for leg in legs])
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--overcommit", action="store_true")
@@ -1752,6 +2295,8 @@ def main() -> None:
     ap.add_argument("--loop", action="store_true")
     ap.add_argument("--features", action="store_true")
     ap.add_argument("--whatif", action="store_true")
+    ap.add_argument("--replicate", action="store_true")
+    ap.add_argument("--replicate-cost", action="store_true")
     ap.add_argument("--feed", type=int, default=20)
     ap.add_argument("--period", type=float, default=1.0)
     ap.add_argument("--leg", default="defaults",
@@ -1767,7 +2312,11 @@ def main() -> None:
     ap.add_argument("--device", default=None)
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
-    if args.whatif:
+    if args.replicate:
+        out = drive_replicate(args.tasks, args.nodes, device=args.device)
+    elif args.replicate_cost:
+        out = replicate_cost(args.tasks, args.nodes, device=args.device)
+    elif args.whatif:
         out = drive_whatif(args.tasks, args.nodes, device=args.device, profile=args.profile)
     elif args.features:
         # chip_smoke's shares: 4 % of the pods claim a PV, 0.1 % a missing one

@@ -980,3 +980,47 @@ def test_loop_drive_on_the_cpu():
         assert m["cycles"] > 0
     assert r["pipelined"]["wakes"]["ingest"] > 0
     assert r["serial"]["wakes"] == {"tick": r["serial"]["cycles"]}
+
+
+def test_drain_pipeline_leaves_the_cycles_record_on_the_stream():
+    """The replication encode overlaps the next cycle like the writeback
+    stage; ``drain_pipeline`` joins it, so the drained cycle's record is on
+    the stream: ``record_for(head - 1)`` returns it."""
+    from kube_batch_tpu_torch.replicate import stream
+    from kube_batch_tpu_torch.replicate.publisher import ReplicationPublisher
+    from kube_batch_tpu_torch.serve.plane import QueryPlane
+    from kube_batch_tpu_torch.testing.synthetic import synthetic_cluster
+
+    cache = synthetic_cluster(64, 8)
+    qp = QueryPlane(cache, start_thread=False)
+    cache.replication = pub = ReplicationPublisher()
+    sched = Scheduler(cache, device="cpu")
+    release = threading.Event()
+    encode = pub._encode_locked
+
+    def held(*a):
+        release.wait(30)
+        return encode(*a)
+
+    pub._encode_locked = held
+    try:
+        for cycle in (1, 2):
+            if cycle == 2:
+                cache.add_pod(port_pod("late"))
+            sched.run_once_pipelined()
+            assert pub._pending is not None  # the encode is still in flight
+            seq = pub._next_seq
+            release.set()
+            sched.drain_pipeline()
+            release.clear()
+            assert pub._pending is None and pub.counters()["head_seq"] == seq
+            rec = stream.decode_record(pub.record_for(seq - 1))
+            assert rec.seq == seq
+            assert rec.kind == (stream.FULL if cycle == 1 else stream.DELTA)
+            assert qp.broker.current().seq == seq
+    finally:
+        release.set()
+        sched.close()
+        pub.close()
+        qp.close()
+        cache.stop()

@@ -106,7 +106,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     score row through the feature drive's exclusive and isolated cycles,
     and ``build_snapshot`` of a ``cache.snapshot()`` — then the read plane
     (a query plane whose batcher thread answers one what-if request,
-    evictions on, after one cycle published its lease) leaves no jax, no
+    evictions on, after one cycle published its lease), then a follower
+    that applies a leader's replication frames and answers a probe from
+    them leaves no jax, no
     kube_batch_tpu and no yaml module loaded (kube_batch_tpu_torch itself
     shares the prefix, so the match is exact on the package name)."""
     code = textwrap.dedent("""
@@ -117,6 +119,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         import kube_batch_tpu_torch.cache.dirty
         import kube_batch_tpu_torch.cache.resync
         import kube_batch_tpu_torch.k8s.transport
+        import kube_batch_tpu_torch.replicate.stream
         import kube_batch_tpu_torch.utils.worker
         import kube_batch_tpu_torch.guard.bundle
         import kube_batch_tpu_torch.ops.invariants
@@ -186,6 +189,37 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             assert qp.dispatches == 1 and qp.requests_served == 1
         finally:
             qp.close()
+        from kube_batch_tpu_torch.replicate import (
+            FollowerCache, ReplicationFollower, ReplicationPublisher)
+        rcache = synthetic_cluster(64, 8)
+        rqp = QueryPlane(rcache, start_thread=False)
+        rcache.replication = pub = ReplicationPublisher()
+        rsched = Scheduler(rcache, conf=load_scheduler_conf(shipped_conf_path()),
+                           device="cpu")
+
+        class Loopback:
+            def get_bytes(self, path, timeout=60):
+                return pub.record_for(int(path.rsplit("since=", 1)[1]))
+
+        fcache = FollowerCache()
+        fqp = QueryPlane(fcache, start_thread=False)
+        try:
+            rsched.run_once()
+            rsched.drain_pipeline()
+            follower = ReplicationFollower("http://unused", cache=fcache, query_plane=fqp,
+                                           transport=Loopback(), device="cpu")
+            assert follower.run_once() == "applied"
+            fut = fqp.submit({"queue": "q0", "count": 2, "evictions": True,
+                              "requests": {"cpu": 250, "memory": 2**30}})
+            fqp.batcher.tick(now=fqp.batcher.clock.monotonic() + 1e6)
+            fresp = fut.result(60)
+            assert fresp["staleness"]["seq"] == follower.applier.applied_seq > 0
+            assert fqp.dispatches == 1
+        finally:
+            rsched.close()
+            pub.close()
+            fqp.close()
+            rqp.close()
         bad = sorted(n for n in sys.modules
                      if n in ("jax", "jaxlib", "yaml") or n.startswith(("jax.", "jaxlib.", "yaml."))
                      or n == "kube_batch_tpu" or n.startswith("kube_batch_tpu."))
