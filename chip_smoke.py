@@ -41,9 +41,11 @@ arrivals refill the pod count within ±10 % before each — five times: with
 the defaults (delta open and close, resident snapshot, the warm
 candidate-table carry, the guard plane), with ``KB_WARM=0`` (cold), with
 ``KB_GUARD=0`` (noguard), with the four cross-cycle mechanisms off (the
-oracle), and pipelined (the defaults, each cycle through
+oracle), pipelined (the defaults, each cycle through
 ``run_once_pipelined``: its status flush and bind drain on the writeback
-worker, the bind drain joined before the kubelet pass); every resident
+worker, the bind drain joined before the kubelet pass) and with
+``KB_TRACE=0`` (untraced: the tracer is on in every other leg, as by
+default); every resident
 swap of all but the oracle is held against a fresh upload of its host
 snapshot.  Every cycle's decisions must be equal across the legs, the
 defaults leg must take the delta open, the scatter path and the warm
@@ -52,7 +54,16 @@ verdicts must be clean, and no writeback stage or bind may fail; one JSON
 line per cycle and leg (the warm plan, the table's rungs, exhaustion,
 solve ms, syncs, K2 launches; for the pipelined leg its barrier, join,
 wall + join and the writeback's own ms), then the p50s of each leg and
-the guard's overhead (defaults less noguard).  The loop phase
+the guard's overhead (defaults less noguard).  The traced legs are read
+back (``trace_steady``): the defaults leg's spans per cycle and each span
+name's p50, its ring exported as Chrome trace events (which must
+validate), K1 and K2 launched inside its ``solve_dispatch`` spans, the e2e
+histogram counting every cycle, one arrival → decision sample per
+acknowledged bind (read through the sink), the Prometheus text's series
+and render time and the flight recorder's bytes; the pipelined leg's
+back-to-back cycles must show cycle N's writeback span overlapping cycle
+N+1's compute in the exported trace; the untraced leg keeps no record.
+The loop phase
 (``drive_loop``: the JAX package's ``bench.py`` ``pipelined_bench``) runs
 ``Scheduler.run_forever`` on the warmed 50 000-pod cluster while 20
 single-pod gangs arrive at seeded offsets of U(0.15, 0.45) s, once with
@@ -64,7 +75,9 @@ guard phase (``drive_guard``, 4 096 × 1 024) audits clean cycles against
 the full solve, zeroes a resident capacity word in place (the cycle must
 fail closed, heal, and the demoted paths re-promote after the cooldown),
 sets a Running row's resident pending bit (the host checksum must trip),
-and replays the trip's bundle on the card and the CPU.  The feature phase
+and replays the trip's bundle on the card and the CPU; the trip must fire
+the ``guard_trips`` alert (its gauge at 1) and leave a flight-recorder dump
+beside the bundles whose trace validates.  The feature phase
 (``drive_features``) runs the 50 000-pod cluster with PodDisruptionBudget
 gangs, claims on a PV ledger (and on missing PVs) and a custom score row:
 two exclusive cycles and one isolated, checking the gangs and the ledger,
@@ -123,7 +136,7 @@ MID_OC = dict(n_running=2048, n_pending=1024, n_nodes=256)
 # the steady-state drive: warmup and measured cycles (bench.py:151), and its
 # legs (cycle_drive.LEGS: defaults, KB_WARM=0, KB_GUARD=0, the oracle)
 STEADY_WARMUP, STEADY_CYCLES = 2, 4
-STEADY_LEGS = ("defaults", "cold", "noguard", "oracle", "pipelined")
+STEADY_LEGS = ("defaults", "cold", "noguard", "oracle", "pipelined", "untraced")
 # the loop drive: single-pod arrivals and the serial loop's tick (bench.py:1215)
 LOOP_FEED, LOOP_PERIOD = 20, 1.0
 # the warm path's re-rank rungs below the 8 192-row bucket (K2's rows there)
@@ -573,7 +586,7 @@ def phase_cycle_overcommit():
 
 
 def phase_cycle_steady():
-    """The steady-state drive at 50k × 5k on the card, four legs (module
+    """The steady-state drive at 50k × 5k on the card, six legs (module
     docstring): equal decisions in every cycle, the defaults leg warm after
     its first plan, every guarded leg's verdicts clean."""
     from kube_batch_tpu_torch.api.resident import scatter_summary
@@ -681,6 +694,45 @@ def phase_cycle_steady():
     return legs, rungs
 
 
+def phase_trace_steady(legs):
+    """The steady legs' traces, read back (module docstring)."""
+    t = legs["defaults"]["trace"]
+    cycles = legs["defaults"]["cycles"]
+    if t["chrome_errors"] != [] or not t["enabled"] or t["records"] != len(cycles):
+        fail(f"trace_steady: the defaults leg's ring {t['records']} records, "
+             f"export {t['chrome_errors']}")
+    inside = {name: sum(c["trace"]["dispatch_launches"].get(name, 0) for c in cycles)
+              for name in KERNELS}
+    if not inside["masked_best_node_raw"] or not inside["masked_topk_blocks"]:
+        fail(f"trace_steady: K1 / K2 not launched inside solve_dispatch spans: {inside}")
+    samples = sum(c["trace"]["decisions"] for c in cycles)
+    if t["e2e"] != t["cycles_run"] or t["decisions"] != samples \
+            or samples != t["binds_acked"]:
+        fail(f"trace_steady: e2e {t['e2e']} of {t['cycles_run']} cycles; decisions "
+             f"{t['decisions']} / sink {samples} / binds acked {t['binds_acked']}")
+    pipe, untraced = legs["pipelined"]["trace"], legs["untraced"]["trace"]
+    if not pipe["overlap"]:
+        fail("trace_steady: no writeback span overlapped the next cycle's compute")
+    if pipe["chrome_errors"] != []:
+        fail(f"trace_steady: the pipelined leg's export {pipe['chrome_errors'][:3]}")
+    if untraced["enabled"] or untraced["records"] or untraced["e2e"] != untraced["cycles_run"]:
+        fail(f"trace_steady: the untraced leg kept {untraced['records']} records, "
+             f"e2e {untraced['e2e']}")
+    per_cycle = [{k: c["trace"][k] for k in ("dispatch_launches", "decisions",
+                                               "decision_observe_ms")} for c in cycles]
+    emit("trace_steady", tasks=N_TASKS, nodes=N_NODES,
+         defaults={k: v for k, v in t.items() if k != "overlap"},
+         solve_dispatch_launches=inside, per_cycle=per_cycle,
+         ring_bytes_at_capacity=dict(
+             steady=float(np.median(t["ring"]["bytes_per_record"][1:])) * t["ring"]["capacity"],
+             cycle1=t["ring"]["bytes_per_record"][0] * t["ring"]["capacity"]),
+         pipelined_overlap=pipe["overlap"],
+         pipelined_spans_per_cycle=pipe["spans_per_cycle"],
+         untraced=dict(records=untraced["records"], e2e=untraced["e2e"],
+                       decisions=untraced["decisions"]))
+    return inside
+
+
 def phase_loop():
     """``Scheduler.run_forever`` on the card at 50k × 5k, shipped conf
     (``cycle_drive.drive_loop``): the serial loop and the pipelined loop
@@ -721,6 +773,7 @@ def phase_guard():
     finally:
         shutil.rmtree(bundles, ignore_errors=True)
     emit("guard", conf="shipped", shape=[MID_TASKS, MID_NODES], arrivals=MID_ARRIVALS,
+         alert=r["alert"], flight=r["flight"],
          cooldown=r["cooldown"], audits_clean=r["audits_clean"], cycles=r["cycles"],
          trips=[{k: t[k] for k in ("cycle", "action", "reason", "demoted", "detail")}
                 for t in r["trip_log"]],
@@ -935,6 +988,7 @@ def main() -> int:
     cycle = phase_cycle()
     overcommit = phase_cycle_overcommit()
     steady, rerank_rungs = phase_cycle_steady()
+    traced_launches = phase_trace_steady(steady)
     loop = phase_loop()
     phase_guard()
     features = phase_cycle_features()
@@ -985,6 +1039,7 @@ def main() -> int:
              cycle_launches=cycle_launches["masked_best_node_raw"],
              overcommit_launches=overcommit_launches["masked_best_node_raw"],
              steady_launches=steady_launches["masked_best_node_raw"],
+             traced_solve_dispatch_launches=traced_launches["masked_best_node_raw"],
              pipelined_steady_launches=pipelined_launches["masked_best_node_raw"],
              loop_launches=loop_launches["masked_best_node_raw"],
              features_launches=features_launches["masked_best_node_raw"],
@@ -1003,6 +1058,7 @@ def main() -> int:
              cycle_launches=cycle_launches["masked_topk_blocks"],
              overcommit_launches=overcommit_launches["masked_topk_blocks"],
              steady_launches=steady_launches["masked_topk_blocks"],
+             traced_solve_dispatch_launches=traced_launches["masked_topk_blocks"],
              pipelined_steady_launches=pipelined_launches["masked_topk_blocks"],
              loop_launches=loop_launches["masked_topk_blocks"],
              features_launches=features_launches["masked_topk_blocks"],

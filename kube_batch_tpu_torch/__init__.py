@@ -39,13 +39,15 @@ path, so each module's counterpart is found at the same name:
                 ``ops/admission.py`` over ``csrc/*.cu``)
   actions/    — enqueue, reclaim, allocate, backfill, preempt
   guard/      — the guard plane and its bundles
+  metrics/    — the volcano_* Prometheus-style series and their text
+  obs/        — the cycle tracer, the flight recorder, the guard alerts
   serve/      — the query plane: the snapshot lease, the micro-batcher,
                 the what-if plane
   replicate/  — the replication stream: the KBR1 codec, the leader's
                 publisher, the follower that serves what-ifs from it
   k8s/        — the classified retry transport and circuit breaker
   utils/      — invariant assertions, the priority queue, switches, the
-                one-thread worker
+                one-thread worker, the telemetry clock
   scheduler.py — the serial and pipelined loops
   testing/    — synthetic clusters and snapshots, the kernel bench, the
                 cycle drives

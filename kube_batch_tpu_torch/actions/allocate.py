@@ -38,20 +38,27 @@ tensors as the solve, launched before the host replay and read after it,
 with no swap in between.  When a query plane is attached
 (``serve/plane.py``), every cycle publishes its what-if lease here
 (``republish_query_lease``): after the solve's swap, and on the idle and
-empty paths when ingest moved the version since the last publish.  Not
-ported: the sharded solve, and the tracer and metrics.
+empty paths when ingest moved the version since the last publish.
+
+Each phase runs in a span of the cache's tracer (``obs/trace.py``), under
+the action's own: ``snapshot_build``, ``solve_dispatch`` (a device span,
+with the warm plan's ``table_invalidate`` under it), ``audit_dispatch``,
+``device_wait`` (the one readback, where the device time lands),
+``fit_histogram_dispatch``, ``host_replay`` and ``fit_errors``.  The
+replay feeds the per-task latency, slow-replay and host-fallback series
+(``metrics/``).  Not ported: the sharded solve.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from kube_batch_tpu_torch import metrics
 from kube_batch_tpu_torch.api.cluster_info import ClusterInfo
 from kube_batch_tpu_torch.api.columns import resident_snap
 from kube_batch_tpu_torch.api.snapshot import DeviceSnapshot, SnapshotMeta, build_snapshot
@@ -64,6 +71,7 @@ from kube_batch_tpu_torch.guard import (
     make_heal,
     sentinel_bundle_thunk,
 )
+from kube_batch_tpu_torch.obs.trace import tracer_of
 from kube_batch_tpu_torch.ops.assignment import (
     AllocateConfig,
     AllocateResult,
@@ -72,6 +80,7 @@ from kube_batch_tpu_torch.ops.assignment import (
     failure_histogram_bucket_solve,
     failure_histogram_solve,
 )
+from kube_batch_tpu_torch.utils import telemetry
 
 logger = logging.getLogger("kube_batch_tpu_torch")
 
@@ -198,8 +207,27 @@ def _upload_i32(device, *arrays):
     return [up.tensor(h) for h in handles]
 
 
+def _warm_plan(state, cols, pend_rows, k: int, config, tracer):
+    """The post-swap invalidation plan (``WarmTableState.plan``), in a
+    ``table_invalidate`` span under the caller's solve_dispatch span when
+    a tracer is given.  None: the delta chain is broken this cycle, and
+    the dispatch takes the cold per-solve build."""
+    if state is None:
+        return None
+    if tracer is None:
+        return state.plan(cols, pend_rows, k, config)
+    with tracer.span("table_invalidate") as sp:
+        plan = state.plan(cols, pend_rows, k, config)
+        if plan is not None:
+            sp.set(cold=bool(plan["cold"]),
+                   reranked=int(state.last.get("reranked", 0)),
+                   changed=int(state.last.get("changed", 0)))
+    return plan
+
+
 def dispatch_allocate_solve(snap: DeviceSnapshot, config: AllocateConfig,
-                            plan=None, cols=None, guard=None, wstate=None):
+                            plan=None, cols=None, guard=None, wstate=None,
+                            tracer=None):
     """``(result, mode, topk_info, ginfo)`` for one allocate pass over the
     device snapshot ``snap``, on the device its tensors lie on.  ``mode``
     is "single"; ``topk_info`` is ``{"k", "bucket"}`` (plus ``"warm"``,
@@ -214,7 +242,8 @@ def dispatch_allocate_solve(snap: DeviceSnapshot, config: AllocateConfig,
     hist, checksum) tensors for the caller's readback, which must feed
     them to the guard before acting on the result.  ``ginfo`` also holds
     the engaged fast paths, the bucket rows, the snapshot and the
-    effective config (what a trip bundle replays)."""
+    effective config (what a trip bundle replays).  ``tracer`` attributes
+    the warm plan as a ``table_invalidate`` child of the caller's span."""
     sentinel_on = guard is not None and guard.enabled
     pend_rows, k = plan if plan is not None else plan_topk_bucket(snap, dispatch_topk(guard))
 
@@ -226,7 +255,7 @@ def dispatch_allocate_solve(snap: DeviceSnapshot, config: AllocateConfig,
     if pend_rows is not None:
         info = {"k": k, "bucket": int(pend_rows.shape[0])}
         cfg = config._replace(topk=k)
-        wplan = wstate.plan(cols, pend_rows, k, config) if wstate is not None else None
+        wplan = _warm_plan(wstate, cols, pend_rows, k, config, tracer)
         if wplan is not None:
             from kube_batch_tpu_torch.ops.assignment import warm_allocate_solve
             from kube_batch_tpu_torch.ops.invariants import warm_allocate_sentinel_solve
@@ -320,10 +349,10 @@ class _PhaseMarks:
 
     def __init__(self, sink: Dict[str, float]):
         self.sink = sink
-        self.t = time.perf_counter()
+        self.t = telemetry.perf_counter()
 
     def mark(self, key: str) -> None:
-        now = time.perf_counter()
+        now = telemetry.perf_counter()
         self.sink[key] = self.sink.get(key, 0.0) + (now - self.t) * 1e3
         self.t = now
 
@@ -403,6 +432,9 @@ class AllocateAction(Action):
         # jobs whose placements were discarded host-side this execute()
         self.last_host_discards = 0
         self._host_place_count = 0
+        # placements applied this execute (bulk-committed and
+        # statement-committed): the per-task latency's sample count
+        self._n_applied = 0
         self._ports_by_node: Optional[Dict[int, list]] = None
 
     def execute(self, ssn) -> None:
@@ -414,6 +446,7 @@ class AllocateAction(Action):
         self.last_warm = None
         self.last_fit_histogram = False
         self._host_place_count = 0
+        self._n_applied = 0
         self._ports_by_node = None
         if not ssn.jobs or not ssn.nodes:
             # an empty (or node-less) cluster still serves what-ifs
@@ -429,33 +462,44 @@ class AllocateAction(Action):
             # lease is rebuilt only when ingest moved the version
             republish_query_lease(ssn, build=lambda: build_session_snapshot(ssn))
             return
-        t0 = time.perf_counter()
-        snap, meta = build_session_snapshot(ssn)
-        t1 = time.perf_counter()
+        tracer = tracer_of(ssn.cache)
+        t0 = telemetry.perf_counter()
+        with tracer.span("snapshot_build"):
+            snap, meta = build_session_snapshot(ssn)
+        t1 = telemetry.perf_counter()
         gp = guard_of(ssn.cache)
         config = session_allocate_config(ssn)
-        # the bucket plan from the host's own pending mask: no device read
-        plan = plan_topk_bucket(snap, dispatch_topk(gp))
-        # the carried-table state is taken before the swap, so a fresh one
-        # absorbs this swap's delta record
-        wstate = (_warm_state(cols, ssn.device, config, gp, True, plan[1])
-                  if plan[0] is not None else None)
-        dev = resident_snap(cols, snap, ssn.device)
-        t_up = time.perf_counter()
-        result, _mode, topk_info, ginfo = dispatch_allocate_solve(
-            dev, config, plan=plan, cols=cols, guard=gp, wstate=wstate)
+        # a device span: the resident swap's scatters land on it.  Its
+        # stamps hold the upload and the launches; the device time lands
+        # in device_wait, whose readback waits for it
+        with tracer.device_span("solve_dispatch", cols=cols) as sp_solve:
+            # the bucket plan from the host's own pending mask: no device read
+            plan = plan_topk_bucket(snap, dispatch_topk(gp))
+            # the carried-table state is taken before the swap, so a fresh
+            # one absorbs this swap's delta record
+            wstate = (_warm_state(cols, ssn.device, config, gp, True, plan[1])
+                      if plan[0] is not None else None)
+            dev = resident_snap(cols, snap, ssn.device)
+            t_up = telemetry.perf_counter()
+            result, mode, topk_info, ginfo = dispatch_allocate_solve(
+                dev, config, plan=plan, cols=cols, guard=gp, wstate=wstate,
+                tracer=tracer)
+        sp_solve.set(mode=mode, engaged=list(ginfo["engaged"]))
         # the shadow-oracle audit: every KB_AUDIT_EVERY-th engaged dispatch
         # runs the full solve (no compaction, no carry) on the same tensors
         # now, before any swap, and is compared after the host replay
         audit_dev = None
         if ginfo["engaged"] and gp.audit_due("allocate"):
-            audit_dev = allocate_solve(dev, config._replace(topk=0))
+            with tracer.device_span("audit_dispatch"):
+                audit_dev = allocate_solve(dev, config._replace(topk=0))
         # the lease shares this dispatch's swap (memoized on the same snap)
         republish_query_lease(ssn, snap, meta)
         sentinel = ginfo["sentinel"]
         T = meta.n_tasks
-        (assigned, pipelined, rounds, exhausted, reentries, verdict, vhist,
-         echeck) = _read_back(result, T, sentinel)
+        with tracer.device_span("device_wait") as sp_wait:
+            (assigned, pipelined, rounds, exhausted, reentries, verdict, vhist,
+             echeck) = _read_back(result, T, sentinel)
+        sp_wait.set(rounds=int(rounds))
         self.last_solve_rounds = rounds
         if topk_info is not None:
             topk_info = dict(topk_info, exhausted=exhausted, reentries=reentries)
@@ -468,10 +512,10 @@ class AllocateAction(Action):
             # fit errors (the guard demoted, healed and dumped already)
             self.last_phase_ms.update(
                 snapshot_build=(t1 - t0) * 1e3, upload=(t_up - t1) * 1e3,
-                solve=(time.perf_counter() - t_up) * 1e3, fit_errors=0.0,
+                solve=(telemetry.perf_counter() - t_up) * 1e3, fit_errors=0.0,
                 replay=0.0)
             return
-        t2 = time.perf_counter()
+        t2 = telemetry.perf_counter()
         task_job = snap.task_job[:T]
         # fit errors only for tasks of jobs that are in this session (the row
         # space also carries rows of jobs the session dropped)
@@ -483,18 +527,21 @@ class AllocateAction(Action):
         if bool(np.any(pending & (assigned < 0))):
             self.last_fit_histogram = True
             pend_rows = plan[0]
-            if pend_rows is not None:
-                rows = torch.from_numpy(pend_rows).to(dev.task_req.device)
-                fail_hist_dev = failure_histogram_bucket_solve(dev, rows)
-            else:
-                fail_hist_dev = failure_histogram_solve(dev)
-        t_fit1 = time.perf_counter()
-        self._replay(ssn, snap, meta, assigned, pipelined, task_job)
-        t3 = time.perf_counter()
+            with tracer.device_span("fit_histogram_dispatch"):
+                if pend_rows is not None:
+                    rows = torch.from_numpy(pend_rows).to(dev.task_req.device)
+                    fail_hist_dev = failure_histogram_bucket_solve(dev, rows)
+                else:
+                    fail_hist_dev = failure_histogram_solve(dev)
+        t_fit1 = telemetry.perf_counter()
+        with tracer.span("host_replay"):
+            self._replay(ssn, snap, meta, assigned, pipelined, task_job)
+        t3 = telemetry.perf_counter()
         if fail_hist_dev is not None:
-            self._record_fit_errors(ssn, meta, fail_hist_dev.cpu().numpy(),
-                                    assigned, task_job, pending)
-        t4 = time.perf_counter()
+            with tracer.device_span("fit_errors"):
+                self._record_fit_errors(ssn, meta, fail_hist_dev.cpu().numpy(),
+                                        assigned, task_job, pending)
+        t4 = telemetry.perf_counter()
         # update, not replace: _replay folded its replay_* sub-phases in
         self.last_phase_ms.update(
             snapshot_build=(t1 - t0) * 1e3,
@@ -503,6 +550,12 @@ class AllocateAction(Action):
             fit_errors=((t_fit1 - t2) + (t4 - t3)) * 1e3,
             replay=(t3 - t_fit1) * 1e3,
         )
+        if self._n_applied:
+            # the per-task latency, amortized over the placements actually
+            # applied, so the histogram's count is the placements
+            # (metrics.go:66-72)
+            metrics.observe_task_latencies((t4 - t0) * 1e6 / self._n_applied,
+                                           self._n_applied)
         if audit_dev is not None:
             self._compare_audit(ssn, gp, ginfo, audit_dev, assigned, pipelined, T)
 
@@ -649,6 +702,7 @@ class AllocateAction(Action):
         if demoted_jobs:
             apply_job[list(demoted_jobs)] = False
         apply_mask = apply_job[pjobs]          # placements to bulk-apply
+        self._n_applied += int(apply_mask.sum())
         alloc_sel = apply_mask & ~pipe_flags
         pipe_sel = apply_mask & pipe_flags
         placed_rows = resreq64[placed]
@@ -885,6 +939,8 @@ class AllocateAction(Action):
             "volume_demoted_jobs": len(demoted_jobs),
             "host_place_tasks": self._host_place_count,
         }
+        metrics.register_slow_replay_jobs(n_slow)
+        metrics.register_host_fallback_tasks(self._host_place_count)
 
     # ------------------------------------------------------------------
     def _slow_replay_job(self, ssn, meta, assigned, pipelined, ji, idxs) -> None:
@@ -921,6 +977,7 @@ class AllocateAction(Action):
                 # cycle: take the reference's sequential path for this task
                 self._host_place(ssn, stmt, task)
         if ssn.job_ready(job):
+            self._n_applied += len(stmt.operations)
             stmt.commit()
         else:
             logger.info("job %s not ready after device solve (%d placements), "

@@ -13,7 +13,8 @@ Mirrors ``kube_batch_tpu/actions/backfill.py``.  Two passes:
   so no partial gang can commit, and replays the result through a
   throwaway ``AllocateAction``.  The solve is cold (no carried table) and
   guarded like allocate's: a condemned result binds nothing; its swap
-  re-arms the what-if lease.
+  re-arms the what-if lease.  Its dispatch and readback run in
+  ``solve_dispatch`` and ``device_wait`` spans (``action="backfill"``).
   ``backfill.realRequests: "false"`` on any tier turns it off.
 """
 
@@ -37,6 +38,7 @@ from kube_batch_tpu_torch.api.types import PodGroupPhase, TaskStatus
 from kube_batch_tpu_torch.framework.interface import Action
 from kube_batch_tpu_torch.framework.session import FitFailure
 from kube_batch_tpu_torch.guard import consume_assignment_sentinel, guard_of
+from kube_batch_tpu_torch.obs.trace import tracer_of
 
 logger = logging.getLogger("kube_batch_tpu_torch")
 
@@ -113,18 +115,21 @@ class BackfillAction(Action):
             return 0
         snap = snap._replace(job_schedulable=safe)
         gp = guard_of(ssn.cache)
-        plan = plan_topk_bucket(snap, dispatch_topk(gp))
-        dev = resident_snap(cols, snap, ssn.device)
-        # cold (no carried table): this mid-cycle snapshot must not consume
-        # allocate's deltas
-        result, _mode, _topk, ginfo = dispatch_allocate_solve(
-            dev, session_allocate_config(ssn), plan=plan, cols=cols, guard=gp)
+        tracer = tracer_of(ssn.cache)
+        with tracer.device_span("solve_dispatch", cols=cols, action="backfill"):
+            plan = plan_topk_bucket(snap, dispatch_topk(gp))
+            dev = resident_snap(cols, snap, ssn.device)
+            # cold (no carried table): this mid-cycle snapshot must not
+            # consume allocate's deltas
+            result, _mode, _topk, ginfo = dispatch_allocate_solve(
+                dev, session_allocate_config(ssn), plan=plan, cols=cols, guard=gp)
         # this swap retired the what-if lease: re-arm it off the same
         # resident snapshot.  The gang-safe job_schedulable mask is
         # invisible to a probe, whose only job row is the appended one
         republish_query_lease(ssn, snap, meta)
         sentinel = ginfo["sentinel"]
-        assigned, pipelined, *_, verdict, vhist, echeck = _read_back(result, T, sentinel)
+        with tracer.device_span("device_wait", action="backfill"):
+            assigned, pipelined, *_, verdict, vhist, echeck = _read_back(result, T, sentinel)
         if sentinel is not None and not consume_assignment_sentinel(
                 gp, "backfill", ssn, snap, meta, ginfo, verdict, vhist, echeck,
                 assigned):

@@ -23,8 +23,9 @@ oracle the tests hold the columnar path against.
 The guard checks the gate's output (admitted rows were candidates, the
 budgets finite) with its verdict in the same readback, fails closed on a
 violation, and every ``KB_AUDIT_EVERY``-th gate dispatch compares the
-admissions with the reference walk's.  Not ported: tracing and the mesh
-dispatch of the gate.
+admissions with the reference walk's.  The gate's upload, launch and
+readback run in a ``gate_dispatch`` span (``obs/trace.py``).  Not ported:
+the mesh dispatch of the gate.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from kube_batch_tpu_torch.framework.interface import Action
 from kube_batch_tpu_torch.framework.session import JOB_ENQUEUEABLE, JOB_ORDER
 from kube_batch_tpu_torch.guard import guard_of, make_heal
 from kube_batch_tpu_torch.ops.admission import enqueue_gate
+from kube_batch_tpu_torch.obs.trace import tracer_of
 from kube_batch_tpu_torch.ops.invariants import enqueue_gate_sentinel_solve
 from kube_batch_tpu_torch.utils.priority_queue import PriorityQueue
 
@@ -200,23 +202,25 @@ class EnqueueAction(Action):
         candv = np.zeros(capJ, bool)
         candv[:k] = enq_ok[order]
         dev = ssn.device
-        inputs = (torch.from_numpy(minr).to(dev), torch.from_numpy(candv).to(dev),
-                  torch.from_numpy(idle.vec.astype(np.float32)).to(dev),
-                  torch.from_numpy(spec.quanta.astype(np.float32)).to(dev))
         gp = guard_of(ssn.cache)
         self.last_gate_rows = k
         bad = 0
-        if gp.enabled:
-            # the gate sentinel: admitted ⊆ candidates and finite budgets,
-            # checked on the gate's output, its verdict riding the one
-            # readback
-            admitted_dev, verdict, _hist = enqueue_gate_sentinel_solve(
-                *inputs, n_rows=k)
-            packed = torch.cat([admitted_dev[:k].to(torch.int32),
-                                verdict.reshape(1)]).cpu().numpy()
-            admitted, bad = packed[:k].astype(bool), int(packed[k])
-        else:
-            admitted = enqueue_gate(*inputs, n_rows=k).cpu().numpy()[:k]
+        with tracer_of(ssn.cache).device_span("gate_dispatch", cols=cols) as sp_gate:
+            inputs = (torch.from_numpy(minr).to(dev), torch.from_numpy(candv).to(dev),
+                      torch.from_numpy(idle.vec.astype(np.float32)).to(dev),
+                      torch.from_numpy(spec.quanta.astype(np.float32)).to(dev))
+            if gp.enabled:
+                # the gate sentinel: admitted ⊆ candidates and finite
+                # budgets, checked on the gate's output, its verdict riding
+                # the one readback
+                admitted_dev, verdict, _hist = enqueue_gate_sentinel_solve(
+                    *inputs, n_rows=k)
+                packed = torch.cat([admitted_dev[:k].to(torch.int32),
+                                    verdict.reshape(1)]).cpu().numpy()
+                admitted, bad = packed[:k].astype(bool), int(packed[k])
+            else:
+                admitted = enqueue_gate(*inputs, n_rows=k).cpu().numpy()[:k]
+        sp_gate.set(candidates=int(k))
         # a condemned verdict fails closed: no gate-derived promotions (the
         # walk re-decides next cycle); the unconditional ones never read it
         if gp.enabled and not gp.consume_verdict(

@@ -15,14 +15,15 @@ the column store and the resident tensors, as in allocate (an isolated
 session's from its cloned objects, every job included); the guard's
 sentinel follows the solve, and the three result fields and its verdict
 come back in one transfer (a condemned solve evicts nothing).  The
-solve's swap re-arms the what-if lease.  Not ported: the mesh dispatch and
-its shadow audit.
+solve's swap re-arms the what-if lease.  The dispatch and the readback
+run in ``solve_dispatch`` and ``device_wait`` spans (``action=`` reclaim
+or preempt, ``obs/trace.py``).  Not ported: the mesh dispatch and its
+shadow audit.
 """
 
 from __future__ import annotations
 
 import logging
-import time
 from collections import defaultdict
 from typing import Dict, List
 
@@ -35,8 +36,10 @@ from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.framework.interface import Action
 from kube_batch_tpu_torch.framework.session import FitFailure
 from kube_batch_tpu_torch.guard import consume_sentinel, guard_of
+from kube_batch_tpu_torch.obs.trace import tracer_of
 from kube_batch_tpu_torch.ops.eviction import EvictConfig, evict_solve
 from kube_batch_tpu_torch.ops.invariants import evict_sentinel_solve
+from kube_batch_tpu_torch.utils import telemetry
 
 logger = logging.getLogger("kube_batch_tpu_torch")
 
@@ -102,20 +105,26 @@ def solve_claims(ssn, mode: str):
     if cols is not None and not (cols.has_schedulable_pending()
                                  and cols.has_running_victims()):
         return [], {}
-    t0 = time.perf_counter()
+    t0 = telemetry.perf_counter()
     # every job included: the Pending-phase gate (reclaim.go:58-62,
     # preempt.go:59-63) applies to claimants only, through the snapshot's
     # job_schedulable, so Pending-phase jobs' Running tasks stay in the
     # victim pool and their allocations in the fairness state
     snap, meta = build_session_snapshot(ssn)
     gp = guard_of(ssn.cache)
+    tracer = tracer_of(ssn.cache)
     config = evict_config(ssn, mode)
-    dev = resident_snap(cols, snap, ssn.device)
     sentinel = None
-    if gp.enabled:
-        result, rounds, *sentinel = evict_sentinel_solve(dev, config)
-    else:
-        result, rounds = evict_solve(dev, config)
+    # a device span: the resident swap's scatters land on it; nothing is
+    # engaged on one device (the JAX package's shard_map is the only
+    # demotable path of this solve)
+    with tracer.device_span("solve_dispatch", cols=cols, action=mode) as sp:
+        dev = resident_snap(cols, snap, ssn.device)
+        if gp.enabled:
+            result, rounds, *sentinel = evict_sentinel_solve(dev, config)
+        else:
+            result, rounds = evict_solve(dev, config)
+    sp.set(engaged=[])
     # this swap retired the what-if lease: re-arm it off the same
     # (memoized) resident snapshot, so serving is not dark until the next
     # cycle's allocate
@@ -128,11 +137,12 @@ def solve_claims(ssn, mode: str):
     if sentinel is not None:
         verdict, hist, check = sentinel
         parts += [verdict.reshape(1), hist, check.reshape(1)]
-    packed = torch.cat(parts).cpu().numpy()
+    with tracer.device_span("device_wait", action=mode):
+        packed = torch.cat(parts).cpu().numpy()
     claim_node = packed[:T]
     evicted = packed[Tc:Tc + T].astype(bool)
     victim_claimant = packed[2 * Tc:2 * Tc + T]
-    stats = {"rounds": rounds, "solve_ms": (time.perf_counter() - t0) * 1e3}
+    stats = {"rounds": rounds, "solve_ms": (telemetry.perf_counter() - t0) * 1e3}
     if sentinel is not None:
         tail = packed[3 * Tc:]
         # host cross-checks: a claim must target a row the host believes

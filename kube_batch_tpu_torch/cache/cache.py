@@ -43,11 +43,18 @@ binder; ``cache/volume.py`` holds the standalone PV ledger, and node
 ingest feeds it node labels.  ``snapshot()`` deep-clones the session's
 view for an isolated session.
 
+Each unbound pod's arrival → bind-decision clock starts at its first
+ingest (or when it is staged), closes at the bind decision, is re-armed
+when a dispatched bind fails and is dropped when the pod goes; each
+cycle's decisions feed ``volcano_arrival_to_decision_latency_milliseconds``
+and the cycle's trace record (``obs/trace.py``).  The resync queue's
+parks and depth, the degraded cycles' shed status writes and each
+collected job's series pruning feed ``metrics/`` as in the JAX package.
+
 What the JAX package has and this port does not (each is later work in
-ROADMAP.md): the decision-latency clocks and every metric (item 9), the
-k8s PV ledger, the PDB and PV translation and their persistence,
-``failover_recover`` and the egress breakers themselves (item 8;
-``CircuitOpenError`` is honoured).
+ROADMAP.md): the k8s PV ledger and the PDB and PV translation (item 9);
+their persistence, ``failover_recover`` and its failover counter, and the
+egress breakers themselves (item 8; ``CircuitOpenError`` is honoured).
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from kube_batch_tpu_torch import metrics
 from kube_batch_tpu_torch.api.cluster_info import ClusterInfo
 from kube_batch_tpu_torch.api.columns import ColumnStore
 from kube_batch_tpu_torch.api.job_info import JobInfo
@@ -84,6 +92,7 @@ from kube_batch_tpu_torch.cache.fake import (
 )
 from kube_batch_tpu_torch.cache.resync import ResyncQueue
 from kube_batch_tpu_torch.k8s.transport import CircuitOpenError
+from kube_batch_tpu_torch.utils import telemetry
 from kube_batch_tpu_torch.utils.assertions import graft_assert
 from kube_batch_tpu_torch.utils.switches import env_int, switch_on
 from kube_batch_tpu_torch.utils.worker import SerialWorker
@@ -211,6 +220,10 @@ class SchedulerCache:
         # update_pod keeps such a placement when a client update arrives
         # before the ack (the pipelined loop widens that window to a stage)
         self._inflight_bind_hosts: Dict[str, str] = {}
+        # arrival → bind-decision clocks (pod key → perf_counter): stamped
+        # at the first ingest (or staging) of an unbound pod, popped at its
+        # bind decision or deletion
+        self._arrival_ts: Dict[str, float] = {}
         # close-time status-writeback pool for parallel-safe updaters
         # (jobUpdater's 16 workers, job_updater.go:18), created lazily
         self._status_pool = None
@@ -314,6 +327,15 @@ class SchedulerCache:
             fn2()
         return True
 
+    def _note_staged_arrival(self, obj) -> None:
+        """Start a staged unbound pod's arrival clock when it is staged, not
+        when the next cycle's drain applies it, so the latency covers the
+        stage → drain wait; the apply-time stamp in _add_task keeps an
+        earlier one.  setdefault on a dict is atomic under the GIL; other
+        kinds are ignored."""
+        if isinstance(obj, Pod) and obj.node_name is None:
+            self._arrival_ts.setdefault(obj.key(), telemetry.perf_counter())
+
     def drain_staged_ingest(self) -> int:
         """Apply every staged ingest event under one big-lock acquisition,
         in arrival order; a bad event is logged and skipped (informer
@@ -354,6 +376,8 @@ class SchedulerCache:
                 if staged:
                     self._ingest_staged.extend((fn, (obj,)) for fn, obj in ops)
             if staged:
+                for _fn, obj in ops:
+                    self._note_staged_arrival(obj)
                 fn2 = self._ingest_listener
                 if fn2 is not None:
                     fn2()
@@ -481,6 +505,7 @@ class SchedulerCache:
 
     def add_pod(self, pod: Pod) -> None:
         if self._stage(self.add_pod, pod):
+            self._note_staged_arrival(pod)
             return
         with self._lock:
             if self._gate(self.add_pod, pod):
@@ -499,6 +524,10 @@ class SchedulerCache:
         job = self._get_or_create_job(task, pod)
         self.dirty.note_pod(task._key)
         self.dirty.note_job(job.uid)
+        if task.node_name is None and task._key not in self._arrival_ts:
+            # the arrival clock starts at the first ingest of an unbound
+            # pod; status replays keep the first stamp
+            self._arrival_ts[task._key] = telemetry.perf_counter()
         job.add_task(task)
         self.columns.bind_task(task, job)
         if task.node_name:
@@ -519,6 +548,7 @@ class SchedulerCache:
         acked, so a client update cannot clobber a placement.  An external
         change releases a quarantined pod back into the ordinary flow."""
         if self._stage(self.update_pod, pod):
+            self._note_staged_arrival(pod)
             return
         with self._lock:
             if self._gate(self.update_pod, pod):
@@ -529,12 +559,17 @@ class SchedulerCache:
                                  or self._inflight_bind_hosts.get(pod.key()))
             # the rebuild below is the released pod's fresh resync
             self.resync.release(pod.key())
+            # the arrival clock starts at the first ingest: a status replay
+            # of a still-pending pod must not reset it through the rebuild
+            t_arr = self._arrival_ts.get(pod.key())
             # keep a placeholder node alive across an update of its resident
             self._delete_pod_locked(pod, retire_placeholder=not self._owns(pod))
             if self._owns(pod):
                 self._resolve_pod_priority(pod)
                 self.pods[pod.key()] = pod
                 self._add_task(TaskInfo(pod, self.spec), pod)
+                if t_arr is not None and pod.key() in self._arrival_ts:
+                    self._arrival_ts[pod.key()] = t_arr
 
     def delete_pod(self, pod: Pod) -> None:
         if self._stage(self.delete_pod, pod):
@@ -548,6 +583,7 @@ class SchedulerCache:
                            forget_resync: bool = True) -> None:
         self.pods.pop(pod.key(), None)
         self.pod_conditions.pop(pod.key(), None)  # fresh pod ⇒ fresh dedup
+        self._arrival_ts.pop(pod.key(), None)
         self._inflight_bind_hosts.pop(pod.key(), None)
         if forget_resync:
             # an external change or delete: all repair bookkeeping, the
@@ -584,6 +620,7 @@ class SchedulerCache:
             if self.jobs.pop(job.uid, None) is not None:
                 self.dirty.note_job(job.uid)
                 self.columns.free_job(job)
+                metrics.prune_job_series(job.uid)
             self._status_next_write.pop(job.uid, None)
 
     # ------------------------------------------------------------------
@@ -817,6 +854,9 @@ class SchedulerCache:
             if not self._session_active:
                 self._mark_binding_locked(task, hostname)
             pod = self.pods.get(task.key())
+            t0 = self._arrival_ts.pop(task.key(), None) if pod is not None else None
+        if t0 is not None:
+            self._observe_decisions([(telemetry.perf_counter() - t0) * 1e3])
         try:
             if pod is not None:
                 self.binder.bind(pod, hostname)
@@ -847,7 +887,9 @@ class SchedulerCache:
                 staged = [(t, h, t.pod) for t, h in tasks_hosts]
             else:
                 staged = self._bulk_bind_locked(tasks_hosts, job_sums, node_sums)
-            self._note_bind_decisions_locked(staged)
+            lat_ms = self._note_bind_decisions_locked(staged)
+        if lat_ms:
+            self._observe_decisions(lat_ms)
         # dispatched after the lock is released: the first dispatch starts
         # the worker thread, and no lock is held across a thread start
         self._dispatch_async(staged)
@@ -927,26 +969,49 @@ class SchedulerCache:
             node.bulk_add_tasks(owns, [], self.spec.wrap_vec(pre), self.spec.empty())
         return staged
 
-    def _note_bind_decisions_locked(self, staged) -> None:
+    def _note_bind_decisions_locked(self, staged) -> list:
         """Mark every staged dispatch in flight (update_pod's guard for a
-        bind not yet acked)."""
+        bind not yet acked) and close the arrival clocks; returns the ms
+        latencies (observed outside the lock)."""
+        now = telemetry.perf_counter()
+        pop_ts = self._arrival_ts.pop
         inflight = self._inflight_bind_hosts
+        lat_ms = []
         for task, hostname, pod in staged:
-            if pod is not None:
-                inflight[task._key] = hostname
+            if pod is None:
+                continue
+            inflight[task._key] = hostname
+            t0 = pop_ts(task._key, None)
+            if t0 is not None:
+                lat_ms.append((now - t0) * 1e3)
+        return lat_ms
+
+    def _observe_decisions(self, lat_ms: list) -> None:
+        """Feed one batch of arrival → decision latencies to the histogram
+        (and its sink) and to the cycle's trace record, whose SLO check may
+        arm a flight dump."""
+        metrics.observe_decision_latencies(lat_ms)
+        tr = getattr(self, "tracer", None)
+        if tr is not None:
+            tr.note_decision_latencies(lat_ms)
 
     def _settle_inflight(self, entries, bound: bool) -> None:
         """Clear the in-flight markers of settled dispatches; ``entries`` is
         [(key, pod, hostname)].  For a FAILED dispatch, a placement that
         update_pod copied onto a replacement pod object is rolled back (the
         apiserver never bound it) and the pod is marked dirty, so the
-        repair rebuild re-derives it as Pending."""
+        repair rebuild re-derives it as Pending.  A failed pod still in the
+        store gets a new arrival clock, so its repaired decision is
+        measured too."""
+        now = telemetry.perf_counter()
         with self._lock:
             for key, pod, hostname in entries:
                 if self._inflight_bind_hosts.get(key) == hostname:
                     del self._inflight_bind_hosts[key]
                 if not bound:
                     cur = self.pods.get(key)
+                    if cur is not None:
+                        self._arrival_ts.setdefault(key, now)
                     if (cur is not None and cur is not pod
                             and cur.node_name == hostname):
                         cur.node_name = None
@@ -1108,7 +1173,11 @@ class SchedulerCache:
         refused locally: it backs off but never counts toward the poison
         budget."""
         with self._lock:
-            self.resync.park(task, reason)
+            counted = self.resync.park(task, reason)
+            depth, quarantined = len(self.resync), len(self.resync.quarantined)
+        if counted:  # a quarantined key's park is a no-op
+            metrics.register_resync_parked(reason)
+        metrics.set_resync_depth(depth, quarantined)
 
     def _resync_one_locked(self, task: TaskInfo) -> None:
         """Re-sync one errored task from the pod store: gone → forget;
@@ -1132,6 +1201,7 @@ class SchedulerCache:
             if self._session_active:
                 return
             self.resync.apply(self._resync_one_locked, poisoned.append)
+            depth, quarantined = len(self.resync), len(self.resync.quarantined)
         for task in poisoned:
             logger.error("task %s failed %d bind/evict repairs; quarantined until "
                          "an external change to its pod", task.key(),
@@ -1139,6 +1209,7 @@ class SchedulerCache:
             self.task_unschedulable(
                 task, f"bind/evict failed {self.resync.poison_after} times; "
                 "quarantined pending an external pod change")
+        metrics.set_resync_depth(depth, quarantined)
 
     def rebuild_from_pod_store(self) -> None:
         """Re-list recovery (the informer re-list, cache.go:342-384): rebuild
@@ -1301,8 +1372,11 @@ class SchedulerCache:
                     own_pg.succeeded = pg.succeeded
                 # the cache's PodGroup changed: the next delta open re-reads it
                 self.dirty.note_job(job.uid)
-        if write and not self._status_degraded():
-            self.status_updater.update_pod_group(pg)
+        if write:
+            if self._status_degraded():
+                metrics.register_status_writes_shed(1)
+            else:
+                self.status_updater.update_pod_group(pg)
         self.record_job_status_event(job)
 
     def update_job_statuses_bulk(self, updates) -> None:
@@ -1355,6 +1429,7 @@ class SchedulerCache:
         to_write = flush.to_write
         parallel_safe = getattr(updater, "parallel_safe", False)
         if to_write and flush.degraded:
+            metrics.register_status_writes_shed(len(to_write))
             logger.warning("degraded cycle: shedding %d status writes%s", len(to_write),
                            " to the async pool" if parallel_safe else "")
             if parallel_safe:
@@ -1371,6 +1446,8 @@ class SchedulerCache:
                 except Exception:  # noqa: BLE001 — re-derived next close
                     logger.exception("podgroup status write failed")
         self._apply_status_ops(flush.ops, staged=True)
+        if flush.shed_queues:
+            metrics.register_status_writes_shed(flush.shed_queues)
         write = getattr(updater, "update_queue_status", None)
         for name, c in flush.qwrites:
             try:

@@ -28,7 +28,9 @@ A job defined by a PodDisruptionBudget alone has no PodGroup: the close
 records its events (Unschedulable while tasks stay Pending) and writes no
 status (job_updater.go:108-111).
 
-Not ported: the tracer and metrics.
+Each plugin's OnSessionOpen and OnSessionClose runs in a span of the
+cache's tracer (``plugin:<name>.open`` / ``.close``, ``obs/trace.py``),
+whose stamps feed the plugin latency histogram.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ from kube_batch_tpu_torch.api.types import (
     TaskStatus,
     queue_phase_counts,
 )
+from kube_batch_tpu_torch import metrics
 from kube_batch_tpu_torch.device import resolve_device
 from kube_batch_tpu_torch.framework.conf import Tier
 from kube_batch_tpu_torch.ops.scoring import ScoreWeights
@@ -644,11 +647,18 @@ def _open_plugins_and_gate(ssn: Session, tiers: List[Tier], get_plugin_builder) 
     gang is the only voter its verdict IS the count compare, so one
     counts-matrix expression finds the (normally sparse) invalid set and
     only those jobs take the full dispatch for their reason string."""
+    from kube_batch_tpu_torch.obs.trace import tracer_of
+
+    tracer = tracer_of(ssn.cache)
     for tier in tiers:
         for opt in tier.plugins:
             plugin = get_plugin_builder(opt.name)(opt.arguments)
             ssn.plugins.append(plugin)
-            plugin.on_session_open(ssn)
+            # the span is the measurement: the plugin latency histogram
+            # reads its stamps
+            with tracer.span("plugin:" + opt.name + ".open") as sp:
+                plugin.on_session_open(ssn)
+            metrics.observe_plugin_latency(opt.name, "OnSessionOpen", sp.dur_us)
     cols = ssn.columns
     valid_voters = set(ssn._fns.get(JOB_VALID, {}))
     if cols is not None and ssn.rows_synced and valid_voters <= {"gang"} and ssn.jobs:
@@ -890,10 +900,15 @@ def close_session(ssn: Session, stage_flush: bool = False):
     left to that stage too (the cache's in-flight bind map protects
     deferred ingest in the meantime).  An empty session stages its queue
     zero-outs the same way.  A serial close returns None."""
+    from kube_batch_tpu_torch.obs.trace import tracer_of
+
+    tracer = tracer_of(ssn.cache)
     flush = None
     try:
         for plugin in ssn.plugins:
-            plugin.on_session_close(ssn)
+            with tracer.span("plugin:" + plugin.name + ".close") as sp:
+                plugin.on_session_close(ssn)
+            metrics.observe_plugin_latency(plugin.name, "OnSessionClose", sp.dur_us)
         if ssn.columns is None:
             # an isolated session: the per-job object pass, each PodGroup's
             # derived status copied onto the cache's own

@@ -16,13 +16,18 @@ engaged cycle re-promotes.  Time counts in scheduling cycles
 Every trip also runs the heal hook (``ColumnStore.drop_resident``: the
 next dispatch uploads every column in full, and the carried warm tables
 go; the query plane's lease is retired) and, when the caller supplies
-one, a lazy bundle dump.  Every state transition happens under one leaf
-lock; heals and dumps run outside it.
+one, a lazy bundle dump.  A trip is also the flight recorder's primary
+trigger (``obs/recorder.py``): the trace trees of the cycles around the
+condemned solve dump beside the guard bundle.  Every state transition
+happens under one leaf lock; heals and dumps run outside it.
 
-The JAX package's metrics calls are not ported (the port has no metrics
-module); the plane keeps its counters (``verdicts_consumed``,
-``trips_total``, ``failed_closed``, ``audits_run``, ``audits_mismatched``,
-``trip_log``, ``bundles``).
+Trips, audits and demotions feed ``volcano_guard_trips_total``,
+``volcano_guard_audits_total`` and ``volcano_guard_path_demoted``
+(``metrics/``); the trip log feeds the alert evaluator
+(:meth:`GuardPlane.trip_series`, ``obs/alerts.py``).  The plane keeps its
+own counters too (``verdicts_consumed``, ``trips_total``,
+``failed_closed``, ``audits_run``, ``audits_mismatched``, ``trip_log``,
+``bundles``).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from kube_batch_tpu_torch import metrics
 from kube_batch_tpu_torch.utils.switches import env_int
 
 logger = logging.getLogger("kube_batch_tpu_torch")
@@ -149,6 +155,7 @@ class GuardPlane:
             return
         with self._lock:
             self.audits_run += 1
+        metrics.register_guard_audit("match" if matched else "mismatch")
         if matched:
             with self._lock:
                 self._cycle_engaged.update(engaged)
@@ -187,10 +194,19 @@ class GuardPlane:
                 ph.state = DEMOTED
                 ph.clean_cycles = 0
                 self._cycle_tripped.add(name)
+                metrics.set_guard_path_demoted(name, 1)
+        metrics.register_guard_trip(action, reason)
         logger.error("guard plane trip (%s/%s): %s — failing closed; demoted %s",
                      action, reason, detail, targets or "no fast path")
         # outside the lock: the heal touches the column store, the dump
-        # reads the snapshot back and writes files
+        # reads the snapshot back and writes files.  The flight recorder's
+        # capture of the cycles around this trip is armed first
+        flight = getattr(getattr(self, "host_cache", None), "flight_recorder", None)
+        if flight is not None:
+            try:
+                flight.trigger("guard_trip", detail=f"{action}/{reason}: {detail}")
+            except Exception:  # noqa: BLE001 — diagnostics only
+                logger.exception("flight-recorder trigger failed")
         if heal is not None:
             try:
                 heal()
@@ -229,9 +245,16 @@ class GuardPlane:
                 elif ph.state == PROBING and name in self._cycle_engaged:
                     ph.state = HEALTHY
                     ph.promotions += 1
+                    metrics.set_guard_path_demoted(name, 0)
                     logger.info("guard path %s re-promoted (clean probe)", name)
             self._cycle_engaged.clear()
             self._cycle_tripped.clear()
+
+    def trip_series(self, since: int):
+        """(cycle, trip_log[since:], new length) under the plane's lock:
+        the alert evaluator's incremental read (``obs/alerts.py``)."""
+        with self._lock:
+            return self.cycle, list(self.trip_log[since:]), len(self.trip_log)
 
     # ------------------------------------------------------------------
     def state(self) -> Dict:
@@ -263,7 +286,11 @@ def guard_of(cache) -> GuardPlane:
         with _ATTACH_LOCK:
             gp = getattr(cache, "guard_plane", None)
             if gp is None:
-                gp = cache.guard_plane = GuardPlane()
+                gp = GuardPlane()
+                # the back-pointer for the flight-recorder trigger in
+                # trip(); the state machine never reads through it
+                gp.host_cache = cache
+                cache.guard_plane = gp
     return gp
 
 

@@ -20,9 +20,12 @@ resilience, standalone).
   transport behind a breaker.
 
 The replication follower pulls its frames through
-:meth:`ApiTransport.get_bytes`.  Standard library only.  The JAX
-package's metrics are not ported (ROADMAP item 9); the breaker's
-transition counts stay on the object (``CircuitBreaker.transitions``).
+:meth:`ApiTransport.get_bytes`.  Each retry counts in
+``volcano_transport_retries_total`` by endpoint class and error kind, and
+each breaker transition in ``volcano_circuit_breaker_transitions_total``
+and ``volcano_circuit_breaker_open`` (``metrics/``); the transition counts
+stay on the object too (``CircuitBreaker.transitions``).  Standard
+library and the package's own metrics only.
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ import time
 import urllib.error
 import urllib.request
 from typing import Callable, Dict, Optional, Tuple
+
+from kube_batch_tpu_torch import metrics
 
 logger = logging.getLogger("kube_batch_tpu_torch")
 
@@ -256,6 +261,8 @@ class CircuitBreaker:
             return
         self._state = state
         self.transitions[state] = self.transitions.get(state, 0) + 1
+        metrics.register_breaker_transition(self.name, state)
+        metrics.set_breaker_open(self.name, 1 if state == self.OPEN else 0)
         logger.warning("circuit breaker %s → %s", self.name, state)
 
     def allow(self) -> bool:
@@ -437,6 +444,7 @@ class ApiTransport:
                 if attempt >= attempts:
                     raise
                 delay = self.retry.delay(kind, retry_after, backoff)
+                metrics.register_transport_retry(endpoint_class, kind)
                 logger.warning(
                     "%s %s failed (%s, %s); retry %d/%d in %.2fs",
                     endpoint_class, self.api_server, kind, e, attempt,

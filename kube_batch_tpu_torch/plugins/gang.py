@@ -4,8 +4,10 @@ Mirrors ``kube_batch_tpu/plugins/gang.py``.  Registers JobValid (minMember
 check), Preemptable/Reclaimable (never shrink a gang below minAvailable),
 JobOrder (starved gangs first), JobReady and JobPipelined; on close it
 writes Unschedulable conditions and fit errors for still-unready jobs
-(gang.go:132-175).  The device solve enforces the same commit gate; this
-host plugin is authoritative for the session bookkeeping.
+(gang.go:132-175), and counts a job still unschedulable since an earlier
+session in ``volcano_job_retry_counts``.  The device solve enforces the
+same commit gate; this host plugin is authoritative for the session
+bookkeeping.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Dict, List
 
 import numpy as np
 
+from kube_batch_tpu_torch import metrics
 from kube_batch_tpu_torch.api.columns import READY_STATUSES
 from kube_batch_tpu_torch.api.job_info import JobInfo
 from kube_batch_tpu_torch.api.pod import PodGroupCondition
@@ -85,6 +88,14 @@ class GangPlugin(Plugin):
             candidates = [job for job in ssn.jobs.values()
                           if not job.ready() and job.tasks]
         for job in candidates:
+            # still unschedulable with an Unschedulable condition from an
+            # earlier session: a retry of a failed job (job_retry_counts,
+            # metrics.go:113-121, declared but never written there)
+            if job.pod_group is not None and any(
+                    c.type == "Unschedulable" and c.status == "True"
+                    and c.transition_id != ssn.uid
+                    for c in job.pod_group.conditions):
+                metrics.register_job_retry(job.uid)
             fit_errors = [fe.error() for fe in job.nodes_fit_errors.values()]
             message = job.fit_error() + (f"; {fit_errors[0]}" if fit_errors else "")
             job.job_fit_errors = message  # read by record_job_status_event

@@ -27,8 +27,12 @@ tensors are rewritten in place).  No lease tensor shares memory with the
 host fields, on the CPU either: the next delta scatters into those fields
 in place.  ``device=None`` means CUDA and raises without a card.
 
-The JAX package's metrics and tracer span are not ported (ROADMAP item
-9); the counters and the last apply's times stay on the objects.
+Each frame moves ``volcano_replication_lag_cycles``; each applied record
+counts in ``volcano_replication_applied_total`` and each refused one in
+``volcano_replication_resyncs_total``, and the published lease's version
+is ``volcano_whatif_snapshot_version`` (``metrics/``).  With a ``tracer``
+the device swap runs in a ``replicate_apply`` span.  The counters and the
+last apply's times stay on the objects too.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from kube_batch_tpu_torch import metrics
 from kube_batch_tpu_torch.device import resolve_device
 from kube_batch_tpu_torch.replicate import stream
 
@@ -107,12 +112,14 @@ class FollowerApplier:
     """Applies decoded records: host scatter or whole-field apply, the
     table patches, the device residency and the lease's publish."""
 
-    def __init__(self, cache: FollowerCache, query_plane, device=None) -> None:
+    def __init__(self, cache: FollowerCache, query_plane, device=None,
+                 tracer=None) -> None:
         from kube_batch_tpu_torch.api.resident import PerCycleDeviceCache
 
         self.device = resolve_device(device)
         self.cache = cache
         self.qp = query_plane
+        self.tracer = tracer
         self.fields: Dict[str, np.ndarray] = {}
         self.tables: Optional[dict] = None
         self.applied_seq = 0
@@ -148,6 +155,7 @@ class FollowerApplier:
         t_decode = time.perf_counter()
         self.head_seq = max(self.head_seq, rec.head_seq)
         self.head_version = max(self.head_version, rec.head_version)
+        metrics.set_replication_lag(max(0, self.head_seq - self.applied_seq))
         if rec.kind == stream.HEARTBEAT:
             self.heartbeats += 1
             return "heartbeat"
@@ -158,6 +166,7 @@ class FollowerApplier:
                     # a chain gap (a missed record, a version skip, a
                     # reconnect): resync in full instead of guessing
                     self.gaps += 1
+                    metrics.register_replication_resync()
                     return "resync"
                 self._apply_delta(rec)
             else:
@@ -165,6 +174,7 @@ class FollowerApplier:
         except (KeyError, IndexError, ValueError) as e:
             logger.warning("replication apply failed (%s); forcing resync", e)
             self.gaps += 1
+            metrics.register_replication_resync()
             return "resync"
         t_apply = time.perf_counter()
         self.applied_seq = rec.seq
@@ -174,6 +184,8 @@ class FollowerApplier:
         self.last_ms = {"decode": (t_decode - t0) * 1e3,
                         "apply": (t_apply - t_decode) * 1e3,
                         "swap": (time.perf_counter() - t_apply) * 1e3}
+        metrics.register_replication_applied(rec.kind)
+        metrics.set_replication_lag(max(0, self.head_seq - self.applied_seq))
         return "applied"
 
     def _bump(self, field: str) -> None:
@@ -277,7 +289,11 @@ class FollowerApplier:
         config = stream.config_from_wire(rec.lease["config"])
         evict_config = stream.config_from_wire(rec.lease["evict_config"])
         with self.qp.broker.swap_guard():
-            dev_snap = self._swap()
+            if self.tracer is not None:
+                with self.tracer.span("replicate_apply", seq=rec.seq, kind=rec.kind):
+                    dev_snap = self._swap()
+            else:
+                dev_snap = self._swap()
         lease = SnapshotLease(
             snap=dev_snap, meta=meta, version=rec.version, config=config,
             evict_config=evict_config, mesh=None,
@@ -288,6 +304,7 @@ class FollowerApplier:
         )
         self.cache.spec = spec
         self.qp.broker.publish(lease)
+        metrics.set_whatif_snapshot_version(rec.version)
 
     def revalidate_resident(self) -> dict:
         """The re-adoption check after a pull-loop restart
@@ -311,7 +328,8 @@ class ReplicationFollower:
 
     def __init__(self, leader_url: str, cache: Optional[FollowerCache] = None,
                  query_plane=None, poll_s: Optional[float] = None,
-                 transport=None, timeout: float = 30.0, device=None) -> None:
+                 transport=None, timeout: float = 30.0, device=None,
+                 tracer=None) -> None:
         from kube_batch_tpu_torch.k8s.transport import ApiTransport
 
         device = resolve_device(device)
@@ -321,7 +339,8 @@ class ReplicationFollower:
 
             query_plane = QueryPlane(self.cache)
         self.qp = query_plane
-        self.applier = FollowerApplier(self.cache, query_plane, device=device)
+        self.applier = FollowerApplier(self.cache, query_plane, device=device,
+                                       tracer=tracer)
         self.transport = (transport if transport is not None
                           else ApiTransport(leader_url, role="replicate"))
         self.poll_s = _poll_s() if poll_s is None else poll_s

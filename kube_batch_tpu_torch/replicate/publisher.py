@@ -33,9 +33,12 @@ field's bytes ships whole (``PerCycleDeviceCache._payload_bytes``, the
 scatter's break-even).  The mirrors are also the source of the full frame
 synthesized for a follower whose ``since`` fell off the ring.
 
-The JAX package's metrics and tracer span are not ported (ROADMAP items
-8 and 9); the counters stay on the object (:meth:`counters`), with the
-cycle thread's and the worker's times beside them.
+Each record published (and each full frame synthesized) feeds
+``volcano_replication_records_total`` and ``_bytes_total``
+(``metrics/``); with a ``tracer`` (the leader's ``tracer_of(cache)``) the
+worker's encode runs in a ``replicate_encode`` span.  The counters stay on
+the object too (:meth:`counters`), with the cycle thread's and the
+worker's times beside them.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from kube_batch_tpu_torch import metrics
 from kube_batch_tpu_torch.replicate import stream
 from kube_batch_tpu_torch.utils.switches import env_int
 
@@ -81,8 +85,9 @@ def _lease_wire(lease) -> dict:
 
 
 class ReplicationPublisher:
-    def __init__(self, ring_size: Optional[int] = None) -> None:
+    def __init__(self, ring_size: Optional[int] = None, tracer=None) -> None:
         self.ring_size = RING_SIZE if ring_size is None else ring_size
+        self.tracer = tracer
         self._lock = threading.RLock()
         self._mirror: Dict[str, np.ndarray] = {}
         self._meta_tables: Optional[dict] = None
@@ -164,7 +169,11 @@ class ReplicationPublisher:
     def _encode_cycle(self, seq, version, fields, tables, lease_wire, hint):
         t0 = time.perf_counter()
         try:
-            self._encode_locked(seq, version, fields, tables, lease_wire, hint)
+            if self.tracer is not None:
+                with self.tracer.span("replicate_encode", seq=seq):
+                    self._encode_locked(seq, version, fields, tables, lease_wire, hint)
+            else:
+                self._encode_locked(seq, version, fields, tables, lease_wire, hint)
         except Exception:  # noqa: BLE001 — the next record is full; the cycle goes on
             # a half-updated mirror must never feed another delta
             with self._lock:
@@ -239,6 +248,7 @@ class ReplicationPublisher:
             self.records[kind] += 1
             self.bytes_published += len(frame)
             self.last_frame_bytes = len(frame)
+        metrics.register_replication_record(kind, len(frame))
 
     # ---- serving (the follower's pull) -----------------------------------
     def record_for(self, since: int) -> bytes:
@@ -280,6 +290,7 @@ class ReplicationPublisher:
         self._full_cache = (head_seq, frame)
         self.records[stream.FULL] += 1
         self.bytes_published += len(frame)
+        metrics.register_replication_record(stream.FULL, len(frame))
         return frame
 
     def counters(self) -> dict:

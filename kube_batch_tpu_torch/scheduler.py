@@ -32,7 +32,15 @@ loaded from ``conf_path`` is reloaded at a cycle boundary when the file
 changes, and a broken edit keeps the running conf.  ``device=None`` means
 CUDA and raises without a card.
 
-Not ported (ROADMAP.md): the tracing spans, metrics and alerts (item 9).
+Every stage of the cycle runs inside a span of the cache's tracer
+(``obs/trace.py``): ``ingest_drain``, ``resync``, ``session_open``,
+``action:<name>``, ``status_derive``, then ``writeback_barrier``
+(pipelined) or ``bind_drain`` (serial), and the worker's ``writeback`` on
+the originating cycle's record.  The spans are the measurement: the
+action latency histogram reads each action span's stamps, and
+``last_cycle_ms`` holds the cycle's span times.  After the guard plane's
+cycle clock advances, the trip-rate alerts are evaluated
+(``obs/alerts.py``).
 """
 
 from __future__ import annotations
@@ -44,12 +52,16 @@ import time
 from typing import Dict, List, Optional
 
 from kube_batch_tpu_torch import actions as _actions  # noqa: F401 — registers actions
+from kube_batch_tpu_torch import metrics
 from kube_batch_tpu_torch import plugins as _plugins  # noqa: F401 — registers plugins
 from kube_batch_tpu_torch.cache.cache import SchedulerCache
 from kube_batch_tpu_torch.device import resolve_device
 from kube_batch_tpu_torch.framework.conf import SchedulerConfiguration, load_scheduler_conf
 from kube_batch_tpu_torch.framework.interface import Action, get_action, get_plugin_builder
 from kube_batch_tpu_torch.framework.session import close_session, open_session
+from kube_batch_tpu_torch.obs.alerts import alerts_of
+from kube_batch_tpu_torch.obs.trace import tracer_of
+from kube_batch_tpu_torch.utils import telemetry
 from kube_batch_tpu_torch.utils.switches import switch_on
 from kube_batch_tpu_torch.utils.worker import SerialWorker
 
@@ -150,15 +162,19 @@ class Scheduler:
         # pipelined cycle
         self.cycle_cost_ewma: Optional[float] = None
         self.trigger = CycleTrigger(clock=self.clock)
+        # the cache's span recorder and flight-recorder ring; virtual-time
+        # stamps follow an injected clock
+        self.tracer = tracer_of(cache, clock=self.clock)
         # the writeback stage: one worker, at most one cycle's flush in
         # flight while the next cycle computes (_await_writeback joins it)
         self._wb_worker: Optional[SerialWorker] = None
         self._wb_future = None
-        # wall-clock ms of the last cycle's stages: ingest_drain, resync,
-        # open, action:<name>, close (the status derive), writeback_barrier
-        # (pipelined) or bind_drain (serial)
+        # wall-clock ms of the last cycle's stage spans: ingest_drain,
+        # resync, open (session_open), action:<name>, close
+        # (status_derive), writeback_barrier (pipelined) or bind_drain
+        # (serial)
         self.last_cycle_ms: Dict[str, float] = {}
-        # wall-clock ms of the last writeback stage, timed on its worker
+        # wall-clock ms of the last writeback span, on its worker
         self.last_writeback_ms: Optional[float] = None
         # cycles and writeback stages that raised (each is logged, and the
         # next cycle re-derives the state)
@@ -205,7 +221,7 @@ class Scheduler:
         """One serial cycle (scheduler.go:88-102): every stage inline, the
         bind drain at the end, a deterministic post-cycle state.  This form
         is the bit-exactness oracle (KB_PIPELINE=0)."""
-        self._cycle_body(pipelined=False)
+        self._cycle(pipelined=False)
 
     def run_once_pipelined(self) -> None:
         """One pipelined cycle: staged ingest drains under one lock, the
@@ -213,50 +229,72 @@ class Scheduler:
         the status pass and hands its egress (status flush and bind drain)
         to the writeback worker, to overlap the caller's next cycle.
         :meth:`drain_pipeline`, or the next cycle's barrier, joins it."""
-        self._cycle_body(pipelined=True)
+        self._cycle(pipelined=True)
 
-    def _cycle_body(self, pipelined: bool) -> None:
+    def _cycle(self, pipelined: bool) -> None:
+        tracer = self.tracer
+        # the cycle's trace record: every stage below runs inside a span;
+        # the pipelined writeback attaches to this record from its worker
+        record = tracer.begin_cycle("pipelined" if pipelined else "serial")
+        try:
+            self._cycle_body(pipelined, record)
+        finally:
+            tracer.end_cycle()
+
+    def _cycle_body(self, pipelined: bool, record) -> None:
         cache = self.cache
+        tracer = self.tracer
         cycle: Dict[str, float] = {}
         if pipelined:
             # ingest stage: applied before the resync drain, so repair
             # decisions see the freshest pod store
-            t = time.perf_counter()
-            cache.drain_staged_ingest()
-            cycle["ingest_drain"] = (time.perf_counter() - t) * 1e3
+            with tracer.span("ingest_drain") as sp:
+                n_staged = cache.drain_staged_ingest()
+                sp.set(events=n_staged)
+            cycle["ingest_drain"] = sp.dur_ms
+            metrics.register_staged_ingest(n_staged)
         # the resync queue drains at every cycle boundary, so a failed bind
         # or evict is repaired within one cycle
-        t = time.perf_counter()
-        cache.process_resync_tasks()
-        cycle["resync"] = (time.perf_counter() - t) * 1e3
+        with tracer.span("resync") as sp:
+            cache.process_resync_tasks()
+        cycle["resync"] = sp.dur_ms
         self._maybe_reload_conf()
+        start = telemetry.perf_counter()
         budget_start = self.clock.monotonic() if self.cycle_budget > 0 else 0.0
-        t0 = time.perf_counter()
-        ssn = open_session(cache, self.conf.tiers, self.device)
+        with tracer.span("session_open") as sp:
+            ssn = open_session(cache, self.conf.tiers, self.device)
+        cycle["open"] = sp.dur_ms
         # the configured pipeline, for actions whose behaviour depends on
         # what runs after them (reclaim's idle-fit claimant gate)
         ssn.action_names = [a.name for a in self.actions]
-        cycle["open"] = (time.perf_counter() - t0) * 1e3
         staged_flush = None
         try:
             for action in self.actions:
-                ta = time.perf_counter()
-                action.execute(ssn)
-                cycle["action:" + action.name] = (time.perf_counter() - ta) * 1e3
+                # the span is the measurement: the action latency histogram
+                # reads its stamps
+                with tracer.span("action:" + action.name) as sp:
+                    action.execute(ssn)
+                cycle["action:" + action.name] = sp.dur_ms
+                metrics.observe_action_latency(action.name, sp.dur_us)
         finally:
             shed = (self.cycle_budget > 0
                     and self.clock.monotonic() - budget_start > self.cycle_budget)
             if shed:
                 logger.warning("cycle over its %.2fs soft budget before close; "
                                "shedding the status flush", self.cycle_budget)
+                metrics.register_cycle_budget_exceeded()
+                # a shed is a flight-recorder anomaly: the cycles around it
+                # show where the budget went
+                tracer.anomaly("budget_shed",
+                               detail=f"cycle over KB_CYCLE_BUDGET={self.cycle_budget}s")
                 cache.shed_status_writes = True
             try:
-                tc = time.perf_counter()
                 # pipelined: the close stages the flush (the degraded verdict
                 # taken now, while the shed flag is visible) and skips the
                 # bind drain; both run on the writeback worker
-                staged_flush = close_session(ssn, stage_flush=pipelined)
-                cycle["close"] = (time.perf_counter() - tc) * 1e3
+                with tracer.span("status_derive") as sp:
+                    staged_flush = close_session(ssn, stage_flush=pipelined)
+                cycle["close"] = sp.dur_ms
             finally:
                 if shed:
                     cache.shed_status_writes = False
@@ -268,37 +306,42 @@ class Scheduler:
                     # own finally raised is recovered from the session
                     if staged_flush is None:
                         staged_flush = ssn.staged_flush
-                    tb = time.perf_counter()
-                    self._await_writeback()
-                    cycle["writeback_barrier"] = (time.perf_counter() - tb) * 1e3
-                    self._submit_writeback(staged_flush)
+                    with tracer.span("writeback_barrier") as sp:
+                        self._await_writeback()
+                    cycle["writeback_barrier"] = sp.dur_ms
+                    self._submit_writeback(staged_flush, record)
                 self.last_cycle_ms = cycle
+        metrics.observe_e2e_latency((telemetry.perf_counter() - start) * 1e3)
         if not pipelined:
             # the serial close joined the dispatcher already; a bind
             # dispatched after it (none today) is joined here
-            tb = time.perf_counter()
-            cache.flush_binds()
-            cycle["bind_drain"] = (time.perf_counter() - tb) * 1e3
-        # the guard plane's breaker clock counts scheduling cycles
+            with tracer.span("bind_drain") as sp:
+                cache.flush_binds()
+            cycle["bind_drain"] = sp.dur_ms
+        # the guard plane's breaker clock counts scheduling cycles, and the
+        # trip-rate alerts ride the same clock
         guard = getattr(cache, "guard_plane", None)
         if guard is not None:
             guard.end_cycle()
+            alerts_of(cache).evaluate(guard)
         if self.on_cycle_end is not None:
             self.on_cycle_end()
 
     # ---- the writeback stage (the overlapped half of the pipeline) -------
-    def _writeback(self, staged_flush) -> float:
-        """The status flush, then the bind drain; returns its wall ms."""
-        t = time.perf_counter()
-        if staged_flush:
-            self.cache.run_status_flush(staged_flush)
-        self.cache.flush_binds()
-        return (time.perf_counter() - t) * 1e3
+    def _writeback(self, staged_flush, record=None) -> float:
+        """The status flush, then the bind drain, in a span on the
+        originating cycle's record; returns its wall ms."""
+        with self.tracer.cycle_span("writeback", record) as sp:
+            if staged_flush:
+                self.cache.run_status_flush(staged_flush)
+            self.cache.flush_binds()
+        metrics.observe_pipeline_overlap(sp.dur_ms)
+        return sp.dur_ms
 
-    def _submit_writeback(self, staged_flush) -> None:
+    def _submit_writeback(self, staged_flush, record=None) -> None:
         if self._wb_worker is None:
             self._wb_worker = SerialWorker("kb-writeback")
-        self._wb_future = self._wb_worker.submit(self._writeback, staged_flush)
+        self._wb_future = self._wb_worker.submit(self._writeback, staged_flush, record)
 
     def _await_writeback(self) -> None:
         fut, self._wb_future = self._wb_future, None
@@ -335,7 +378,7 @@ class Scheduler:
         rep = getattr(self.cache, "replication", None)
         if rep is not None:
             rep.barrier()
-        self.cache.drain_staged_ingest()
+        metrics.register_staged_ingest(self.cache.drain_staged_ingest())
 
     def _recover_failed_cycle(self) -> None:
         # an exclusive session mutates the cache in place: a cycle that
@@ -402,6 +445,7 @@ class Scheduler:
                 reason = self.trigger.wait_for_work(tick, self.min_period,
                                                     self.max_period)
                 self.wake_reasons[reason] += 1
+                metrics.register_trigger_wake(reason)
         finally:
             # shutdown drain: apply staged ingest, join the writeback, and
             # detach the trigger so a re-armed run_forever starts clean

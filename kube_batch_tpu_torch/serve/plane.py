@@ -31,8 +31,13 @@ Where the port differs from the JAX package:
   in a process) in a background thread at the first publish on a CUDA
   device: that load is the port's only cold cost, where the JAX package
   compiles a zeros twin of each new lease shape;
-- the plane keeps its own counters (``dispatches``, ``requests_served``,
-  ``batcher.rejected``); the metrics registry is not ported.
+- the plane keeps its own counters too (``dispatches``,
+  ``requests_served``, ``batcher.rejected``).
+
+The ``volcano_whatif_*`` series (``metrics/``) are fed as the JAX package
+feeds them: requests by verdict, dispatches, batch size and queue depth
+per flush, enqueue → verdict latency, sweeps, and the published lease's
+version.
 
 A failed dispatch fails its own sub-batch only, and is never retried on
 the CPU.
@@ -48,8 +53,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from kube_batch_tpu_torch import metrics
 from kube_batch_tpu_torch.serve.batcher import MicroBatcher, env_float
 from kube_batch_tpu_torch.serve.lease import LeaseBroker, SnapshotLease
+from kube_batch_tpu_torch.utils import telemetry
 
 logger = logging.getLogger("kube_batch_tpu_torch")
 
@@ -148,6 +155,7 @@ def _parse_request(body: dict, spec) -> dict:
         "req_vec": req_vec,
         "best_effort": best_effort,
         "evictions": bool(body.get("evictions", False)),
+        "_t0": telemetry.perf_counter(),
     }
 
 
@@ -284,6 +292,7 @@ class QueryPlane:
             except Exception:  # noqa: BLE001 — replication must never stall the cycle
                 logger.exception("replication publish failed; followers will resync")
         self.broker.publish(lease)
+        metrics.set_whatif_snapshot_version(lease.version)
         if self._prewarm:
             self._maybe_prewarm(lease)
 
@@ -345,6 +354,7 @@ class QueryPlane:
         batch = [(r, f) for r, f in batch if not f.cancelled()]
         if not batch:
             return
+        metrics.observe_whatif_batch(len(batch), self.batcher.depth())
         # a mixed window splits by the evictions flag, so one evictions
         # request does not make the plain probes pay the eviction pass;
         # sweeps run their own search; all against the same lease
@@ -360,7 +370,8 @@ class QueryPlane:
             if lease is None:
                 err = WhatifError(503, "no snapshot lease published yet (scheduler warming)")
                 for _req, fut in batch:
-                    self._deliver(fut, error=err)
+                    if self._deliver(fut, error=err):
+                        metrics.register_whatif_request("error")
                 return
             for sub in subs:
                 if not sub:
@@ -370,20 +381,29 @@ class QueryPlane:
                 except Exception as e:  # noqa: BLE001 — fail this sub-batch, keep serving
                     logger.exception("whatif probe dispatch failed")
                     for _req, fut in sub:
-                        self._deliver(fut, error=WhatifError(500, f"probe failed: {e}"))
+                        if self._deliver(fut, error=WhatifError(500, f"probe failed: {e}")):
+                            metrics.register_whatif_request("error")
             for req, fut in sweeps:
                 try:
                     done_sweeps.append((req, fut, self._sweep(lease, req)))
                 except Exception as e:  # noqa: BLE001 — fail this sweep, keep serving
                     logger.exception("whatif sweep failed")
-                    self._deliver(fut, error=WhatifError(500, f"sweep failed: {e}"))
-        for _req, fut, resp in done_sweeps:
-            if self._deliver(fut, result=resp):
-                self.requests_served += 1
+                    if self._deliver(fut, error=WhatifError(500, f"sweep failed: {e}")):
+                        metrics.register_whatif_request("error")
+        for req, fut, resp in done_sweeps:
+            if not self._deliver(fut, result=resp):
+                continue
+            metrics.register_whatif_sweep()
+            metrics.observe_whatif_latency((telemetry.perf_counter() - req["_t0"]) * 1e3)
+            self.requests_served += 1
         for sub, results in done:
-            for (_req, fut), resp in zip(sub, results):
-                if self._deliver(fut, result=resp):
-                    self.requests_served += 1
+            for (req, fut), resp in zip(sub, results):
+                if not self._deliver(fut, result=resp):
+                    continue  # the caller gave up mid-dispatch
+                metrics.register_whatif_request(
+                    "feasible" if resp["feasible"] else "infeasible")
+                metrics.observe_whatif_latency((telemetry.perf_counter() - req["_t0"]) * 1e3)
+                self.requests_served += 1
 
     def _sweep(self, lease: SnapshotLease, req: dict) -> dict:
         """The largest count whose gang fits, against one lease: a
@@ -516,6 +536,7 @@ class QueryPlane:
             with_evictions,
         )
         self.dispatches += 1
+        metrics.register_whatif_dispatch()
         fields = ["assigned", "pipelined", "committed", "feasible", "reasons",
                   "enqueue_ok"]
         if with_evictions:

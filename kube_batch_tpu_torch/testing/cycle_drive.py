@@ -19,6 +19,8 @@
         [--tasks 50000] [--nodes 5000] [--device ...]
     python -m kube_batch_tpu_torch.testing.cycle_drive --replicate-cost
         [--tasks 50000] [--nodes 5000] [--device ...]
+    python -m kube_batch_tpu_torch.testing.cycle_drive --trace-cost
+        [--tasks 50000] [--nodes 5000] [--device ...]
 
 The first two drives run three cycles of ``Scheduler.run_once`` under
 the shipped five-action conf (``enqueue, reclaim, allocate, backfill,
@@ -136,6 +138,20 @@ and a lower bound in the followed ones (the checks' time, and the
 encode they join, taken out of the wall).  :func:`replicate_cost` runs
 the legs as two pairs in either order and reads the cost alone.
 
+Every drive's cycles run traced (``KB_TRACE`` is on by default; the
+steady drive's ``untraced`` leg turns it off): a :class:`TraceProbe`
+counts the kernel launches inside the traced ``solve_dispatch`` spans and
+takes the arrival → decision samples through the metrics sink, and the
+report's ``trace`` holds the spans per cycle, each span name's p50 ms,
+the Chrome export's validation, the e2e and decision histogram counts,
+the Prometheus text's series and render time and the flight recorder's
+bytes; a pipelined run adds back-to-back pairs until cycle N's writeback
+span overlaps cycle N+1's compute.  :func:`trace_cost` (``--trace-cost``)
+reads the tracer's cost on the steady wall: legs off, on, on, off, on,
+off, off, on (each leg position traced in one half and untraced in the
+other, so a drift over the run cancels), with nothing but the cycle
+inside each wall.
+
 After each cycle the drive checks the column store against the object
 model, every node's ``idle ≥ −quanta`` and ``used ≤ allocatable +
 quanta``, that no pod was bound twice, and the evictions: every evicted
@@ -188,6 +204,8 @@ from kube_batch_tpu_torch.api.types import PodGroupPhase, PodPhase, TaskStatus
 from kube_batch_tpu_torch.cache.fake import FakeBinder
 from kube_batch_tpu_torch.framework.conf import load_scheduler_conf, shipped_conf_path
 from kube_batch_tpu_torch.framework.interface import Plugin
+from kube_batch_tpu_torch.metrics import metrics as prom
+from kube_batch_tpu_torch.obs.trace import chrome_trace, validate_chrome_trace
 from kube_batch_tpu_torch.ops import kernels
 from kube_batch_tpu_torch.scheduler import Scheduler
 from kube_batch_tpu_torch.testing.synthetic import (
@@ -213,6 +231,7 @@ LEGS = {
     "noguard": ("KB_GUARD",),
     "oracle": ORACLE_SWITCHES,
     "pipelined": (),
+    "untraced": ("KB_TRACE",),
 }
 
 
@@ -496,10 +515,163 @@ def guard_counters(cache) -> dict:
             "demoted": sorted(n for n, p in st["paths"].items() if p["state"] != "healthy")}
 
 
+class _CountedSpan:
+    """A traced span that adds the kernel launches made inside it to its
+    probe's ``dispatch_launches``."""
+
+    def __init__(self, span, probe):
+        self.span, self.probe = span, probe
+
+    def __enter__(self):
+        self.before = dict(kernels.launches)
+        return self.span.__enter__()
+
+    def __exit__(self, *exc):
+        out = self.span.__exit__(*exc)
+        for name, n in kernels.launches.items():
+            self.probe.dispatch_launches[name] += n - self.before.get(name, 0)
+        return out
+
+
+class TraceProbe:
+    """The trace-side readings of a drive's cycles, on one scheduler: the
+    kernel launches made inside the traced ``solve_dispatch`` spans, the
+    arrival → decision samples (through the metrics sink, next to their
+    span-stamped twins) and the time the cache spends observing them, and
+    the e2e histogram's count.  :meth:`remove` restores everything."""
+
+    def __init__(self, sched):
+        self.cache, self.tracer = sched.cache, sched.tracer
+        self.dispatch_launches: Dict[str, int] = collections.Counter()
+        self.sink: List[float] = []
+        self.observe_ms = 0.0
+        self.e2e_before = prom.E2E_LATENCY._count.get((), 0)
+        self.decisions_before = prom.DECISION_LATENCY._count.get((), 0)
+        device_span = self.tracer.device_span
+        observe = self.cache._observe_decisions
+
+        def counted(name, cols=None, **attrs):
+            sp = device_span(name, cols=cols, **attrs)
+            return _CountedSpan(sp, self) if name == "solve_dispatch" else sp
+
+        def timed(lat_ms):
+            t = time.perf_counter()
+            observe(lat_ms)
+            self.observe_ms += (time.perf_counter() - t) * 1e3
+
+        self.tracer.device_span = counted
+        self.cache._observe_decisions = timed
+        prom.set_decision_latency_sink(self.sink)
+
+    def take(self) -> dict:
+        """This cycle's launches inside solve_dispatch spans, decisions and
+        observe ms; resets them."""
+        out = dict(dispatch_launches=dict(self.dispatch_launches),
+                   decisions=len(self.sink), decision_observe_ms=self.observe_ms)
+        self.dispatch_launches.clear()
+        self.sink.clear()
+        self.observe_ms = 0.0
+        return out
+
+    def counts(self) -> dict:
+        return dict(e2e=prom.E2E_LATENCY._count.get((), 0) - self.e2e_before,
+                    decisions=prom.DECISION_LATENCY._count.get((), 0) - self.decisions_before)
+
+    def remove(self) -> None:
+        prom.set_decision_latency_sink(None)
+        self.tracer.__dict__.pop("device_span", None)
+        self.cache.__dict__.pop("_observe_decisions", None)
+
+
+def count_spans(spans) -> int:
+    return sum(1 + count_spans(s.children) for s in spans)
+
+
+def span_sums(spans, out=None) -> Dict[str, float]:
+    """ms per span name over a tree, children included."""
+    out = {} if out is None else out
+    for s in spans:
+        out[s.name] = out.get(s.name, 0.0) + s.dur_ms
+        span_sums(s.children, out)
+    return out
+
+
+def ring_bytes(records) -> int:
+    """The in-memory bytes of flight-recorder records: each record, its
+    span trees (names, attrs, children lists) and its annotations (the
+    decision latencies), not the tracer or column store a span points at."""
+    import sys
+
+    def deep(v) -> int:
+        n = sys.getsizeof(v)
+        if isinstance(v, dict):
+            n += sum(deep(k) + deep(x) for k, x in v.items())
+        elif isinstance(v, (list, tuple)):
+            n += sum(deep(x) for x in v)
+        return n
+
+    def span(sp) -> int:
+        return (sys.getsizeof(sp) + deep(sp.name) + deep(sp.attrs or {})
+                + sys.getsizeof(sp.children) + sum(span(c) for c in sp.children))
+
+    return sum(sys.getsizeof(r) + deep(r.reason) + deep(r.attrs)
+               + sys.getsizeof(r.spans) + sum(span(sp) for sp in r.spans)
+               for r in records)
+
+
+def writeback_overlaps(records) -> List[dict]:
+    """Each record's writeback span that overlaps a cycle-thread span of the
+    next record, as (cycle, the next span's name, overlap ms)."""
+    out = []
+    for a, b in zip(records, records[1:]):
+        for wb in (s for s in a.spans if s.name == "writeback"):
+            for sp in b.spans:
+                if sp.name != "writeback" and sp.tid != wb.tid:
+                    ov = min(wb.t1, sp.t1) - max(wb.t0, sp.t0)
+                    if ov > 0:
+                        out.append(dict(cycle=a.cycle, next_span=sp.name,
+                                        overlap_ms=ov * 1e3,
+                                        writeback_ms=wb.dur_ms))
+    return out
+
+
+def trace_report(cache, sched, probe: TraceProbe, warmup_cycles: int, n_cycles: int) -> dict:
+    """What the tracer, the flight recorder and the metrics hold after a
+    drive's cycles (module docstring)."""
+    tracer = sched.tracer
+    records = cache.flight_recorder.records()
+    t = time.perf_counter()
+    text = prom.render_prometheus()
+    render_ms = (time.perf_counter() - t) * 1e3
+    steady = records[warmup_cycles:n_cycles]
+    sums = [span_sums(r.spans) for r in steady]
+    names = sorted({k for d in sums for k in d})
+    t = time.perf_counter()
+    errs = validate_chrome_trace(chrome_trace(records)) if records else None
+    export_ms = (time.perf_counter() - t) * 1e3
+    per_record = [ring_bytes([r]) for r in records]
+    nbytes = sum(per_record)
+    lat = [len(r.attrs.get("decision_lat_ms", ())) for r in records]
+    return dict(
+        enabled=tracer.enabled, records=len(records),
+        spans_per_cycle=[count_spans(r.spans) for r in records[:n_cycles]],
+        stage_span_ms_p50={k: float(np.percentile([d.get(k, 0.0) for d in sums], 50))
+                           for k in names},
+        stage_attribution=tracer.stage_attribution(),
+        chrome_errors=errs, chrome_ms=export_ms, **probe.counts(),
+        binds_acked=len(cache.binder.channel),
+        prometheus=dict(series=sum(1 for line in text.splitlines()
+                                   if line and not line.startswith("#")),
+                        bytes=len(text), render_ms=render_ms),
+        ring=dict(bytes=nbytes, records=len(records), capacity=cache.flight_recorder.ring_cap,
+                  decisions_per_record=lat, bytes_per_record=per_record))
+
+
 def run_cycles(cache, device, churn: Callable[[int], dict], ingest_s: float,
                keep_states: bool = False, profile: bool = False,
                n_cycles: int = 3, check_swaps: bool = False,
-               pipelined: bool = False) -> dict:
+               pipelined: bool = False, warmup_cycles: int = 0,
+               overlap_pairs: int = 0) -> dict:
     """``n_cycles`` cycles of the shipped conf on ``cache``; ``churn(c)``
     runs before cycle ``c`` > 0 and returns what it did.  With
     ``check_swaps`` every resident swap is held against a fresh upload
@@ -508,17 +680,38 @@ def run_cycles(cache, device, churn: Callable[[int], dict], ingest_s: float,
     sched = Scheduler(cache, conf=load_scheduler_conf(shipped_conf_path()), device=device)
     try:
         return _run_cycles(sched, cache, churn, ingest_s, keep_states, profile,
-                           n_cycles, check_swaps, pipelined)
+                           n_cycles, check_swaps, pipelined,
+                           warmup_cycles=warmup_cycles, overlap_pairs=overlap_pairs)
     finally:
         sched.close()
 
 
 def _run_cycles(sched, cache, churn, ingest_s, keep_states, profile, n_cycles,
-                check_swaps, pipelined, hook=None) -> dict:
+                check_swaps, pipelined, hook=None, warmup_cycles: int = 0,
+                overlap_pairs: int = 0) -> dict:
     """The loop of :func:`run_cycles` on ``sched``.  ``hook`` (the replicate
     drive's :class:`ReplicaCheck`) gets ``before(c)`` ahead of cycle ``c``
     and ``after(c)`` once its wall is read; ``after`` returns the ms the
-    hook spent inside the cycle, which are taken out of its wall."""
+    hook spent inside the cycle, which are taken out of its wall.  A
+    :class:`TraceProbe` rides every cycle (``trace`` per cycle, and the
+    report's ``trace``); a pipelined run then runs ``overlap_pairs`` more
+    churned cycles back to back, up to when cycle N's writeback span
+    overlaps cycle N+1's compute in the trace (``trace.overlap``)."""
+    probe = TraceProbe(sched)
+    try:
+        report = _run_cycles_probed(sched, cache, churn, ingest_s, keep_states, profile,
+                                    n_cycles, check_swaps, pipelined, hook, probe,
+                                    overlap_pairs)
+        report["trace"] = trace_report(cache, sched, probe, warmup_cycles, n_cycles)
+        report["trace"].update(overlap=report.pop("overlap"),
+                               cycles_run=n_cycles + report.pop("extra_cycles"))
+        return report
+    finally:
+        probe.remove()
+
+
+def _run_cycles_probed(sched, cache, churn, ingest_s, keep_states, profile, n_cycles,
+                       check_swaps, pipelined, hook, probe, overlap_pairs) -> dict:
     actions = {a.name: a for a in sched.actions}
     allocate = actions["allocate"]
     cols = cache.columns
@@ -572,6 +765,7 @@ def _run_cycles(sched, cache, churn, ingest_s, keep_states, profile, n_cycles,
         finally:
             gc.enable()
         launches = dict(kernels.launches)
+        traced = probe.take()
         if hook is not None:
             wall_ms -= hook.after(c)
         swaps_checked = check.verify(f"cycle {c + 1}") if check_swaps else None
@@ -632,7 +826,7 @@ def _run_cycles(sched, cache, churn, ingest_s, keep_states, profile, n_cycles,
             wall_ms=wall_ms, stages_ms=dict(sched.last_cycle_ms), overlap=overlap,
             allocate_ms=dict(allocate.last_phase_ms), launches=launches,
             syncs=seen[0] if sched.device.type == "cuda" and not profile else None,
-            invariants=inv))
+            invariants=inv, trace=traced))
         if profile:
             cycles[-1].update(seen)
         if keep_states:
@@ -642,17 +836,35 @@ def _run_cycles(sched, cache, churn, ingest_s, keep_states, profile, n_cycles,
         # only moved out of the cycle's window still shows here
         cycles[-1]["period_ms"] = (time.perf_counter() - t_iter) * 1e3
     cols.on_swap = None
+    overlap, extra = None, 0
     if pipelined:
         sched.drain_pipeline()
         if cycles:
             cycles[-1]["overlap"]["writeback_ms"] = sched.last_writeback_ms
+        if overlap_pairs and sched.tracer.enabled:
+            # churned cycles back to back, with no join or check between:
+            # cycle N's writeback (its status flush and bind drain) runs on
+            # the worker while cycle N+1 drains ingest and opens
+            overlap = []
+            for k in range(overlap_pairs):
+                extra += 2
+                kubelet(cache, cache.evictor.evicts[n_evicts:])
+                n_evicts = len(cache.evictor.evicts)
+                churn(n_cycles + 2 * k)
+                sched.run_once_pipelined()
+                sched.run_once_pipelined()
+                sched.drain_pipeline()
+                overlap = writeback_overlaps(cache.flight_recorder.records()[-2:])
+                if overlap:
+                    break
     # a writeback stage or a bind that raised is logged by the loop and
     # re-derived next cycle; a drive counts it as a failure
     if sched.failed_writebacks or cache.dispatch_failures or cache.resync.parked_total:
         fail(f"{sched.failed_writebacks} writeback stages and {cache.dispatch_failures} "
              f"bind dispatches failed, {cache.resync.parked_total} binds or evictions "
              "parked for resync")
-    report = dict(device=str(sched.device), ingest_s=ingest_s, cycles=cycles)
+    report = dict(device=str(sched.device), ingest_s=ingest_s, cycles=cycles,
+                  overlap=overlap, extra_cycles=extra)
     if keep_states:
         report["states"] = states
     return report
@@ -745,8 +957,9 @@ def drive_steady(n_tasks: int, n_nodes: int, cycles: int = 8, warmup_cycles: int
     """The steady-state drive (module docstring).  ``leg`` names the
     switches turned off for the run (:data:`LEGS`: ``defaults``, ``cold``
     — no warm carry, ``noguard`` — no guard, ``oracle`` — the four
-    cross-cycle mechanisms off), or ``pipelined``: the defaults, each
-    cycle through ``run_once_pipelined``;
+    cross-cycle mechanisms off, ``untraced`` — ``KB_TRACE=0``), or
+    ``pipelined``: the defaults, each cycle through ``run_once_pipelined``,
+    then up to three back-to-back pairs for the writeback overlap;
     ``check_swaps`` holds every resident swap against a fresh upload;
     ``profile`` adds each cycle's :func:`device_profile`.  The report's
     ``steady`` holds the p50s over the cycles after the warmup."""
@@ -759,7 +972,8 @@ def drive_steady(n_tasks: int, n_nodes: int, cycles: int = 8, warmup_cycles: int
         churn = steady_churn(cache, n_tasks, seed, churn_frac, wobble)
         report = run_cycles(cache, device, churn, ingest_s, keep_states, profile,
                             n_cycles=warmup_cycles + cycles, check_swaps=check_swaps,
-                            pipelined=leg == "pipelined")
+                            pipelined=leg == "pipelined", warmup_cycles=warmup_cycles,
+                            overlap_pairs=3 if leg == "pipelined" else 0)
     steady = report["cycles"][warmup_cycles:]
 
     def p50(values) -> float:
@@ -1182,7 +1396,13 @@ def drive_guard(n_tasks: int, n_nodes: int, arrivals: int, bundle_dir: str,
        again;
     4. the step-2 bundle replays on ``device`` and on the CPU: the
        overcommit is reproduced, identically, and the snapshot with the
-       zeroed word restored from the host passes the sentinel.
+       zeroed word restored from the host passes the sentinel;
+    5. the step-2 trip fired the ``guard_trips`` alert in its own cycle
+       (``volcano_alerts_firing{alert="guard_trips"}`` reads 1) and armed
+       the flight recorder, whose dump (published at the drive's end, the
+       step-3 trip coalesced into it) lands beside the bundles, in
+       ``<bundle_dir>/flight`` as with ``KB_GUARD_DIR=bundle_dir``, and
+       its ``trace.json`` validates.
 
     Raises on any failed check; returns the report."""
     from kube_batch_tpu_torch.api.convert import snapshot_from_numpy
@@ -1208,6 +1428,10 @@ def drive_guard(n_tasks: int, n_nodes: int, arrivals: int, bundle_dir: str,
             else:
                 os.environ[k] = v
     gp.bundle_dir = bundle_dir
+    # the flight dumps beside the bundles (the KB_GUARD_DIR resolution,
+    # whatever KB_TRACE_DIR the process has)
+    flight_dir = os.path.join(bundle_dir, "flight")
+    cache.flight_recorder.directory = flight_dir
     allocate = next(a for a in sched.actions if a.name == "allocate")
     cols = cache.columns
     dev = sched.device
@@ -1260,6 +1484,11 @@ def drive_guard(n_tasks: int, n_nodes: int, arrivals: int, bundle_dir: str,
     _ver, alloc_t = cols._dev_cache[dev]["node_alloc"]
     alloc_t[live] = 0.0
     rec = cycle("corrupt-node-alloc")
+    alert = dict(firing=cache.alert_evaluator.state()["alerts"]["guard_trips"]["firing"],
+                 gauge=prom.ALERTS_FIRING._values.get(("guard_trips",)),
+                 armed=cache.flight_recorder.stats()["armed"])
+    if not alert["firing"] or alert["gauge"] != 1.0 or alert["armed"] != 1:
+        fail(f"guard: the trip's alert or flight capture {alert}")
     trip = gp.trip_log[-1] if gp.trip_log else {}
     if rec["trips"] != 1 or rec["new_binds"] != 0 or rec["binds_dispatched"] != 0:
         fail(f"guard: the corrupted cycle did not fail closed: {rec}")
@@ -1321,10 +1550,29 @@ def drive_guard(n_tasks: int, n_nodes: int, arrivals: int, bundle_dir: str,
                                                     _rebuild_config(meta)[0])
     if int(verdict) != 0:
         fail(f"guard: the restored snapshot still fails its sentinel ({int(verdict)})")
+
+    # 5. the flight dump beside the bundles
+    cache.flight_recorder.flush()
+    dumps = list(cache.flight_recorder.dumps)
+    names = sorted(os.listdir(flight_dir)) if os.path.isdir(flight_dir) else []
+    if not dumps or names != sorted(os.path.basename(d) for d in dumps) \
+            or not all(n.startswith("flight-guard_trip-") for n in names):
+        fail(f"guard: flight dumps {dumps}, {flight_dir} holds {names}")
+    metas, errs = [], []
+    for d in dumps:
+        with open(os.path.join(d, "trace.json")) as f:
+            errs += validate_chrome_trace(json.load(f))
+        with open(os.path.join(d, "meta.json")) as f:
+            metas.append(json.load(f))
+    if errs:
+        fail(f"guard: a flight dump's trace does not validate: {errs[:3]}")
+    flight = dict(dumps=[os.path.relpath(d, bundle_dir) for d in dumps], chrome_errors=errs,
+                  windows=[(m["cycles_before"], m["cycles_after"]) for m in metas],
+                  triggers=[t["reason"] for t in cache.flight_recorder.triggers])
     return dict(tasks=n_tasks, nodes=n_nodes, arrivals=arrivals, cooldown=cooldown,
                 audits_clean=audits_clean, cycles=log, guard=gp.state(),
                 trip_log=gp.trip_log, replay=rep, restored_verdict=int(verdict),
-                device=str(dev))
+                alert=alert, flight=flight, device=str(dev))
 
 
 #: the what-if drive's probed gangs in queue q0, counts 1–8: (count, cpu,
@@ -2288,6 +2536,94 @@ def replicate_cost(n_tasks: int, n_nodes: int, device=None) -> dict:
         on_less_off_p50=_pct(every, 50), seconds=[leg["seconds"] for leg in legs])
 
 
+#: trace_cost's legs, traced or not, in order: four pairs, two in each
+#: order, and every position traced in one half and untraced in the other
+TRACE_COST_ORDER = (False, True, True, False, True, False, False, True)
+TRACE_COST_WARMUP, TRACE_COST_CYCLES = 2, 8
+
+
+def _trace_cost_leg(n_tasks: int, n_nodes: int, device, traced: bool) -> dict:
+    """One leg of :func:`trace_cost` on a fresh steady cluster (seed 0):
+    the kubelet pass and the churn before each cycle, then the cycle's
+    wall (``run_once`` to a device synchronize, the collector paused) and
+    nothing else — no check, no sync count, no probe."""
+    t0 = time.perf_counter()
+    with switches_off(() if traced else ("KB_TRACE",)):
+        cache = synthetic_cluster(n_tasks, n_nodes, gang_size=GANG, n_queues=N_QUEUES,
+                                  seed=0)
+        reserve_wobble(cache, n_tasks)
+        churn = steady_churn(cache, n_tasks, 0)
+        sched = Scheduler(cache, conf=load_scheduler_conf(shipped_conf_path()),
+                          device=device)
+    if sched.tracer.enabled != traced:
+        fail(f"trace_cost: the leg's tracer is {'on' if sched.tracer.enabled else 'off'}")
+    walls, sums, binds = [], [], []
+    n_evicts = 0
+    gc.collect()
+    gc.freeze()
+    try:
+        for c in range(TRACE_COST_WARMUP + TRACE_COST_CYCLES):
+            if c > 0:
+                kubelet(cache, cache.evictor.evicts[n_evicts:])
+                n_evicts = len(cache.evictor.evicts)
+                churn(c)
+            gc.collect()
+            gc.disable()
+            try:
+                t = time.perf_counter()
+                sched.run_once()
+                if sched.device.type == "cuda":
+                    torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t) * 1e3)
+            finally:
+                gc.enable()
+            binds.append(len(cache.binder.channel))
+            rec = cache.flight_recorder.last_record() if traced else None
+            sums.append(sum(sp.dur_ms for sp in rec.spans) if rec is not None else None)
+    finally:
+        sched.close()
+        cache.stop()
+        gc.unfreeze()
+    return dict(walls=walls, root_span_sums=sums, binds=binds,
+                seconds=time.perf_counter() - t0)
+
+
+def trace_cost(n_tasks: int, n_nodes: int, device=None) -> dict:
+    """The tracer's cost on the steady wall (``--trace-cost``): the legs of
+    :func:`_trace_cost_leg` in the order :data:`TRACE_COST_ORDER` (off,
+    on, on, off, on, off, off, on), each ``TRACE_COST_WARMUP`` +
+    ``TRACE_COST_CYCLES`` cycles on the same seeded churn; every leg must
+    bind alike.  Each pair's walls are compared cycle by cycle after the
+    warmup (``leg_wall_ms_p50`` shows any drift over the run), and the
+    traced legs' root-span sums are set against their walls."""
+    legs = [_trace_cost_leg(n_tasks, n_nodes, device, traced)
+            for traced in TRACE_COST_ORDER]
+    if any(leg["binds"] != legs[0]["binds"] for leg in legs):
+        fail(f"trace_cost: the legs bound differently: {[leg['binds'] for leg in legs]}")
+    steady = range(TRACE_COST_WARMUP, TRACE_COST_WARMUP + TRACE_COST_CYCLES)
+    pairs = []
+    for i in range(0, len(legs), 2):
+        order = TRACE_COST_ORDER[i:i + 2]
+        off, on = (legs[i], legs[i + 1]) if not order[0] else (legs[i + 1], legs[i])
+        diff = [on["walls"][c] - off["walls"][c] for c in steady]
+        pairs.append(dict(order=["on" if t else "off" for t in order],
+                          wall_ms_p50=dict(off=_pct([off["walls"][c] for c in steady], 50),
+                                           on=_pct([on["walls"][c] for c in steady], 50)),
+                          on_less_off=diff, on_less_off_p50=_pct(diff, 50),
+                          walls=dict(off=off["walls"], on=on["walls"])))
+    every = [d for p in pairs for d in p["on_less_off"]]
+    on_legs = [leg for leg, t in zip(legs, TRACE_COST_ORDER) if t]
+    spans_vs_wall = [dict(root_span_ms=leg["root_span_sums"][c], wall_ms=leg["walls"][c],
+                          outside_spans_ms=leg["walls"][c] - leg["root_span_sums"][c])
+                     for leg in on_legs for c in steady]
+    return dict(tasks=n_tasks, nodes=n_nodes, device=str(torch.device(
+        "cuda" if device is None else device)), cycles=list(steady), pairs=pairs,
+        leg_wall_ms_p50=[_pct([leg["walls"][c] for c in steady], 50) for leg in legs],
+        on_less_off_p50=_pct(every, 50),
+        outside_spans_ms_p50=_pct([x["outside_spans_ms"] for x in spans_vs_wall], 50),
+        spans_vs_wall=spans_vs_wall, seconds=[leg["seconds"] for leg in legs])
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--overcommit", action="store_true")
@@ -2297,6 +2633,7 @@ def main() -> None:
     ap.add_argument("--whatif", action="store_true")
     ap.add_argument("--replicate", action="store_true")
     ap.add_argument("--replicate-cost", action="store_true")
+    ap.add_argument("--trace-cost", action="store_true")
     ap.add_argument("--feed", type=int, default=20)
     ap.add_argument("--period", type=float, default=1.0)
     ap.add_argument("--leg", default="defaults",
@@ -2316,6 +2653,8 @@ def main() -> None:
         out = drive_replicate(args.tasks, args.nodes, device=args.device)
     elif args.replicate_cost:
         out = replicate_cost(args.tasks, args.nodes, device=args.device)
+    elif args.trace_cost:
+        out = trace_cost(args.tasks, args.nodes, device=args.device)
     elif args.whatif:
         out = drive_whatif(args.tasks, args.nodes, device=args.device, profile=args.profile)
     elif args.features:

@@ -29,15 +29,22 @@ class SerialWorker:
             item = self._q.get()
             if item is _STOP:
                 return
-            fut, fn, args = item
-            if not fut.set_running_or_notify_cancel():
-                continue
-            try:
-                result = fn(*args)
-            except BaseException as e:  # noqa: BLE001 — handed to the future
-                fut.set_exception(e)
-            else:
-                fut.set_result(result)
+            self._run(*item)
+            # an idle worker must not hold its last job: the callable's
+            # closure keeps its owner (a cache, a scheduler) alive, and with
+            # it every host and device buffer the owner holds
+            del item
+
+    @staticmethod
+    def _run(fut: Future, fn, args) -> None:
+        if not fut.set_running_or_notify_cancel():
+            return
+        try:
+            result = fn(*args)
+        except BaseException as e:  # noqa: BLE001 — handed to the future
+            fut.set_exception(e)
+        else:
+            fut.set_result(result)
 
     def submit(self, fn, *args) -> Future:
         fut: Future = Future()

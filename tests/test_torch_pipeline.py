@@ -438,6 +438,11 @@ class TestAdaptiveMinPeriod:
         monkeypatch.delenv("KB_PERIOD_MIN", raising=False)
         sched = Scheduler(small_cache(), conf=CONFS["default"]()[1], schedule_period=1.0,
                           device="cpu", clock=Clock())
+        # the cycle's spans stamp virtual time on the injected clock too
+        # (obs/trace.py); this clock counts reads, so only the loop's own
+        # reads may advance it here
+        assert isinstance(sched.tracer.clock, Clock)
+        sched.tracer.clock = None
         sched.pipelined = True
         loop = threading.Thread(target=sched.run_forever, daemon=True)
         loop.start()
@@ -1024,3 +1029,32 @@ def test_drain_pipeline_leaves_the_cycles_record_on_the_stream():
         pub.close()
         qp.close()
         cache.stop()
+
+
+def test_serial_worker_drops_its_last_job():
+    """An idle worker (the writeback stage's, the bind dispatcher's) holds
+    no reference to the last callable it ran: a closure over its owner
+    would keep a whole cache, and its device tensors, alive after the
+    owner is dropped."""
+    import gc
+    import weakref
+
+    from kube_batch_tpu_torch.utils.worker import SerialWorker
+
+    class Owner:
+        pass
+
+    owner = Owner()
+    ref = weakref.ref(owner)
+    worker = SerialWorker("kb-test-worker")
+    try:
+        assert worker.submit(lambda o=owner: None).result(timeout=5) is None
+        del owner
+        for _ in range(100):
+            gc.collect()
+            if ref() is None:
+                break
+            time.sleep(0.01)
+        assert ref() is None, "the idle worker kept its last job's closure alive"
+    finally:
+        assert worker.shutdown(timeout=5)

@@ -108,7 +108,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     (a query plane whose batcher thread answers one what-if request,
     evictions on, after one cycle published its lease), then a follower
     that applies a leader's replication frames and answers a probe from
-    them leaves no jax, no
+    them, then a traced cycle read through the tracer, the Chrome export,
+    the alert evaluator and the Prometheus text leaves no jax, no
     kube_batch_tpu and no yaml module loaded (kube_batch_tpu_torch itself
     shares the prefix, so the match is exact on the package name)."""
     code = textwrap.dedent("""
@@ -220,6 +221,20 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             pub.close()
             fqp.close()
             rqp.close()
+        import kube_batch_tpu_torch.metrics as M
+        import kube_batch_tpu_torch.obs as O
+        from kube_batch_tpu_torch.obs.trace import chrome_trace, validate_chrome_trace
+        tcache = synthetic_cluster(64, 8)
+        tsched = Scheduler(tcache, conf=load_scheduler_conf(shipped_conf_path()),
+                           device="cpu")
+        tsched.run_once()
+        assert isinstance(tcache.tracer, O.Tracer) and tcache.tracer.enabled
+        records = tcache.flight_recorder.records()
+        names = [s.name for s in records[-1].spans]
+        assert "session_open" in names and "action:allocate" in names
+        assert validate_chrome_trace(chrome_trace(records)) == []
+        O.alerts_of(tcache).evaluate(tcache.guard_plane)
+        assert "volcano_e2e_scheduling_latency_milliseconds_count" in M.render_prometheus()
         bad = sorted(n for n in sys.modules
                      if n in ("jax", "jaxlib", "yaml") or n.startswith(("jax.", "jaxlib.", "yaml."))
                      or n == "kube_batch_tpu" or n.startswith("kube_batch_tpu."))
