@@ -99,8 +99,24 @@ four gangs and a sweep as the leader's lease of that record does (its
 probes launch K1 on tensors filled from the wire), resync warm after a
 dropped frame, get a full frame past a ring of 4 and re-adopt warm on a
 restart; at 4 096 × 1 024 a card follower and a CPU follower must answer
-32 requests identically.  Each phase prints one JSON line; any
-failure raises (non-zero exit).  The last three lines are the kernels'
+32 requests identically.  The card's full solve of the 50 000-pod snapshot
+must equal the plain solve of the same snapshot on the CPU, every field
+(``solve_card_vs_cpu``).  The server phase
+(``testing/server_drive.drive_server``) runs the standalone server as
+``python -m kube_batch_tpu_torch.cmd.main`` builds it, in this process:
+the 50 000-pod cluster ingested over HTTP as list bodies in the headline
+drive's handler order and ``POST /v1/sync``; cycle 1's ``/v1/bindings``
+must equal the headline drive's cycle 1 binds; the headline arrivals bind
+in a compacted cycle; what-ifs and a sweep over HTTP must equal the query
+plane's answers at the same lease version, byte for byte, and so must a
+follower pulling ``/v1/replicate`` over loopback HTTP once caught up;
+``failover_recover`` must keep the residency warm with consistent
+columns.  The server process phase (``drive_server_process``, 4 096 ×
+1 024) starts the process entry as a subprocess on the card with a state
+file, binds the cluster, stops it, restarts it from the file (every
+bound pod stays bound where it was) and answers a what-if from a
+``--follower`` subprocess as the leader does.  Each phase prints one JSON
+line; any failure raises (non-zero exit).  The last three lines are the kernels'
 summary, the card's name and power limit, and ``{"ok": true, "device":
 ...}``.
 
@@ -537,11 +553,71 @@ def phase_solve_topk(snap, config, full):
     return counts
 
 
-def phase_cycle():
-    """Three cycles of the shipped conf at 50k × 5k on the card."""
-    from kube_batch_tpu_torch.testing.cycle_drive import drive
+def phase_solve_card_vs_cpu(snap, config, card):
+    """The card's full solve of the 50k snapshot (``phase_solve_full``'s
+    result) against the plain solve of the same snapshot on the CPU:
+    every field equal.  A flip is a fault (ROADMAP Queue 3)."""
+    from kube_batch_tpu_torch.actions.allocate import dispatch_allocate_solve
+    from kube_batch_tpu_torch.api.convert import snapshot_from_numpy, snapshot_to_numpy
 
-    r = drive(N_TASKS, N_NODES, ARRIVALS, device="cuda")
+    cpu_snap = snapshot_from_numpy(snapshot_to_numpy(snap), "cpu")
+    t = time.perf_counter()
+    cpu, mode, info, _g = dispatch_allocate_solve(cpu_snap, config)
+    cpu_s = time.perf_counter() - t
+    if info is not None:
+        fail(f"solve_card_vs_cpu: the CPU dispatch took compaction {info}")
+    bad = [f for f, x, y in zip(card._fields, card, cpu) if not same([x], [y])]
+    if bad:
+        fail(f"solve_card_vs_cpu: the card's full solve differs from the CPU's in {bad}")
+    emit("solve_card_vs_cpu", shape=[N_TASKS, N_NODES], equal="every field, bit-exact",
+         placed=int((cpu.assigned >= 0).sum()), rounds_run=int(cpu.rounds_run),
+         cpu_plain_s=cpu_s)
+
+
+def phase_server(cycle):
+    """The standalone server at 50k × 5k on the card, in this process
+    (``server_drive.drive_server``; module docstring)."""
+    from kube_batch_tpu_torch.testing.server_drive import drive_server
+
+    r = drive_server(N_TASKS, N_NODES, ARRIVALS, device="cuda")
+    k1, k2, _gate = KERNELS
+    if r["device"] != "cuda":
+        fail(f"server: the server came up on {r['device']}")
+    if r["bindings_digest"] != cycle["cycle1_bindings_digest"]:
+        fail(f"server: cycle 1's /v1/bindings {r['bindings_digest']} != the headline "
+             f"drive's cycle 1 {cycle['cycle1_bindings_digest']}")
+    if not r["launches"][k1] or not r["launches"][k2]:
+        fail(f"server: the cycles did not launch K1 and K2: {r['launches']}")
+    if not r["follower"]["k1_launches"]:
+        fail("server: the HTTP follower's probes launched no K1")
+    if not r["arrivals_bound"]:
+        fail("server: no arrival bound")
+    emit("server", conf="shipped", shape=[N_TASKS, N_NODES],
+         bindings_equal_to_cycle="cycle 1", whatif_equal="HTTP = QueryPlane.submit, "
+         "follower over HTTP = leader, byte for byte", **r)
+    return r
+
+
+def phase_server_process():
+    """``python -m kube_batch_tpu_torch.cmd.main`` as subprocesses on the card
+    at 4 096 × 1 024 (``server_drive.drive_server_process``)."""
+    from kube_batch_tpu_torch.testing.server_drive import drive_server_process
+
+    r = drive_server_process(MID_TASKS, MID_NODES, device="cuda")
+    emit("server_process", conf="shipped", shape=[MID_TASKS, MID_NODES], **r)
+    return r
+
+
+def phase_cycle():
+    """Three cycles of the shipped conf at 50k × 5k on the card; cycle 1's
+    binds digest is kept for the server phase."""
+    from kube_batch_tpu_torch.testing.cycle_drive import drive
+    from kube_batch_tpu_torch.testing.server_drive import bindings_digest
+
+    r = drive(N_TASKS, N_NODES, ARRIVALS, device="cuda", keep_states=True)
+    states = r.pop("states")
+    r["cycle1_bindings_digest"] = bindings_digest(states[0]["binds"])
+    del states
     c1, c2, c3 = r["cycles"]
     k1, k2, gate = KERNELS
     if c1["mode"] != "full" or c1["new_binds"] != N_TASKS \
@@ -981,6 +1057,7 @@ def main() -> int:
     full, full_launches = phase_solve_full(snaps, config)
     del snaps["gpu_gangs"]
     topk_launches = phase_solve_topk(snap, config, full["homogeneous"])
+    phase_solve_card_vs_cpu(snap, config, full["homogeneous"])
     T = snap.task_req.shape[0]
     # the cycles reuse the caching allocator's blocks, as a long-running
     # scheduler process does
@@ -995,6 +1072,8 @@ def main() -> int:
     phase_cycle_cross_device()
     whatif, whatif_launches = phase_whatif(kern["K1"], steady["defaults"]["steady"])
     replicate = phase_replicate()
+    server = phase_server(cycle)
+    phase_server_process()
     cycle_launches = {name: {f"cycle{c['cycle']}": c["launches"][name]
                              for c in cycle["cycles"]}
                       for name in KERNELS}
@@ -1045,6 +1124,8 @@ def main() -> int:
              features_launches=features_launches["masked_best_node_raw"],
              whatif_launches=whatif_launches,
              replicate_follower_launches=replicate["follower_k1_launches"],
+             server_launches=server["launches"]["masked_best_node_raw"],
+             server_follower_launches=server["follower"]["k1_launches"],
              probe_rows_shape=whatif["k1_probe_rows"]["shape"],
              probe_rows_ms=whatif["k1_probe_rows"]["ms"],
              probe_rows_plain_ms=whatif["k1_probe_rows"]["plain_ms"],
@@ -1062,6 +1143,7 @@ def main() -> int:
              pipelined_steady_launches=pipelined_launches["masked_topk_blocks"],
              loop_launches=loop_launches["masked_topk_blocks"],
              features_launches=features_launches["masked_topk_blocks"],
+             server_launches=server["launches"]["masked_topk_blocks"],
              warm_launches_per_steady_cycle=k2_per_cycle["defaults"],
              cold_launches_per_steady_cycle=k2_per_cycle["cold"],
              fresh_keys="plain ops (the releasing fit masked on the view, as the JAX package)",
@@ -1080,7 +1162,8 @@ def main() -> int:
              steady_launches=steady_launches["enqueue_gate"],
              pipelined_steady_launches=pipelined_launches["enqueue_gate"],
              loop_launches=loop_launches["enqueue_gate"],
-             features_launches=features_launches["enqueue_gate"]),
+             features_launches=features_launches["enqueue_gate"],
+             server_launches=server["launches"]["enqueue_gate"]),
     ]
     print(json.dumps({"kernels": summary}))
     print(smi)

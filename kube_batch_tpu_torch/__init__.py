@@ -18,16 +18,20 @@ event-driven pipelined loop.  Beside the cycle, a query plane
 (``serve.QueryPlane``) answers what-if requests ("would this gang fit,
 where, and what would it evict?") against the lease each cycle publishes,
 and a replication publisher streams each lease's state to followers that
-answer the same from their own resident copy.  The layout mirrors the JAX package path for
+answer the same from their own resident copy.  ``python -m
+kube_batch_tpu_torch.cmd.main`` runs it all as the standalone server:
+the JAX package's HTTP admin, ingest, what-if and replication surface,
+file-lock leader election with a warm standby, a state file, and
+``--follower`` read replicas.  The layout mirrors the JAX package path for
 path, so each module's counterpart is found at the same name:
 
-  api/        — resources, the ingest objects, task / job / node / queue
-                info, the column store, the snapshot tensors and the
+  api/        — resources, the ingest objects and their JSON form, task /
+                job / node / queue info, the column store, the snapshot tensors and the
                 object snapshot, the resident device cache, numpy ↔
                 tensor conversion
   cache/      — the cluster mirror, the dirty tracker, the resync queue,
-                the standalone PV ledger and the binder / evictor / status
-                seams
+                the standalone PV ledger, the state file and the binder /
+                evictor / status seams
   framework/  — conf, session, statement, the action and plugin registries
   plugins/    — priority, gang, conformance, drf, predicates, proportion,
                 nodeorder, binpack
@@ -46,11 +50,16 @@ path, so each module's counterpart is found at the same name:
   replicate/  — the replication stream: the KBR1 codec, the leader's
                 publisher, the follower that serves what-ifs from it
   k8s/        — the classified retry transport and circuit breaker
+  cmd/        — the process entry, its options, leader election and the
+                HTTP server (standalone and follower)
+  cli/        — the ``queue`` and ``whatif`` clients
   utils/      — invariant assertions, the priority queue, switches, the
                 one-thread worker, the telemetry clock
   scheduler.py — the serial and pipelined loops
+  version.py  — the version string
   testing/    — synthetic clusters and snapshots, the kernel bench, the
-                cycle drives
+                cycle and server drives, the what-if and replication
+                smokes
 
 The package imports torch, numpy and the standard library only.  Entry
 points take ``device=`` (default CUDA; asking for CUDA without a card

@@ -49,8 +49,10 @@ The query plane's seams: ``peek_task_rows`` (the rows the next pods would
 occupy: the what-if probe's tie-hash rows) and ``resident_swap_guard``
 (a context-manager factory that every swap's writes run inside: the
 query plane's ``LeaseBroker.swap_guard``, which waits out in-flight
-probes and retires the lease whose tensors the swap rewrites).  Not
-ported: the JAX package's mesh-sharded residency.
+probes and retires the lease whose tensors the swap rewrites).
+``revalidate_resident`` is the leader failover's keep-or-drop check on
+the surviving residency.  Not ported: the JAX package's mesh-sharded
+residency.
 """
 
 from __future__ import annotations
@@ -1011,6 +1013,28 @@ class ColumnStore:
         self._per_cycle_dev.clear()
         self._dev_cache.clear()
         self.drop_warm_tables()
+
+    def revalidate_resident(self, cache) -> Dict:
+        """Warm-standby revalidation (leader failover): whether the
+        surviving per-cycle device cache may keep serving after the host
+        model was rebuilt from the pod store.  KEEP when every resident
+        cache has synced at least one snapshot (version token > 0) and
+        ``check_consistency`` is clean: the next swap's diff then absorbs
+        what diverged as ordinary scatter deltas, so failover pays no full
+        re-upload.  DROP (cold start) on any consistency error or an
+        unsynced cache.  The follower's restart re-adoption
+        (``replicate/follower.FollowerApplier.revalidate_resident``)
+        applies the same keep-iff-synced contract."""
+        errors = [str(e) for e in self.check_consistency(cache)]
+        tokens = {"single": int(rc.version) for rc in self._per_cycle_dev.values()}
+        ok = not errors and all(v > 0 for v in tokens.values())
+        if not ok and self._per_cycle_dev:
+            self.drop_resident()
+        return {
+            "mode": "warm" if ok else "cold",
+            "resident_tokens": tokens,
+            "errors": errors,
+        }
 
     # ---- warm-started allocate: carried candidate tables (KB_WARM) ----
     def warm_table_state(self, device):

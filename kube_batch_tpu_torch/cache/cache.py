@@ -51,10 +51,13 @@ and the cycle's trace record (``obs/trace.py``).  The resync queue's
 parks and depth, the degraded cycles' shed status writes and each
 collected job's series pruning feed ``metrics/`` as in the JAX package.
 
+``failover_recover`` is the warm-standby takeover: the pod-store
+rebuild, then ``ColumnStore.revalidate_resident`` under the cache lock,
+the resync history reset and the leader-failover counter.
+
 What the JAX package has and this port does not (each is later work in
-ROADMAP.md): the k8s PV ledger and the PDB and PV translation (item 9);
-their persistence, ``failover_recover`` and its failover counter, and the
-egress breakers themselves (item 8; ``CircuitOpenError`` is honoured).
+ROADMAP.md): the k8s PV ledger and the PDB and PV translation, and the
+egress breakers themselves (item 9; ``CircuitOpenError`` is honoured).
 """
 
 from __future__ import annotations
@@ -1260,6 +1263,28 @@ class SchedulerCache:
             n_pods, n_jobs = len(self.pods), len(self.jobs)
         logger.warning("cache rebuilt from the pod store (%d pods, %d jobs)",
                        n_pods, n_jobs)
+
+    def failover_recover(self) -> Dict:
+        """Warm-standby takeover (leader failover): rebuild the host model
+        from the pod store (the re-list a fresh leader performs anyway),
+        then revalidate the surviving per-cycle device cache
+        (``columns.revalidate_resident``: version token and
+        ``check_consistency``).  On success the resident tensors are KEPT
+        and the next cycle's mirror diffs absorb any divergence as
+        ordinary scatter deltas; only a failed revalidation cold-starts
+        the residency.  The resync queue's history and quarantine go too:
+        the new leader's rebuilt state supersedes the old one's failures."""
+        self.rebuild_from_pod_store()
+        with self._lock:
+            report = self.columns.revalidate_resident(self)
+            self.resync.reset_history()
+        metrics.register_leader_failover(report["mode"])
+        logger.warning(
+            "leader failover recovery: %s (resident tokens %s%s)",
+            report["mode"], report["resident_tokens"],
+            f"; errors: {report['errors']}" if report["errors"] else "",
+        )
+        return report
 
     def process_cleanup_jobs(self) -> None:
         """processCleanupJob (cache.go:533-557): collect jobs with no tasks

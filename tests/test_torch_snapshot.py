@@ -109,12 +109,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     evictions on, after one cycle published its lease), then a follower
     that applies a leader's replication frames and answers a probe from
     them, then a traced cycle read through the tracer, the Chrome export,
-    the alert evaluator and the Prometheus text leaves no jax, no
-    kube_batch_tpu and no yaml module loaded (kube_batch_tpu_torch itself
+    the alert evaluator and the Prometheus text, then the standalone
+    server (every ingest kind, every GET endpoint once, a what-if and a
+    sweep over HTTP, its state file saved and loaded), a ``run_follower``
+    pulling it over loopback HTTP, and both CLIs against it, leaves no
+    jax, no kube_batch_tpu and no yaml module loaded (kube_batch_tpu_torch itself
     shares the prefix, so the match is exact on the package name)."""
     code = textwrap.dedent("""
         import sys
         import threading
+        import time
         import kube_batch_tpu_torch.actions.allocate as A
         import kube_batch_tpu_torch.api.resident
         import kube_batch_tpu_torch.cache.dirty
@@ -131,6 +135,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         from kube_batch_tpu_torch.framework.conf import (
             load_scheduler_conf, shipped_conf_path)
         from kube_batch_tpu_torch.ops.assignment import AllocateConfig
+        from kube_batch_tpu_torch.cache.cache import SchedulerCache
         from kube_batch_tpu_torch.scheduler import Scheduler
         from kube_batch_tpu_torch.testing.synthetic import (
             synthetic_cluster, synthetic_device_snapshot, synthetic_overcommit_cluster)
@@ -235,6 +240,83 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         assert validate_chrome_trace(chrome_trace(records)) == []
         O.alerts_of(tcache).evaluate(tcache.guard_plane)
         assert "volcano_e2e_scheduling_latency_milliseconds_count" in M.render_prometheus()
+        import json, urllib.request, urllib.error
+        import kube_batch_tpu_torch.cmd.main
+        import kube_batch_tpu_torch.testing.replication_smoke
+        import kube_batch_tpu_torch.testing.whatif_smoke
+        from kube_batch_tpu_torch.cache.persistence import load_state, save_state
+        from kube_batch_tpu_torch.cli import queue as queue_cli, whatif as whatif_cli
+        from kube_batch_tpu_torch.cmd import options, server as srv
+        from kube_batch_tpu_torch.cmd.leader_election import LeaderElector
+        from kube_batch_tpu_torch.replicate import follower as fmod
+        import tempfile
+        tmp = tempfile.mkdtemp()
+
+        def call(port, method, path, body=None):
+            data = None if body is None else json.dumps(body).encode()
+            req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                         method=method)
+            try:
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    return r.status, r.read()
+            except urllib.error.HTTPError as e:
+                return e.code, e.read()
+
+        leader = srv.StandaloneServer(options.parse(
+            ["--listen-address", "127.0.0.1:0", "--state-file", tmp + "/state.json"]),
+            device="cpu")
+        started = []
+        real_start = fmod.ReplicationFollower.start
+        fmod.ReplicationFollower.start = lambda self: (started.append(self), real_start(self))
+        port = leader.admin.port
+        ft = threading.Thread(target=srv.run_follower, args=(options.parse(
+            ["--listen-address", "127.0.0.1:0", "--follower", f"http://127.0.0.1:{port}"]),),
+            kwargs={"device": "cpu"}, daemon=True)
+        try:
+            assert call(port, "POST", "/v1/queues", [{"name": "default"}])[0] == 200
+            assert call(port, "POST", "/v1/nodes", {"name": "n0", "allocatable": {
+                "cpu": 4000.0, "memory": 2.0**33, "pods": 10.0}})[0] == 200
+            assert call(port, "POST", "/v1/pods", [{"name": "p0", "namespace": "c1",
+                "requests": {"cpu": 500.0}, "phase": "Pending"}])[0] == 200
+            for kind, body in (("priorityclasses", {"name": "hi", "value": 5}),
+                               ("poddisruptionbudgets", {"name": "b", "owner": "o"}),
+                               ("persistentvolumes", {"name": "pv0"}),
+                               ("podgroups", {"name": "g", "min_member": 1})):
+                assert call(port, "POST", f"/v1/{kind}", body)[0] == 200
+            assert call(port, "POST", "/v1/sync", {})[0] == 200
+            leader.sched.run_once()
+            leader.sched.drain_pipeline()
+            for path in ("/metrics", "/healthz", "/version", "/debug/stacks",
+                         "/debug/pprof?seconds=0.05", "/v1/queues", "/v1/jobs",
+                         "/v1/bindings", "/v1/guard", "/v1/trace", "/v1/trace/dumps",
+                         "/v1/trace/dumps/x/meta.json", "/v1/replicate?since=0",
+                         "/v1/alerts"):
+                assert call(port, "GET", path)[0] in (200, 404), path
+            assert call(port, "POST", "/v1/whatif", {"count": 1,
+                        "requests": {"cpu": 100}})[0] == 200
+            assert call(port, "POST", "/v1/whatif/sweep", {"max_count": 4,
+                        "requests": {"cpu": 100}})[0] == 200
+            assert call(port, "DELETE", "/v1/persistentvolumes", {"name": "pv0"})[0] == 200
+            ft.start()
+            head = leader.cache.replication.counters()["head_seq"]
+            deadline = time.monotonic() + 60
+            while not (started and started[0].applier.applied_seq >= head):
+                assert time.monotonic() < deadline, "the follower never caught up"
+                time.sleep(0.01)
+            url = f"http://127.0.0.1:{port}"
+            assert queue_cli.main(["--server", url, "create", "--name", "q9"]) == 0
+            assert queue_cli.main(["--server", url, "list"]) == 0
+            assert whatif_cli.main(["--server", url, "--count", "1", "--cpu", "100",
+                                    "--expect", "feasible"]) == 0
+            save_state(leader.cache, tmp + "/copy.json")
+            assert load_state(SchedulerCache(), tmp + "/copy.json")
+            LeaderElector(tmp, identity="x").release()
+        finally:
+            if started:
+                started[0].stop()
+            ft.join(30)
+            leader.close()
+        assert not ft.is_alive()
         bad = sorted(n for n in sys.modules
                      if n in ("jax", "jaxlib", "yaml") or n.startswith(("jax.", "jaxlib.", "yaml."))
                      or n == "kube_batch_tpu" or n.startswith("kube_batch_tpu."))
