@@ -34,8 +34,8 @@ the delta session open and close, and device programs reading resident
 tensors refreshed by row scatters.
 
 The steady-state drive (``cycle_steady``, ``drive_steady``: the JAX
-package's ``bench.py`` ``multicycle_bench``) runs 2 + 4 back-to-back
-cycles on the 50 000-pod cluster (the bench's 8 measured cycles cut to 4
+package's ``bench.py`` ``multicycle_bench``) runs 2 + 2 back-to-back
+cycles on the 50 000-pod cluster (the bench's 8 measured cycles cut to 2
 for the script's time; ``cycle_drive --steady`` runs 8) — 2 % of the bound gangs complete and
 arrivals refill the pod count within ±10 % before each — five times: with
 the defaults (delta open and close, resident snapshot, the warm
@@ -115,7 +115,21 @@ columns.  The server process phase (``drive_server_process``, 4 096 ×
 1 024) starts the process entry as a subprocess on the card with a state
 file, binds the cluster, stops it, restarts it from the file (every
 bound pod stays bound where it was) and answers a what-if from a
-``--follower`` subprocess as the leader does.  Each phase prints one JSON
+``--follower`` subprocess as the leader does.  The k8s phase
+(``testing/k8s_drive.drive_k8s``) runs the same server with ``--master``
+against the port's stub apiserver in a child process of its own, started
+with the script and preloaded with the 50 000-pod cluster as Kubernetes
+JSON while the other phases run: the watch lists
+and seeds the cache, cycle 1 must decide as the headline drive's cycle 1
+(equal binds digest, read off the cache's acked binds) and launch K1,
+all 50 000 Binding POSTs must land on the stub, the watch's MODIFIED echo
+must show every pod Running in the cache, the headline arrivals created
+on the stub one POST at a time must bind through the watch and launch K2
+and the gate, the columns must be consistent, and at close the watch
+threads must join and the PV ledger's writer and timer close; it prints
+each resource's LIST, the seed, cycle 1's stages, the bind POSTs' rate,
+the echo's lag, the status writes and the arrivals' create → bind p50 /
+p99.  Each phase prints one JSON
 line; any failure raises (non-zero exit).  The last three lines are the kernels'
 summary, the card's name and power limit, and ``{"ok": true, "device":
 ...}``.
@@ -151,7 +165,7 @@ OC_RUNNING, OC_PENDING = 40_000, 20_000
 MID_OC = dict(n_running=2048, n_pending=1024, n_nodes=256)
 # the steady-state drive: warmup and measured cycles (bench.py:151), and its
 # legs (cycle_drive.LEGS: defaults, KB_WARM=0, KB_GUARD=0, the oracle)
-STEADY_WARMUP, STEADY_CYCLES = 2, 4
+STEADY_WARMUP, STEADY_CYCLES = 2, 2
 STEADY_LEGS = ("defaults", "cold", "noguard", "oracle", "pipelined", "untraced")
 # the loop drive: single-pod arrivals and the serial loop's tick (bench.py:1215)
 LOOP_FEED, LOOP_PERIOD = 20, 1.0
@@ -608,6 +622,31 @@ def phase_server_process():
     return r
 
 
+def phase_k8s(cycle, stub):
+    """The ``--master`` server at 50k × 5k on the card against the stub
+    apiserver ``stub``, preloaded since the script started
+    (``k8s_drive.drive_k8s``; module docstring)."""
+    from kube_batch_tpu_torch.testing.k8s_drive import drive_k8s
+
+    r = drive_k8s(N_TASKS, N_NODES, ARRIVALS, device="cuda", stub=stub)
+    k1, k2, gate = KERNELS
+    if r["device"] != "cuda":
+        fail(f"k8s: the server came up on {r['device']}")
+    if r["cycle1_bindings_digest"] != cycle["cycle1_bindings_digest"]:
+        fail(f"k8s: cycle 1's acked binds {r['cycle1_bindings_digest']} != the headline "
+             f"drive's cycle 1 {cycle['cycle1_bindings_digest']}")
+    if not r["cycle1"]["launches"][k1]:
+        fail(f"k8s: cycle 1 launched no K1: {r['cycle1']['launches']}")
+    if r["binds"]["posts"] < N_TASKS:
+        fail(f"k8s: {r['binds']['posts']} Binding POSTs of {N_TASKS} on the stub")
+    after = r["launches_after_cycle1"]
+    if not r["arrivals_bound"] or not after[k2] or not after[gate]:
+        fail(f"k8s: {r['arrivals_bound']} arrivals bound, launches after cycle 1 {after}")
+    emit("k8s", conf="shipped", shape=[N_TASKS, N_NODES],
+         bindings_equal_to_cycle="cycle 1", **r)
+    return r
+
+
 def phase_cycle():
     """Three cycles of the shipped conf at 50k × 5k on the card; cycle 1's
     binds digest is kept for the server phase."""
@@ -1038,6 +1077,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    from kube_batch_tpu_torch.testing.k8s_drive import StubProcess
+
+    # the k8s phase's apiserver, a process of its own with no card,
+    # preloads the 50 000-pod cluster while the other phases run
+    stub = StubProcess(N_TASKS, N_NODES)
+    try:
+        return run_phases(stub)
+    finally:
+        stub.stop()
+
+
+def run_phases(stub) -> int:
     from kube_batch_tpu_torch.ops.assignment import AllocateConfig
     from kube_batch_tpu_torch.testing.synthetic import synthetic_device_snapshot
 
@@ -1074,6 +1125,7 @@ def main() -> int:
     replicate = phase_replicate()
     server = phase_server(cycle)
     phase_server_process()
+    k8s = phase_k8s(cycle, stub)
     cycle_launches = {name: {f"cycle{c['cycle']}": c["launches"][name]
                              for c in cycle["cycles"]}
                       for name in KERNELS}
@@ -1101,6 +1153,10 @@ def main() -> int:
     rung = max(set(rerank_rungs), key=rerank_rungs.count) if rerank_rungs else None
     k2_rerank = kern.get(f"K2_P{rung}") if rung else None
 
+    k8s_launches = {name: {"cycle1": k8s["cycle1"]["launches"][name],
+                           "after_cycle1": k8s["launches_after_cycle1"][name]}
+                    for name in KERNELS}
+
     src = "kube_batch_tpu_torch/csrc/"
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     k1, k1_late = kern["K1"], kern["K1_late_round"]
@@ -1126,6 +1182,7 @@ def main() -> int:
              replicate_follower_launches=replicate["follower_k1_launches"],
              server_launches=server["launches"]["masked_best_node_raw"],
              server_follower_launches=server["follower"]["k1_launches"],
+             k8s_launches=k8s_launches["masked_best_node_raw"],
              probe_rows_shape=whatif["k1_probe_rows"]["shape"],
              probe_rows_ms=whatif["k1_probe_rows"]["ms"],
              probe_rows_plain_ms=whatif["k1_probe_rows"]["plain_ms"],
@@ -1144,6 +1201,7 @@ def main() -> int:
              loop_launches=loop_launches["masked_topk_blocks"],
              features_launches=features_launches["masked_topk_blocks"],
              server_launches=server["launches"]["masked_topk_blocks"],
+             k8s_launches=k8s_launches["masked_topk_blocks"],
              warm_launches_per_steady_cycle=k2_per_cycle["defaults"],
              cold_launches_per_steady_cycle=k2_per_cycle["cold"],
              fresh_keys="plain ops (the releasing fit masked on the view, as the JAX package)",
@@ -1163,7 +1221,8 @@ def main() -> int:
              pipelined_steady_launches=pipelined_launches["enqueue_gate"],
              loop_launches=loop_launches["enqueue_gate"],
              features_launches=features_launches["enqueue_gate"],
-             server_launches=server["launches"]["enqueue_gate"]),
+             server_launches=server["launches"]["enqueue_gate"],
+             k8s_launches=k8s_launches["enqueue_gate"]),
     ]
     print(json.dumps({"kernels": summary}))
     print(smi)

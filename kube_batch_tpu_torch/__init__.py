@@ -22,7 +22,9 @@ answer the same from their own resident copy.  ``python -m
 kube_batch_tpu_torch.cmd.main`` runs it all as the standalone server:
 the JAX package's HTTP admin, ingest, what-if and replication surface,
 file-lock leader election with a warm standby, a state file, and
-``--follower`` read replicas.  The layout mirrors the JAX package path for
+``--follower`` read replicas; with ``--master`` it lists and watches a
+Kubernetes apiserver, binds and evicts through it, writes status back and
+holds a coordination.k8s.io Lease.  The layout mirrors the JAX package path for
 path, so each module's counterpart is found at the same name:
 
   api/        — resources, the ingest objects and their JSON form, task /
@@ -30,8 +32,8 @@ path, so each module's counterpart is found at the same name:
                 object snapshot, the resident device cache, numpy ↔
                 tensor conversion
   cache/      — the cluster mirror, the dirty tracker, the resync queue,
-                the standalone PV ledger, the state file and the binder /
-                evictor / status seams
+                the standalone and k8s PV ledgers, the state file and the
+                binder / evictor / status / volume seams
   framework/  — conf, session, statement, the action and plugin registries
   plugins/    — priority, gang, conformance, drf, predicates, proportion,
                 nodeorder, binpack
@@ -49,17 +51,20 @@ path, so each module's counterpart is found at the same name:
                 the what-if plane
   replicate/  — the replication stream: the KBR1 codec, the leader's
                 publisher, the follower that serves what-ifs from it
-  k8s/        — the classified retry transport and circuit breaker
-  cmd/        — the process entry, its options, leader election and the
-                HTTP server (standalone and follower)
+  k8s/        — Kubernetes JSON translation, the list+watch adapter, the
+                apiserver binder / evictor / status writer, the classified
+                retry transport and circuit breaker
+  cmd/        — the process entry, its options, leader election (file
+                lock and Lease) and the HTTP server (standalone, --master
+                and follower)
   cli/        — the ``queue`` and ``whatif`` clients
   utils/      — invariant assertions, the priority queue, switches, the
                 one-thread worker, the telemetry clock
   scheduler.py — the serial and pipelined loops
   version.py  — the version string
   testing/    — synthetic clusters and snapshots, the kernel bench, the
-                cycle and server drives, the what-if and replication
-                smokes
+                cycle, server and k8s drives, the e2e driver with its stub
+                apiserver, the what-if and replication smokes
 
 The package imports torch, numpy and the standard library only.  Entry
 points take ``device=`` (default CUDA; asking for CUDA without a card

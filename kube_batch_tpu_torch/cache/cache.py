@@ -39,8 +39,8 @@ loop overlaps with the next cycle.
 PodDisruptionBudgets are the legacy gang source (``add_pdb`` and its
 kin): owner-linked pods plus a PDB form one gang in the default queue,
 which gets events and no status writeback.  The volume seams feed any
-binder; ``cache/volume.py`` holds the standalone PV ledger, and node
-ingest feeds it node labels.  ``snapshot()`` deep-clones the session's
+binder; ``cache/volume.py`` holds the standalone PV ledger and the
+k8s-backed ``K8sPVLedger``, and node ingest feeds them node labels.  ``snapshot()`` deep-clones the session's
 view for an isolated session.
 
 Each unbound pod's arrival → bind-decision clock starts at its first
@@ -53,11 +53,9 @@ collected job's series pruning feed ``metrics/`` as in the JAX package.
 
 ``failover_recover`` is the warm-standby takeover: the pod-store
 rebuild, then ``ColumnStore.revalidate_resident`` under the cache lock,
-the resync history reset and the leader-failover counter.
-
-What the JAX package has and this port does not (each is later work in
-ROADMAP.md): the k8s PV ledger and the PDB and PV translation, and the
-egress breakers themselves (item 9; ``CircuitOpenError`` is honoured).
+the resync history reset and the leader-failover counter.  With ``--master`` the binder and evictor are
+``k8s/bind.K8sBackend``, whose transport's breaker fails fast with
+``CircuitOpenError`` (a parked decision, not a poison strike).
 """
 
 from __future__ import annotations

@@ -62,8 +62,36 @@ class FakeVolumeBinder:
     # lets the allocate replay skip the per-task volume calls wholesale
     noop = True
 
+    def __init__(self):
+        # empty ledgers: the watch's reconcile walks them (finding nothing
+        # stale) instead of probing for their existence
+        self.pvs: dict = {}
+        self.claims: dict = {}
+        self.storage_classes: dict = {}
+
     def allocate_volumes(self, task, hostname) -> None:
         pass
 
     def bind_volumes(self, task) -> None:
+        pass
+
+    # explicit no-op ingest (the reference's fake volume binder drops these
+    # the same way), declared so the translate dispatcher sees a complete
+    # seam instead of a missing method
+    def add_pv(self, pv) -> None:
+        pass
+
+    def delete_pv(self, name) -> None:
+        pass
+
+    def add_pvc(self, pvc) -> None:
+        pass
+
+    def delete_pvc(self, key) -> None:
+        pass
+
+    def add_storage_class(self, name, provisioner) -> None:
+        pass
+
+    def delete_storage_class(self, name) -> None:
         pass

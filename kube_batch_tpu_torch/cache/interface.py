@@ -34,10 +34,28 @@ class StatusUpdater(Protocol):
 
 
 class VolumeBinder(Protocol):
-    """Scheduling-side volume seam (AllocateVolumes / BindVolumes).  A
-    binder whose ``noop`` attribute is true lets the allocate replay skip
+    """Scheduling-side volume seam (AllocateVolumes / BindVolumes) plus the
+    ingest surface the k8s watch feeds (the pv / pvc / storageclass
+    informers' analogs).  Structural: implementations do not subclass this,
+    so the declarations here are the contract.  A binder that cannot ingest
+    a kind (the standalone ledger has no PVC objects) lacks the method, and
+    ``k8s/translate.py``'s dispatcher logs the drop instead of failing open.
+    A binder whose ``noop`` attribute is true lets the allocate replay skip
     the per-task volume calls."""
 
     def allocate_volumes(self, task, hostname: str) -> None: ...
 
     def bind_volumes(self, task) -> None: ...
+
+    # -- ingest (fed by k8s/translate.apply_event) ----------------------
+    def add_pv(self, pv) -> None: ...
+
+    def delete_pv(self, name: str) -> None: ...
+
+    def add_pvc(self, pvc) -> None: ...
+
+    def delete_pvc(self, key: str) -> None: ...
+
+    def add_storage_class(self, name: str, provisioner: str) -> None: ...
+
+    def delete_storage_class(self, name: str) -> None: ...

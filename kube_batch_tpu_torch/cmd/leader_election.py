@@ -1,7 +1,6 @@
-"""Active/passive HA via a file-based lease lock, mirroring
-``kube_batch_tpu/cmd/leader_election.py``'s ``LeaderElector``.  The
-Kubernetes Lease elector (``K8sLeaseElector``) comes with the Kubernetes
-front end; the RFC 3339 stamp helpers it uses are here already.
+"""Active/passive HA, mirroring ``kube_batch_tpu/cmd/leader_election.py``:
+the file-based lease lock (``LeaderElector``) and, with ``--master``, a
+coordination.k8s.io Lease on the apiserver (``K8sLeaseElector``).
 
 The reference does leader election with a ConfigMap resource lock — 15s
 lease, 10s renew deadline, 5s retry, and `glog.Fatalf` (crash → standby takes
@@ -223,8 +222,10 @@ class LeaderElector:
 
 
 # ---------------------------------------------------------------------------
-# Lease-record stamps (the Kubernetes Lease elector's wire format)
+# Kubernetes-native election (--master mode)
 # ---------------------------------------------------------------------------
+
+_LEASE_GROUP = "/apis/coordination.k8s.io/v1"
 
 
 def _rfc3339_micro(ts: float) -> str:
@@ -246,3 +247,165 @@ def _parse_rfc3339(s: Optional[str]) -> float:
         return datetime.datetime.fromisoformat(s.replace("Z", "+00:00")).timestamp()
     except ValueError:
         return 0.0
+
+
+class K8sLeaseElector(LeaderElector):
+    """Leader election through a coordination.k8s.io/v1 Lease — the
+    cross-host resource lock the reference takes through the cluster API
+    (server.go:106-151 uses the older ConfigMap resourcelock; the Lease
+    object is its successor with first-class holder/renew fields). Same
+    15s/10s/5s timings and crash-on-loss contract as the file elector; the
+    apiserver's resourceVersion conflict (409) is the compare-and-swap the
+    file elector approximates with its O_EXCL claim file.
+
+    Like client-go, lease validity compares the apiserver-stored renewTime
+    against the local clock — the file elector's NTP caveat (module
+    docstring) applies unchanged."""
+
+    def __init__(
+        self,
+        transport,
+        namespace: str,
+        name: str = "kube-batch-tpu",
+        identity: Optional[str] = None,
+        lease_duration: float = LEASE_DURATION,
+        renew_deadline: float = RENEW_DEADLINE,
+        retry_period: float = RETRY_PERIOD,
+    ):
+        # the Lease wire format carries whole seconds (leaseDurationSeconds);
+        # a sub-second duration would serialize as 0 and every contender
+        # would then judge validity by its own local config — dual leader
+        if lease_duration < 1.0:
+            raise ValueError("k8s lease_duration must be >= 1 second")
+        self.transport = transport
+        self.namespace = namespace
+        self.name = name
+        self._init_common(identity, lease_duration, renew_deadline, retry_period)
+
+    @property
+    def _path(self) -> str:
+        return f"{_LEASE_GROUP}/namespaces/{self.namespace}/leases/{self.name}"
+
+    def _get(self) -> Optional[dict]:
+        import urllib.error
+
+        try:
+            # retry=False: the elector's retry_period loop IS the retry
+            # policy — in-call retries would stretch a renew attempt past
+            # the renew deadline (and the _RENEW_JOIN_TIMEOUT math)
+            return self.transport.get_json(self._path, timeout=10,
+                                           retry=False)
+        except urllib.error.HTTPError as e:
+            if e.code == 404:
+                return None
+            raise
+
+    def _try_acquire_or_renew(self) -> bool:
+        """One acquire/renew attempt (leaderelection.go tryAcquireOrRenew):
+        create if absent, take over if expired, renew if held — every write
+        CAS-guarded by resourceVersion (a 409 means another contender won
+        the race; report failure and retry next period). Transport errors
+        also report failure: an unreachable apiserver must run the renew
+        deadline down, not crash the standby loop."""
+        import urllib.error
+
+        now = time.time()
+        spec_new = {
+            "holderIdentity": self.identity,
+            "leaseDurationSeconds": int(round(self.lease_duration)),
+            "renewTime": _rfc3339_micro(now),
+        }
+        try:
+            obj = self._get()
+            if obj is None:
+                spec_new["acquireTime"] = spec_new["renewTime"]
+                spec_new["leaseTransitions"] = 0
+                self.transport.request(
+                    "POST",
+                    f"{_LEASE_GROUP}/namespaces/{self.namespace}/leases",
+                    {
+                        "apiVersion": "coordination.k8s.io/v1",
+                        "kind": "Lease",
+                        "metadata": {"name": self.name,
+                                     "namespace": self.namespace},
+                        "spec": spec_new,
+                    },
+                    timeout=10, retry=False,
+                )
+                return True
+            spec = obj.get("spec") or {}
+            holder = spec.get("holderIdentity")
+            duration = float(spec.get("leaseDurationSeconds")
+                             or self.lease_duration)
+            if (
+                holder
+                and holder != self.identity
+                and now - _parse_rfc3339(spec.get("renewTime")) < duration
+            ):
+                return False  # current leader's lease still valid
+            if holder == self.identity:  # renewal
+                spec_new["acquireTime"] = (
+                    spec.get("acquireTime") or spec_new["renewTime"]
+                )
+                spec_new["leaseTransitions"] = int(
+                    spec.get("leaseTransitions") or 0
+                )
+            else:  # takeover of an expired or vacated lease
+                spec_new["acquireTime"] = spec_new["renewTime"]
+                spec_new["leaseTransitions"] = int(
+                    spec.get("leaseTransitions") or 0
+                ) + 1
+            obj["spec"] = spec_new
+            self.transport.request("PUT", self._path, obj, timeout=10,
+                                   retry=False)
+            return True
+        except urllib.error.HTTPError as e:
+            if e.code == 409:
+                return False  # lost the CAS race
+            logger.warning("lease %s write failed: %s", self.name, e)
+            return False
+        except OSError as e:
+            logger.warning("lease %s unreachable: %s", self.name, e)
+            return False
+
+    def is_leader(self) -> bool:
+        try:
+            obj = self._get()
+        except OSError:
+            return False
+        if obj is None:
+            return False
+        spec = obj.get("spec") or {}
+        duration = float(spec.get("leaseDurationSeconds") or self.lease_duration)
+        return (
+            spec.get("holderIdentity") == self.identity
+            and time.time() - _parse_rfc3339(spec.get("renewTime")) < duration
+        )
+
+    def _vacate(self) -> None:
+        """Vacate the lease on clean shutdown (client-go ReleaseOnCancel
+        clears holderIdentity) so a standby can take over immediately.
+        The renew thread is reaped FIRST (base-class release) — an in-flight
+        renew landing after the vacate would re-take the lease; its CAS bump
+        also explains the one 409 retry here."""
+        import urllib.error
+
+        for _ in range(2):
+            try:
+                obj = self._get()
+                if obj is None:
+                    return
+                spec = obj.get("spec") or {}
+                if spec.get("holderIdentity") != self.identity:
+                    return
+                spec["holderIdentity"] = ""
+                obj["spec"] = spec
+                self.transport.request("PUT", self._path, obj, timeout=10,
+                                       retry=False)
+                return
+            except urllib.error.HTTPError as e:
+                if e.code == 409:
+                    continue  # lost a CAS race — re-GET and retry once
+                return  # best-effort; the lease simply expires
+            except OSError:
+                return

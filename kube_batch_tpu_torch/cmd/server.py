@@ -44,12 +44,19 @@ builds (for the leader the cache, scheduler, query plane, publisher and
 listener), ``serve`` runs the loop and ``close`` shuts down in the JAX
 package's order.
 
+With ``--master http…`` the front end is the apiserver's: a list+watch
+adapter (``k8s/watch.py``) seeds the cache and blocks the build until
+every resource listed, binds POST ``pods/binding`` and evictions DELETE
+the pod (``k8s/bind.py``), status writes PATCH the PodGroup, pod and Queue
+status, the PV ledger pre-binds volumes (``cache/volume.K8sPVLedger``),
+all through one shared egress bucket, and ``--leader-elect`` holds a
+coordination.k8s.io Lease.
+
 Where the port differs (ROADMAP Queue 3): the device is the keyword
 ``device=`` of :func:`run`, :func:`run_follower` and ``main`` (default
 CUDA, raising without a card), not a flag; on CUDA the kernel library is
 built and loaded at start, in place of the JAX package's persistent
-compilation cache; ``--master http…`` raises until the Kubernetes front
-end is ported.
+compilation cache.
 """
 
 from __future__ import annotations
@@ -610,37 +617,60 @@ def run_follower(opt: ServerOption, device=None) -> None:
 
 
 class StandaloneServer:
-    """The standalone branches of ``run``, split in two: the constructor
-    builds what app.Run builds (the shared egress bucket over the
-    recording binder and evictor, the PV ledger, the cache — restored from
-    ``--state-file`` when one exists, with a per-cycle save — the
+    """``run``'s leader branches, split in two: the constructor builds
+    what app.Run builds (the shared egress bucket over the binder and
+    evictor, the status updater and the PV ledger; the cache — restored
+    from ``--state-file`` when one exists, with a per-cycle save — the
     scheduler, the query plane and the replication publisher unless
-    ``KB_WHATIF`` / ``KB_REPLICATE`` turn them off, and the started
-    listener); :meth:`serve` runs the loop; :meth:`close` shuts down (the
-planes, the listener, then the cache's workers)."""
+    ``KB_WHATIF`` / ``KB_REPLICATE`` turn them off, the started listener
+    and, with ``--master``, the watch adapter, started here so the build
+    returns once every resource listed and the cache is synced);
+    :meth:`serve` runs the loop; :meth:`close` shuts down (the watch, the
+    planes, the listener, then the cache's workers and the PV ledger's
+    writer and retry timer).
+
+    Standalone, the binder and evictor are the recording fakes behind the
+    ingest API and the ledger is ``StandalonePVBinder``; with ``--master
+    http…`` they are ``K8sBackend`` and ``K8sPVLedger`` on the apiserver."""
 
     def __init__(self, opt: ServerOption, device=None):
-        if opt.master.startswith("http"):
-            raise ValueError(
-                f"--master {opt.master}: the Kubernetes front end (list+watch, "
-                "the apiserver binder, the Lease elector) is not ported to "
-                "kube_batch_tpu_torch yet; run standalone (ingest through the "
-                "HTTP admin API)")
-        from kube_batch_tpu_torch.cache.fake import FakeBinder, FakeEvictor
-        from kube_batch_tpu_torch.cache.volume import StandalonePVBinder
-
         self.opt = opt
         self.device = _device_for(device)
+        # with a k8s front end (--master), binds/evictions write back to
+        # the apiserver (pods/binding POST, pod DELETE); standalone keeps
+        # the recording fakes behind the ingest API
+        self.k8s_mode = opt.master.startswith("http")
         # one bucket for ALL egress (binds + evictions + status writes): the
         # reference's writes share a single throttled rest.Config
         self.bucket = TokenBucket(opt.kube_api_qps, opt.kube_api_burst)
+        self.auth: dict = {}
+        if self.k8s_mode:
+            from kube_batch_tpu_torch.cache.volume import K8sPVLedger
+            from kube_batch_tpu_torch.k8s.bind import K8sBackend
+            from kube_batch_tpu_torch.k8s.transport import in_cluster_auth
+
+            self.auth = in_cluster_auth()
+            backend = K8sBackend(opt.master, **self.auth)
+            binder = evictor = backend
+            status_updater = RateLimitedStatusUpdater(backend, bucket=self.bucket)
+            # pv/pvc/storageclass watches feed this ledger; its claimRef /
+            # selected-node PATCHes ride the backend's own transport AND the
+            # same shared token bucket as every other egress write
+            volume_binder = K8sPVLedger(transport=backend.transport, bucket=self.bucket)
+        else:
+            from kube_batch_tpu_torch.cache.fake import FakeBinder, FakeEvictor
+            from kube_batch_tpu_torch.cache.volume import StandalonePVBinder
+
+            binder, evictor = FakeBinder(), FakeEvictor()
+            status_updater = None  # the cache default: the recording fake
+            volume_binder = StandalonePVBinder()  # behind /v1/persistentvolumes
         cache = self.cache = SchedulerCache(
             scheduler_name=opt.scheduler_name,
             default_queue=opt.default_queue,
-            binder=RateLimitedBackend(FakeBinder(), bucket=self.bucket),
-            evictor=RateLimitedBackend(FakeEvictor(), bucket=self.bucket),
-            status_updater=None,  # the cache default: the recording fake
-            volume_binder=StandalonePVBinder(),  # the PV ledger behind /v1/persistentvolumes
+            binder=RateLimitedBackend(binder, bucket=self.bucket),
+            evictor=RateLimitedBackend(evictor, bucket=self.bucket),
+            status_updater=status_updater,
+            volume_binder=volume_binder,
             resolve_priority=opt.enable_priority_class,
         )
         on_cycle_end = None
@@ -671,6 +701,7 @@ planes, the listener, then the cache's workers)."""
                 from kube_batch_tpu_torch.replicate.publisher import ReplicationPublisher
 
                 cache.replication = ReplicationPublisher(tracer=tracer_of(cache))
+        self.watcher = None
         host, port = opt.listen_host_port
         try:
             self.admin = AdminServer(cache, host, port, query_plane=self.query_plane)
@@ -681,20 +712,50 @@ planes, the listener, then the cache's workers)."""
         logger.info("admin/metrics listening on %s:%d (whatif %s, device %s)", host,
                     self.admin.port, "on" if self.query_plane is not None else "off",
                     self.device)
+        if self.k8s_mode:
+            # the informers (cache.go:256-339): start() BLOCKS until every
+            # resource finished its initial LIST and then marks the cache
+            # synced — the reference's WaitForCacheSync gate before the
+            # first cycle (scheduler.go:64); scheduling against a
+            # half-seeded cache would overstate node idle capacity
+            from kube_batch_tpu_torch.k8s.watch import WatchAdapter
+
+            self.watcher = WatchAdapter(cache, api_server=opt.master, **self.auth)
+            logger.info("seeding from kubernetes apiserver %s ...", opt.master)
+            try:
+                self.watcher.start()
+            except BaseException:
+                self.close()
+                raise
+            logger.info("kubernetes watch adapter synced against %s", opt.master)
 
     def serve(self) -> None:
         """WaitForCacheSync (bounded by ``--cache-sync-timeout``; off at 0),
-        then the scheduling loop until ``sched.stop()`` — behind the
-        file-lock election when enabled, in place as a warm standby with
+        then the scheduling loop until ``sched.stop()`` — behind leader
+        election when enabled (the Lease on the apiserver with
+        ``--master``, else the file lock), in place as a warm standby with
         ``--leader-warm-standby``, else crashing on a lost lease."""
         opt, sched = self.opt, self.sched
         if opt.cache_sync_timeout > 0:
             self.cache.wait_for_cache_sync(timeout=opt.cache_sync_timeout)
         if opt.enable_leader_election:
-            elector = LeaderElector(opt.lock_object_namespace)
+            if self.k8s_mode:
+                # cross-host HA rides the cluster API: a coordination.k8s.io
+                # Lease in --lock-object-namespace (the reference's ConfigMap
+                # resourcelock, server.go:106-151), no shared filesystem
+                from kube_batch_tpu_torch.cmd.leader_election import K8sLeaseElector
+                from kube_batch_tpu_torch.k8s.transport import ApiTransport
+
+                elector = K8sLeaseElector(
+                    ApiTransport(opt.master, role="lease", **self.auth),
+                    namespace=opt.lock_object_namespace)
+            else:
+                elector = LeaderElector(opt.lock_object_namespace)
             if opt.leader_warm_standby:
                 run_warm_standby(elector, sched, self.cache)
             else:
+                # on lease loss the elector stops the loop so serve() raises
+                # — the crash-on-loss contract (server.go:145)
                 elector.run(sched.run_forever, on_stopped_leading=sched.stop)
         else:
             sched.run_forever()
@@ -707,6 +768,12 @@ planes, the listener, then the cache's workers)."""
             pub.close()
 
     def close(self) -> None:
+        """The watch stops taking events (its threads end when their
+        streams close: :meth:`WatchAdapter.join`), then the planes, the
+        listener and the cache's workers, the PV ledger's writer and retry
+        timer with them (``SchedulerCache.stop``)."""
+        if self.watcher is not None:
+            self.watcher.stop()
         self._close_planes()
         self.admin.stop()
         self.cache.stop()

@@ -1,8 +1,8 @@
 """The port's process entry and command-line clients against the JAX
 package's, on the CPU: ``ServerOption`` defaults and the parse of every
 flag, ``check_option_or_die``, ``cmd.main`` (``--version`` → 0, a bad
-option → 2, CUDA by default, ``--master`` refused until the Kubernetes
-front end is ported), ``cli/queue.py`` against each package's server and
+option → 2, CUDA by default, ``--master`` against a loopback stub
+apiserver), ``cli/queue.py`` against each package's server and
 against a stub apiserver (``--master``), ``cli/whatif.py`` against each
 package's server, ``run_follower`` pulling a leader over loopback HTTP,
 and the two port smokes at their small CPU sizes."""
@@ -114,10 +114,40 @@ def test_main_defaults_to_cuda(monkeypatch):
         port_main.main(["--listen-address", "127.0.0.1:0", "--follower", "http://x:1"])
 
 
-def test_master_is_refused_until_the_front_end_is_ported():
-    with pytest.raises(ValueError, match="Kubernetes front end"):
-        port_main.main(["--listen-address", "127.0.0.1:0", "--master",
-                        "https://10.0.0.1:6443"], device="cpu")
+def test_master_is_refused_until_the_front_end_is_ported(monkeypatch):
+    """The front end is ported: ``main(["--master", url], device="cpu")``
+    no longer refuses.  Against the port's stub apiserver on loopback it
+    seeds from the watch, its first cycle binds the listed pod by a
+    Binding POST, and it returns 0 once the loop stops."""
+    from kube_batch_tpu_torch.cmd import server as srv_mod
+    from kube_batch_tpu_torch.testing.e2e import SCHED, Cluster, StubApiServer
+
+    stub = StubApiServer()
+    url = stub.start()
+    node = Cluster.node_obj(None, "n1")
+    stub.load("nodes", [node])
+    stub.load("queues", [{"metadata": {"name": "default"}, "spec": {"weight": 1}}])
+    stub.load("pods", [{"metadata": {"name": "p", "namespace": "default", "uid": "p-uid"},
+                        "spec": {"schedulerName": SCHED, "containers": [
+                            {"resources": {"requests": {"cpu": "100m"}}}]},
+                        "status": {"phase": "Pending"}}])
+    seen = {}
+    real_serve = srv_mod.StandaloneServer.serve
+
+    def serve(self):
+        seen["server"] = self
+        self.sched.on_cycle_end = self.sched.stop
+        real_serve(self)
+
+    monkeypatch.setattr(srv_mod.StandaloneServer, "serve", serve)
+    try:
+        assert port_main.main(["--listen-address", "127.0.0.1:0", "--master", url,
+                               "--schedule-period", "0.01"], device="cpu") == 0
+        assert seen["server"].k8s_mode
+        assert stub.stats()["pods_on_nodes"] == 1
+    finally:
+        stub.stop()
+    assert seen["server"].watcher.join(10)
 
 
 def test_main_runs_the_server_on_the_cpu(monkeypatch):

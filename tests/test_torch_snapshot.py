@@ -112,9 +112,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     the alert evaluator and the Prometheus text, then the standalone
     server (every ingest kind, every GET endpoint once, a what-if and a
     sweep over HTTP, its state file saved and loaded), a ``run_follower``
-    pulling it over loopback HTTP, and both CLIs against it, leaves no
-    jax, no kube_batch_tpu and no yaml module loaded (kube_batch_tpu_torch itself
-    shares the prefix, so the match is exact on the package name)."""
+    pulling it over loopback HTTP, and both CLIs against it, then the
+    Kubernetes front end (the CRDs applied from their JSON, a ``--master``
+    server seeded by the watch from the port's stub apiserver holding its
+    Lease while it binds a gang over HTTP, the chip drive's writers),
+    leaves no jax, no kube_batch_tpu and no yaml module loaded
+    (kube_batch_tpu_torch itself shares the prefix, so the match is exact
+    on the package name)."""
     code = textwrap.dedent("""
         import sys
         import threading
@@ -317,6 +321,22 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             ft.join(30)
             leader.close()
         assert not ft.is_alive()
+        from kube_batch_tpu_torch.testing import e2e, k8s_drive
+        from kube_batch_tpu_torch.k8s import pod_from_k8s
+        stub = e2e.StubApiServer()
+        master = stub.start()
+        try:
+            kc = e2e.Cluster(master)
+            kc.apply_crds()
+            with e2e.scheduler_thread(master, device="cpu", extra_args=[
+                    "--leader-elect", "--lock-object-namespace", "kube-system"]) as ks:
+                kc.ensure_namespace("e2e-gang")
+                e2e.scenario_gang(kc, "e2e-gang")
+        finally:
+            stub.stop()
+        assert ks.watcher.join(10)
+        p0 = loop_cache.pods[sorted(loop_cache.pods)[0]]
+        assert pod_from_k8s(k8s_drive.pod_to_k8s(p0)) == p0
         bad = sorted(n for n in sys.modules
                      if n in ("jax", "jaxlib", "yaml") or n.startswith(("jax.", "jaxlib.", "yaml."))
                      or n == "kube_batch_tpu" or n.startswith("kube_batch_tpu."))

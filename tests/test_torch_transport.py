@@ -5,8 +5,8 @@ inputs through both modules and compares the outcomes (and pins them as
 policy, the call retry loop, the circuit breaker and ``GuardedBackend``.
 Then ``get_bytes`` against a loopback ``http.server`` serving a port
 leader's replication stream, pulled by a ``ReplicationFollower`` built
-with its default transport.  The ``K8sBackend`` and watch cases wait for
-the rest of ``k8s/`` (ROADMAP item 8)."""
+with its default transport.  ``K8sBackend`` and the watch over this
+transport are held against the JAX package in ``test_torch_k8s_*.py``."""
 
 from __future__ import annotations
 
