@@ -65,7 +65,7 @@ back-to-back cycles must show cycle N's writeback span overlapping cycle
 N+1's compute in the exported trace; the untraced leg keeps no record.
 The loop phase
 (``drive_loop``: the JAX package's ``bench.py`` ``pipelined_bench``) runs
-``Scheduler.run_forever`` on the warmed 50 000-pod cluster while 20
+``Scheduler.run_forever`` on the warmed 50 000-pod cluster while 10
 single-pod gangs arrive at seeded offsets of U(0.15, 0.45) s, once with
 ``KB_PIPELINE=0`` (a 1 s tick) and once pipelined: every arrival must be
 bound exactly once and ``stop()`` must drain; it prints the arrival →
@@ -129,7 +129,24 @@ and the gate, the columns must be consistent, and at close the watch
 threads must join and the PV ledger's writer and timer close; it prints
 each resource's LIST, the seed, cycle 1's stages, the bind POSTs' rate,
 the echo's lag, the status writes and the arrivals' create → bind p50 /
-p99.  Each phase prints one JSON
+p99.  The sim phase (``testing/sim_drive.py``) runs the virtual-time
+simulator: its eight presets at seed 0, and smoke at seed 3 through the
+pipelined cycle, on the card, each passing the
+simulator CLI's exit criteria (no invariant error, recovered faults, no
+duplicate bind, the guard's chaos invariants on ``corruption``) with the
+same ``trace_sha256``, ``bind_digest``, trace length and cycles as the
+same presets on the CPU in a child process; ``--warm-ab`` on
+``warm-churn`` (identical binds, the carry engaged); ``--replay-bundle``
+of the card's first corruption bundle (reproduced on the card);
+``python -m kube_batch_tpu_torch.sim --preset smoke --seed 0`` as a
+subprocess on the card (exit 0, the in-process smoke run's trace); then
+the 50k drive — 5 000 nodes, 12 500 Poisson gangs of 4 (50 000 pods) over
+three queues, 12 virtual cycles — with the defaults and with
+``KB_WARM=0``: equal binds digest, clean invariants, no duplicate bind,
+compacted cycles in the defaults leg; one JSON line per cycle and leg
+(its wall split into events applied, ``run_once``, kubelet drain and
+metrics sample), then the virtual-time p50 / p99 of job wait, JCT and pod arrival → bind.
+Each phase prints one JSON
 line; any failure raises (non-zero exit).  The last three lines are the kernels'
 summary, the card's name and power limit, and ``{"ok": true, "device":
 ...}``.
@@ -140,6 +157,7 @@ Exits non-zero without a result when no CUDA device is present.
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 
@@ -167,8 +185,9 @@ MID_OC = dict(n_running=2048, n_pending=1024, n_nodes=256)
 # legs (cycle_drive.LEGS: defaults, KB_WARM=0, KB_GUARD=0, the oracle)
 STEADY_WARMUP, STEADY_CYCLES = 2, 2
 STEADY_LEGS = ("defaults", "cold", "noguard", "oracle", "pipelined", "untraced")
-# the loop drive: single-pod arrivals and the serial loop's tick (bench.py:1215)
-LOOP_FEED, LOOP_PERIOD = 20, 1.0
+# the loop drive: single-pod arrivals (bench.py:1215's 20, cut to 10 for the
+# script's time) and the serial loop's tick
+LOOP_FEED, LOOP_PERIOD = 10, 1.0
 # the warm path's re-rank rungs below the 8 192-row bucket (K2's rows there)
 WARM_RERANK_RUNGS = (128, 256, 512, 1024, 2048, 4096)
 # the feature drive: PDB-defined gangs, claims on the PV ledger and claims on
@@ -176,6 +195,10 @@ WARM_RERANK_RUNGS = (128, 256, 512, 1024, 2048, 4096)
 FEAT_PDB, FEAT_PVC, FEAT_IMPOSSIBLE = 0.05, 2_000, 50
 MID_FEAT_PVC, MID_FEAT_IMPOSSIBLE = 164, 4
 KERNELS = ("masked_best_node_raw", "masked_topk_blocks", "enqueue_gate")
+# the simulator's 50k drive: 5 000 nodes, 12 500 gangs of 4, virtual cycles
+# (sim_drive's 16 cut to 12 for the script's time: its three compacted
+# cycles, the last arrivals' at 9–11, stay in)
+SIM_NODES, SIM_GANGS, SIM_CYCLES = N_NODES, N_TASKS // GANG, 12
 
 
 T0 = time.perf_counter()
@@ -1073,6 +1096,117 @@ def phase_replicate():
     return r
 
 
+def phase_sim(device="cuda"):
+    """The virtual-time simulator on the card (``testing/sim_drive.py``;
+    module docstring).  ``device="cpu"`` rehearses the phase's control
+    flow on the CPU at a size set by ``SIM_*``."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from kube_batch_tpu_torch.ops import kernels
+    from kube_batch_tpu_torch.sim.__main__ import main as sim_main
+    from kube_batch_tpu_torch.testing.sim_drive import (
+        DIGESTS, PRESETS, Child, cli_args, drive_sim, run_presets)
+
+    def cli(argv):
+        """The simulator's CLI in this process: its exit code and JSON."""
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = sim_main(argv, device=device)
+        return rc, json.loads(out.getvalue())
+
+    k1, k2, _gate = KERNELS
+    work = tempfile.mkdtemp(prefix="kb-sim-")
+    # the CPU oracle of every preset, and the CLI on the card, each in a
+    # process of its own while this process runs the presets on the card
+    cpu = Child("presets-cpu", ["-m", "kube_batch_tpu_torch.testing.sim_drive",
+                                "--presets", "--device", "cpu"], work,
+                KB_GUARD_DIR=os.path.join(work, "guard-cpu"), OMP_NUM_THREADS="2")
+    entry = Child("cli", cli_args(["--preset", "smoke", "--seed", "0"], device), work,
+                  KB_GUARD_DIR=os.path.join(work, "guard-cli"))
+    # this process's bundles (the last phase: nothing after it reads the dir)
+    os.environ["KB_GUARD_DIR"] = os.path.join(work, "guard-card")
+    try:
+        t0 = time.perf_counter()
+        card = run_presets(device=device)
+        presets_s = time.perf_counter() - t0
+        failed = [n for n, r in card.items() if not r["exit_ok"]]
+        if failed:
+            fail(f"sim: presets {failed} failed the CLI's exit criteria on {device}")
+        # --warm-ab on warm-churn (both legs counted), then the replay
+        kernels.reset_launches()
+        rc, ab = cli(["--preset", "warm-churn", "--seed", "0", "--warm-ab"])
+        ab_launches = dict(kernels.launches)
+        if rc or not ab["binds_match"] or not ab["warm_engaged"]:
+            fail(f"sim: --warm-ab exit {rc}: {ab}")
+        bundles = card["corruption"]["bundles"]
+        if not bundles:
+            fail("sim: the corruption run wrote no bundle")
+        rc, replay = cli(["--replay-bundle", bundles[0]])
+        if rc or not replay["reproduced"] or \
+                torch.device(replay["device"]).type != torch.device(device).type:
+            fail(f"sim: --replay-bundle exit {rc}: {replay}")
+        rc, out = cpu.finish(600)
+        if rc:
+            fail(f"sim: the CPU presets exited {rc}: {cpu.stderr_tail()}")
+        oracle = json.loads(out.strip().splitlines()[-1])
+        diverged = {n: {k: (card[n][k], oracle[n][k]) for k in DIGESTS
+                        if card[n][k] != oracle[n][k]}
+                    for n in card}
+        diverged = {n: d for n, d in diverged.items() if d}
+        if diverged:
+            fail(f"sim: the card and the CPU ran presets differently: {diverged}")
+        rc, out = entry.finish(300)
+        if rc:
+            fail(f"sim: python -m kube_batch_tpu_torch.sim exited {rc}: {entry.stderr_tail()}")
+        cli_report = json.loads(out)
+        if cli_report["trace_sha256"] != card["smoke"]["trace_sha256"]:
+            fail("sim: the CLI process's smoke run differs from this process's")
+    finally:
+        cpu.stop()
+        entry.stop()
+    # the 50k drive, each leg's launches counted from 0
+    drive = drive_sim(SIM_NODES, SIM_GANGS, SIM_CYCLES, device=device)
+    for leg, r in drive["legs"].items():
+        for i, c in enumerate(r["cycles"]):
+            emit("sim_cycle", leg=leg, cycle=i, t=c["t"], wall_ms=c["wall_ms"],
+                 **{k: c[k] for k in ("apply_ms", "run_once_ms", "kubelet_ms", "sample_ms")},
+                 scheduler_ms=c["scheduler_ms"], stages_ms=c["stages_ms"],
+                 pending=c["pending"],
+                 running=c["running"], trace_lines=c["trace_lines"],
+                 k1_launches=c["launches"][k1], k2_launches=c["launches"][k2],
+                 topk=c["topk"], warm=c["warm"])
+    sim_launches = {name: {**{p: r["launches"][name] for p, r in card.items()},
+                           "warm_ab": ab_launches[name],
+                           **{f"drive_{leg}": r["launches"][name]
+                              for leg, r in drive["legs"].items()}}
+                    for name in KERNELS}
+    if device != "cpu" and (not sum(sim_launches[k1].values())
+                            or not sum(sim_launches[k2].values())
+                            or not drive["legs"]["defaults"]["launches"][k2]):
+        fail(f"sim: the simulator did not launch K1 and K2: {sim_launches}")
+    vt = {leg: {m: {q: r["report"][m][q] for q in ("p50", "p99", "n")}
+                for m in ("wait_vt", "jct_vt", "pod_bind_latency_vt")}
+          for leg, r in drive["legs"].items()}
+    shutil.rmtree(work, ignore_errors=True)
+    emit("sim", presets={n: {k: v for k, v in r.items() if k != "bundles"}
+                         for n, r in card.items()},
+         presets_s=presets_s, presets_equal_cpu=list(DIGESTS),
+         cpu_presets_s=cpu.seconds, warm_ab=ab, replay=replay,
+         cli={"exit": 0, "seconds": entry.seconds, "metric": cli_report["metric"],
+              "value": cli_report["value"]},
+         drive={"nodes": drive["nodes"], "pods": drive["pods"], "cycles": drive["cycles"],
+                "legs": {leg: {"wall_s": r["wall_s"], "launches": r["launches"],
+                               **{k: r["report"][k] for k in (
+                                   "jobs", "binds", "topk", "warm", "makespan_vt",
+                                   "snapshot_paths", "bind_digest")}}
+                         for leg, r in drive["legs"].items()},
+                "vt": vt},
+         sim_launches=sim_launches)
+    return sim_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1126,6 +1260,7 @@ def run_phases(stub) -> int:
     server = phase_server(cycle)
     phase_server_process()
     k8s = phase_k8s(cycle, stub)
+    sim_launches = phase_sim()
     cycle_launches = {name: {f"cycle{c['cycle']}": c["launches"][name]
                              for c in cycle["cycles"]}
                       for name in KERNELS}
@@ -1183,6 +1318,7 @@ def run_phases(stub) -> int:
              server_launches=server["launches"]["masked_best_node_raw"],
              server_follower_launches=server["follower"]["k1_launches"],
              k8s_launches=k8s_launches["masked_best_node_raw"],
+             sim_launches=sim_launches["masked_best_node_raw"],
              probe_rows_shape=whatif["k1_probe_rows"]["shape"],
              probe_rows_ms=whatif["k1_probe_rows"]["ms"],
              probe_rows_plain_ms=whatif["k1_probe_rows"]["plain_ms"],
@@ -1202,6 +1338,7 @@ def run_phases(stub) -> int:
              features_launches=features_launches["masked_topk_blocks"],
              server_launches=server["launches"]["masked_topk_blocks"],
              k8s_launches=k8s_launches["masked_topk_blocks"],
+             sim_launches=sim_launches["masked_topk_blocks"],
              warm_launches_per_steady_cycle=k2_per_cycle["defaults"],
              cold_launches_per_steady_cycle=k2_per_cycle["cold"],
              fresh_keys="plain ops (the releasing fit masked on the view, as the JAX package)",
@@ -1222,7 +1359,8 @@ def run_phases(stub) -> int:
              loop_launches=loop_launches["enqueue_gate"],
              features_launches=features_launches["enqueue_gate"],
              server_launches=server["launches"]["enqueue_gate"],
-             k8s_launches=k8s_launches["enqueue_gate"]),
+             k8s_launches=k8s_launches["enqueue_gate"],
+             sim_launches=sim_launches["enqueue_gate"]),
     ]
     print(json.dumps({"kernels": summary}))
     print(smi)

@@ -24,8 +24,10 @@ the JAX package's HTTP admin, ingest, what-if and replication surface,
 file-lock leader election with a warm standby, a state file, and
 ``--follower`` read replicas; with ``--master`` it lists and watches a
 Kubernetes apiserver, binds and evicts through it, writes status back and
-holds a coordination.k8s.io Lease.  The layout mirrors the JAX package path for
-path, so each module's counterpart is found at the same name:
+holds a coordination.k8s.io Lease.  ``python -m kube_batch_tpu_torch.sim``
+replays a workload over virtual time through the real scheduler, with
+fault and corruption injection.  The layout mirrors the JAX package path
+for path, so each module's counterpart is found at the same name:
 
   api/        — resources, the ingest objects and their JSON form, task /
                 job / node / queue info, the column store, the snapshot tensors and the
@@ -58,13 +60,16 @@ path, so each module's counterpart is found at the same name:
                 lock and Lease) and the HTTP server (standalone, --master
                 and follower)
   cli/        — the ``queue`` and ``whatif`` clients
+  sim/        — the virtual-time simulator: workloads, the simulated
+                kubelet, fault and corruption injection, the presets, the
+                longitudinal report
   utils/      — invariant assertions, the priority queue, switches, the
                 one-thread worker, the telemetry clock
   scheduler.py — the serial and pipelined loops
   version.py  — the version string
   testing/    — synthetic clusters and snapshots, the kernel bench, the
-                cycle, server and k8s drives, the e2e driver with its stub
-                apiserver, the what-if and replication smokes
+                cycle, server, k8s and simulator drives, the e2e driver
+                with its stub apiserver, the what-if and replication smokes
 
 The package imports torch, numpy and the standard library only.  Entry
 points take ``device=`` (default CUDA; asking for CUDA without a card

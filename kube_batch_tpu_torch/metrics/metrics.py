@@ -624,8 +624,8 @@ def register_staged_ingest(count: int) -> None:
 
 def set_queue_shares(shares: dict) -> None:
     """Export per-queue {share, entitlement} samples as live gauges — the
-    JAX package's simulator feeds its fairness series here (the port has
-    no simulator yet; any caller with the same sample shape may).  Queues absent
+    simulator (``sim/runner.py``) feeds its fairness series here every
+    cycle; any caller with the same sample shape may.  Queues absent
     from the sample are pruned: a deleted queue must not export a phantom
     share forever."""
     live = {(q,) for q in shares}

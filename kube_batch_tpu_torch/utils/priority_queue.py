@@ -2,8 +2,8 @@
 
 Mirrors ``kube_batch_tpu/utils/priority_queue.py`` (the reference's
 pkg/scheduler/util/priority_queue.go:26-94, a container/heap over an
-api.LessFn).  The enqueue walk orders queues and jobs with it, and preempt
-orders its victims.
+api.LessFn).  The enqueue walk orders queues and jobs with it, preempt
+orders its victims, and the simulator's event heap orders its events.
 """
 
 from __future__ import annotations
@@ -29,6 +29,12 @@ class PriorityQueue:
 
     def pop(self) -> Any:
         return heapq.heappop(self._heap).item
+
+    def peek(self) -> Any:
+        return self._heap[0].item
+
+    def empty(self) -> bool:
+        return not self._heap
 
     def __len__(self) -> int:
         return len(self._heap)

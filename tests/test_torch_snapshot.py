@@ -115,7 +115,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     pulling it over loopback HTTP, and both CLIs against it, then the
     Kubernetes front end (the CRDs applied from their JSON, a ``--master``
     server seeded by the watch from the port's stub apiserver holding its
-    Lease while it binds a gang over HTTP, the chip drive's writers),
+    Lease while it binds a gang over HTTP, the chip drive's writers), then
+    the simulator (the fault preset's node crash, the CLI's smoke run),
     leaves no jax, no kube_batch_tpu and no yaml module loaded
     (kube_batch_tpu_torch itself shares the prefix, so the match is exact
     on the package name)."""
@@ -337,6 +338,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         assert ks.watcher.join(10)
         p0 = loop_cache.pods[sorted(loop_cache.pods)[0]]
         assert pod_from_k8s(k8s_drive.pod_to_k8s(p0)) == p0
+        import contextlib, io
+        import kube_batch_tpu_torch.testing.sim_drive
+        from kube_batch_tpu_torch.sim import run_preset
+        from kube_batch_tpu_torch.sim.__main__ import main as sim_main
+        srep = run_preset("fault", seed=0, cycles=12, device="cpu")
+        assert srep["fault_recovery"]["displaced_jobs"] and srep["binds"] > 0
+        with contextlib.redirect_stdout(io.StringIO()) as sim_out:
+            assert sim_main(["--preset", "smoke", "--cycles", "6",
+                             "--no-fairness-series"], device="cpu") == 0
+        assert '"metric": "sim_smoke_makespan_vt"' in sim_out.getvalue()
         bad = sorted(n for n in sys.modules
                      if n in ("jax", "jaxlib", "yaml") or n.startswith(("jax.", "jaxlib.", "yaml."))
                      or n == "kube_batch_tpu" or n.startswith("kube_batch_tpu."))
