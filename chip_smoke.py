@@ -101,7 +101,23 @@ dropped frame, get a full frame past a ring of 4 and re-adopt warm on a
 restart; at 4 096 × 1 024 a card follower and a CPU follower must answer
 32 requests identically.  The card's full solve of the 50 000-pod snapshot
 must equal the plain solve of the same snapshot on the CPU, every field
-(``solve_card_vs_cpu``).  The server phase
+(``solve_card_vs_cpu``).  The shard phase (``parallel/``) places the same
+snapshot on a four-position mesh (four cards when there are four, else
+four shards of the one card) and holds each sharded solve against its
+single-device twin on the card, every field: the full solve (K1 per shard
+at its node origin each round), the compacted solve (K2 per shard, one
+merge), the full solve on a (tasks=2, nodes=2) grid, and reclaim's and
+preempt's solves on the overcommit drive's cluster with 625 high-priority
+gangs waiting; K1 and K2 at the second shard's origin are held against
+their plain versions and timed beside the unsharded kernels, and the
+collectives' bytes per round and per solve must equal
+``collective_stats``.  After the headline drive, ``shard_cycles`` runs its
+cycles 1–3 again through ``Scheduler(mesh=...)`` and with
+``KB_SHARD_MAP=0`` (the ``"pjit"`` oracle): every cycle's binds digest
+must equal the single-device drive's; the mesh's enqueue gate must equal
+the single-device gate; and two processes joined by
+``parallel/distributed.py`` (``nccl`` with a card each, ``gloo`` sharing
+the card) solve 4 096 × 1 024, each rank equal to one process's solve.  The server phase
 (``testing/server_drive.drive_server``) runs the standalone server as
 ``python -m kube_batch_tpu_torch.cmd.main`` builds it, in this process:
 the 50 000-pod cluster ingested over HTTP as list bodies in the headline
@@ -195,6 +211,9 @@ WARM_RERANK_RUNGS = (128, 256, 512, 1024, 2048, 4096)
 FEAT_PDB, FEAT_PVC, FEAT_IMPOSSIBLE = 0.05, 2_000, 50
 MID_FEAT_PVC, MID_FEAT_IMPOSSIBLE = 164, 4
 KERNELS = ("masked_best_node_raw", "masked_topk_blocks", "enqueue_gate")
+# the sharded solves' mesh: four positions (distinct cards when there are
+# four, else four shards of the one card)
+SHARDS = 4
 # the simulator's 50k drive: 5 000 nodes, 12 500 gangs of 4, virtual cycles
 # (sim_drive's 16 cut to 12 for the script's time: its three compacted
 # cycles, the last arrivals' at 9–11, stay in)
@@ -349,16 +368,17 @@ def phase_enqueue_gate():
     return report
 
 
-def _mid_evict_cluster():
-    """An overcommitted 4 096-task × 1 024-node cluster: q0 fills every
-    node's cpu, q1 waits (reclaim's claimants), and 128 high-priority q0
-    gangs wait too (preempt's)."""
+def _mid_evict_cluster(n_running=2048, n_pending=1536, n_nodes=MID_NODES, n_high=128):
+    """An overcommitted cluster (by default 4 096 tasks × 1 024 nodes): q0
+    fills every node's cpu, q1 waits (reclaim's claimants), and ``n_high``
+    high-priority q0 gangs wait too (preempt's)."""
     from kube_batch_tpu_torch.api.pod import GROUP_NAME_ANNOTATION, Pod, PodGroup
     from kube_batch_tpu_torch.api.types import PodPhase
     from kube_batch_tpu_torch.testing.synthetic import synthetic_overcommit_cluster
 
-    cache = synthetic_overcommit_cluster(n_running=2048, n_pending=1536, n_nodes=MID_NODES)
-    for j in range(128):
+    cache = synthetic_overcommit_cluster(n_running=n_running, n_pending=n_pending,
+                                         n_nodes=n_nodes)
+    for j in range(n_high):
         cache.add_pod_group(PodGroup(name=f"high{j}", namespace="bench", min_member=GANG,
                                      queue="q0", creation_index=10**6 + j))
         for k in range(GANG):
@@ -587,7 +607,243 @@ def phase_solve_topk(snap, config, full):
          topk_exhausted=int(res.topk_exhausted),
          topk_reentries=int(res.topk_reentries),
          launches=counts, equal_to_full="bit-exact")
-    return counts
+    return counts, res
+
+
+def _shard_mesh(task_shards: int = 1):
+    """SHARDS positions: distinct cards when there are that many, else
+    SHARDS shards of the one card (``testing/dryrun.mesh_devices``)."""
+    from kube_batch_tpu_torch.parallel.mesh import make_mesh
+    from kube_batch_tpu_torch.testing.dryrun import mesh_devices
+
+    return make_mesh(mesh_devices(SHARDS, "cuda"), task_shards=task_shards)
+
+
+def _timed_solve(fn):
+    from kube_batch_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t) * 1e3, dict(kernels.launches)
+
+
+def _differs(a, b, skip=()):
+    return [f for f, x, y in zip(a._fields, a, b)
+            if f not in skip and not same([x], [y])]
+
+
+def _overcommit_snapshot():
+    """The overcommit drive's cluster (40 000 running, 20 000 pending on
+    5 000 nodes) with 625 high-priority q0 gangs waiting too (the mid
+    cluster's share: preempt's claimants), as its first session's device
+    snapshot, with reclaim's and preempt's solve configurations."""
+    from kube_batch_tpu_torch import plugins as _plugins  # noqa: F401 — registers
+    from kube_batch_tpu_torch.actions.reclaim import evict_config
+    from kube_batch_tpu_torch.api.convert import snapshot_from_numpy
+    from kube_batch_tpu_torch.framework.conf import load_scheduler_conf, shipped_conf_path
+    from kube_batch_tpu_torch.framework.session import close_session, open_session
+
+    cache = _mid_evict_cluster(OC_RUNNING, OC_PENDING, N_NODES, n_high=625)
+    conf = load_scheduler_conf(shipped_conf_path())
+    ssn = open_session(cache, conf.tiers, "cpu")
+    ssn.action_names = list(conf.actions)
+    try:
+        snap, _meta = cache.columns.device_snapshot(ssn)
+        cfgs = {mode: evict_config(ssn, mode) for mode in ("reclaim", "preempt")}
+    finally:
+        close_session(ssn)
+    return snapshot_from_numpy(snap, "cuda"), cfgs
+
+
+def phase_shard(snap, config, full, topk, k1_ms, k2_ms):
+    """The sharded solves at 50k × 5k on a SHARDS-position mesh (module
+    docstring), each held against its single-device twin on the card,
+    every field; per-shard K1 and K2 held against their plain versions at
+    a nonzero shard origin and timed beside the unsharded ones."""
+    from kube_batch_tpu_torch.ops import kernels
+    from kube_batch_tpu_torch.ops.assignment import (
+        allocate_solve, allocate_topk_solve, score_matrix, static_predicates,
+    )
+    from kube_batch_tpu_torch.ops.eviction import evict_solve
+    from kube_batch_tpu_torch.ops.scoring import ScoreWeights
+    from kube_batch_tpu_torch.parallel import shard_solve
+    from kube_batch_tpu_torch.parallel.mesh import (
+        collective_stats, place_snapshot, sharded_allocate_solve,
+        sharded_allocate_topk_solve, sharded_evict_solve,
+    )
+
+    k1n, k2n, _gate = KERNELS
+    t_phase = time.perf_counter()
+    mesh = _shard_mesh()
+    T, N = snap.task_req.shape[0], snap.node_idle.shape[0]
+    out = dict(devices=[str(d) for d in mesh.devices], devices_distinct=mesh.devices_distinct,
+               mesh=dict(mesh.shape))
+    launches = {}
+    ss = place_snapshot(snap, mesh)
+    # the full solve: K1 per shard each round
+    res, wall, n = _timed_solve(lambda: sharded_allocate_solve(ss, config))
+    rounds = int(res.rounds_run)
+    bad = _differs(res, full)
+    if bad:
+        fail(f"shard full: differs from the single-device solve in {bad}")
+    if n[k1n] != SHARDS * rounds:
+        fail(f"shard full: K1 launches {n[k1n]} != {SHARDS} shards x {rounds} rounds")
+    launches["full"] = n
+    _single, single_wall, _ = _timed_solve(lambda: allocate_solve(snap, config))
+    shard_solve.TIME_COLLECTIVES = True
+    try:
+        _timed_solve(lambda: sharded_allocate_solve(ss, config))
+    finally:
+        shard_solve.TIME_COLLECTIVES = False
+    moved = shard_solve.last_collectives["allocate"].summary()
+    stats = collective_stats(mesh, config, snap)
+    if (moved["per_round_bytes"], moved["per_solve_bytes"]) != (
+            stats["per_round_bytes"], stats["per_solve_bytes"]):
+        fail(f"shard full: moved {moved} against collective_stats {stats}")
+    out["full"] = dict(rounds=rounds, placed=int((res.assigned >= 0).sum()), wall_ms=wall,
+                       single_device_wall_ms=single_wall, launches=n,
+                       collectives=moved, equal="every field")
+    del res, _single
+    # the compacted solve: K2 per shard, merged once
+    rows = torch.nonzero(snap.task_pending).flatten().to(torch.int32)
+    pend_rows = torch.full((T,), -1, dtype=torch.int32, device=rows.device)
+    pend_rows[: rows.numel()] = rows
+    cfg_k = config._replace(topk=TOPK)
+    res, wall, n = _timed_solve(lambda: sharded_allocate_topk_solve(ss, pend_rows, cfg_k))
+    bad = _differs(res, topk)
+    if bad:
+        fail(f"shard compacted: differs from the single-device compacted solve in {bad}")
+    if n[k2n] != SHARDS:
+        fail(f"shard compacted: K2 launches {n[k2n]} != {SHARDS}")
+    _t, single_wall, _ = _timed_solve(lambda: allocate_topk_solve(snap, pend_rows, cfg_k))
+    moved = shard_solve.last_collectives["topk"].summary()
+    stats = collective_stats(mesh, cfg_k, snap, pend_bucket=T)
+    if stats["per_round_bytes"] != 0 or moved["per_round_bytes_total"] != 0 \
+            or moved["per_solve_bytes"] != stats["per_solve_bytes"]:
+        fail(f"shard compacted: moved {moved} against collective_stats {stats}")
+    launches["compacted"] = n
+    out["compacted"] = dict(wall_ms=wall, single_device_wall_ms=single_wall, launches=n,
+                            collectives=moved, topk_reentries=int(res.topk_reentries),
+                            equal="every field")
+    del res, _t, ss
+    # the (tasks=2, nodes=2) grid
+    mesh2 = _shard_mesh(task_shards=2)
+    ss2 = place_snapshot(snap, mesh2)
+    res, wall, n = _timed_solve(lambda: sharded_allocate_solve(ss2, config))
+    bad = _differs(res, full)
+    if bad:
+        fail(f"shard 2x2: differs from the single-device solve in {bad}")
+    if n[k1n] != SHARDS * int(res.rounds_run):
+        fail(f"shard 2x2: K1 launches {n[k1n]} for {int(res.rounds_run)} rounds")
+    launches["full_2x2"] = n
+    out["full_2x2"] = dict(mesh=dict(mesh2.shape), wall_ms=wall, launches=n,
+                           collectives=shard_solve.last_collectives["allocate"].summary(),
+                           equal="every field")
+    del res, ss2
+    # per-shard K1 and K2 at the second shard's origin, against their plain
+    # versions, timed beside the unsharded kernels
+    score = score_matrix(snap, ScoreWeights())
+    static_ok = static_predicates(snap)
+    s = N // SHARDS
+    k1s = k1_case(snap, score, static_ok, n0=s, cols=slice(s, 2 * s))
+    del score, static_ok
+    r1 = run_case(kernels.masked_best_node_raw, kernels.masked_best_node_raw_plain,
+                  k1s, reps=20, plain_reps=1)
+    b1 = k1_bound(k1s)
+    del k1s
+    k2s = k2_case(snap, T)
+    k2s = dict(k2s, score_static=k2s["score_static"][:, s:2 * s].contiguous(),
+               idle=k2s["idle"][s:2 * s].contiguous(),
+               releasing=k2s["releasing"][s:2 * s].contiguous(), n0=s)
+    r2 = run_case(kernels.masked_topk_blocks, kernels.masked_topk_blocks_plain,
+                  k2s, reps=10, plain_reps=1)
+    b2 = k2_bound(k2s)
+    del k2s
+    out["kernels_per_shard"] = {
+        "K1": dict(shape=[T, s], n0=s, **r1, bound_ms=b1[0], bound_by=b1[1],
+                   unsharded_ms=k1_ms, unsharded_shape=[T, N]),
+        "K2": dict(shape=[T, s], n0=s, **r2, bound_ms=b2[0], bound_by=b2[1],
+                   unsharded_ms=k2_ms, unsharded_shape=[T, N]),
+    }
+    # reclaim's and preempt's solves on the overcommit snapshot
+    oc, cfgs = _overcommit_snapshot()
+    ss_oc = place_snapshot(oc, mesh)
+    for mode, cfg in cfgs.items():
+        (one, one_rounds), one_wall, _n = _timed_solve(lambda: evict_solve(oc, cfg))
+        (res, r_rounds), wall, n = _timed_solve(lambda: sharded_evict_solve(ss_oc, cfg))
+        bad = _differs(res, one)
+        if bad or r_rounds != one_rounds:
+            fail(f"shard {mode}: differs from the single-device solve in {bad}, rounds "
+                 f"{r_rounds} / {one_rounds}")
+        if int((res.claim_node >= 0).sum()) == 0:
+            fail(f"shard {mode}: no claim")
+        out[mode] = dict(shape=[int(oc.task_req.shape[0]), int(oc.node_idle.shape[0])],
+                         claims=int((res.claim_node >= 0).sum()),
+                         evicted=int(res.evicted.sum()), rounds=r_rounds, wall_ms=wall,
+                         single_device_wall_ms=one_wall,
+                         collectives=shard_solve.last_collectives["evict"].summary(),
+                         equal="every field")
+    del oc, ss_oc
+    emit("shard", tolerance="bit-exact", seconds=time.perf_counter() - t_phase, **out)
+    return launches, out["kernels_per_shard"]
+
+
+def phase_shard_cycles(cycle):
+    """The headline drive's cycles 1–3 through ``Scheduler(mesh=...)``, and
+    with ``KB_SHARD_MAP=0`` (the ``"pjit"`` oracle): each cycle's digest
+    must equal the single-device drive's (``phase_cycle``); the mesh's
+    gate against the single-device gate; the two-process rehearsal."""
+    from kube_batch_tpu_torch.parallel.mesh import dispatch_enqueue_gate
+    from kube_batch_tpu_torch.testing.cycle_drive import drive
+    from kube_batch_tpu_torch.testing.dryrun import rehearse
+
+    t_phase = time.perf_counter()
+    mesh = _shard_mesh()
+    want = [c["digest"] for c in cycle["cycles"]]
+    legs = {}
+    for leg, env in (("shard_map", None), ("pjit", "0")):
+        old = os.environ.get("KB_SHARD_MAP")
+        if env is not None:
+            os.environ["KB_SHARD_MAP"] = env
+        try:
+            r = drive(N_TASKS, N_NODES, ARRIVALS, device="cuda", mesh=mesh)
+        finally:
+            if old is None:
+                os.environ.pop("KB_SHARD_MAP", None)
+            else:
+                os.environ["KB_SHARD_MAP"] = old
+        got = [c["digest"] for c in r["cycles"]]
+        if got != want:
+            fail(f"shard cycles {leg}: digests {got} != the single-device drive's {want}")
+        if any(c["solve_mode"] != "sharded" for c in r["cycles"] if c["mode"] != "idle"):
+            fail(f"shard cycles {leg}: a cycle did not solve sharded")
+        legs[leg] = [dict(cycle=c["cycle"], mode=c["mode"], solve_mode=c["solve_mode"],
+                          new_binds=c["new_binds"], wall_ms=c["wall_ms"],
+                          single_device_wall_ms=s["wall_ms"], launches=c["launches"],
+                          gate_rows=c["enqueue"]["gate_rows"], resident=c["resident"],
+                          digest=c["digest"])
+                     for c, s in zip(r["cycles"], cycle["cycles"])]
+    k1n, k2n, gaten = KERNELS
+    c1, c2, c3 = legs["shard_map"]
+    if c1["launches"][k1n] == 0 or c2["launches"][k2n] == 0 or c3["launches"][gaten] == 0:
+        fail(f"shard cycles: launches {[c['launches'] for c in legs['shard_map']]}")
+    # the gate on the mesh against the gate on the inputs' device
+    inp = gate_tensors(gate_case(), torch.device("cuda"))
+    args = (inp["min_res"], inp["cand"], inp["idle0"], inp["quanta"])
+    one = gate_kernel(**inp)[0]
+    got = dispatch_enqueue_gate(*args, n_nodes_padded=N_NODES, mesh=mesh,
+                                n_rows=inp["n_rows"])
+    if not same([got], [one]):
+        fail("shard gate: the mesh's gate differs from the single-device gate")
+    dist = rehearse(2, "cuda", 2)
+    emit("shard_cycles", equal="binds digests, every cycle, both legs", legs=legs,
+         gate=dict(equal="bit-exact", admitted=int(got.sum())), distributed=dist,
+         seconds=time.perf_counter() - t_phase)
+    return {name: {f"{leg}_cycle{c['cycle']}": c["launches"][name]
+                   for leg in legs for c in legs[leg]} for name in KERNELS}
 
 
 def phase_solve_card_vs_cpu(snap, config, card):
@@ -1241,13 +1497,17 @@ def run_phases(stub) -> int:
                                                     gpu_task_frac=0.3)[0]}
     full, full_launches = phase_solve_full(snaps, config)
     del snaps["gpu_gangs"]
-    topk_launches = phase_solve_topk(snap, config, full["homogeneous"])
+    topk_launches, topk_res = phase_solve_topk(snap, config, full["homogeneous"])
     phase_solve_card_vs_cpu(snap, config, full["homogeneous"])
+    shard_launches, shard_k = phase_shard(snap, config, full["homogeneous"], topk_res,
+                                 kern["K1"]["ms"], kern[f"K2_P{snap.task_req.shape[0]}"]["ms"])
+    del topk_res
     T = snap.task_req.shape[0]
     # the cycles reuse the caching allocator's blocks, as a long-running
     # scheduler process does
     del snap, snaps, full
     cycle = phase_cycle()
+    shard_cycle_launches = phase_shard_cycles(cycle)
     overcommit = phase_cycle_overcommit()
     steady, rerank_rungs = phase_cycle_steady()
     traced_launches = phase_trace_steady(steady)
@@ -1319,6 +1579,11 @@ def run_phases(stub) -> int:
              server_follower_launches=server["follower"]["k1_launches"],
              k8s_launches=k8s_launches["masked_best_node_raw"],
              sim_launches=sim_launches["masked_best_node_raw"],
+             shard_launches={"full": shard_launches["full"]["masked_best_node_raw"],
+                             "full_2x2": shard_launches["full_2x2"]["masked_best_node_raw"],
+                             **shard_cycle_launches["masked_best_node_raw"]},
+             shard_ms=shard_k["K1"]["ms"], shard_shape=shard_k["K1"]["shape"],
+             shard_bound_ms=shard_k["K1"]["bound_ms"],
              probe_rows_shape=whatif["k1_probe_rows"]["shape"],
              probe_rows_ms=whatif["k1_probe_rows"]["ms"],
              probe_rows_plain_ms=whatif["k1_probe_rows"]["plain_ms"],
@@ -1339,6 +1604,10 @@ def run_phases(stub) -> int:
              server_launches=server["launches"]["masked_topk_blocks"],
              k8s_launches=k8s_launches["masked_topk_blocks"],
              sim_launches=sim_launches["masked_topk_blocks"],
+             shard_launches={"compacted": shard_launches["compacted"]["masked_topk_blocks"],
+                             **shard_cycle_launches["masked_topk_blocks"]},
+             shard_ms=shard_k["K2"]["ms"], shard_shape=shard_k["K2"]["shape"],
+             shard_bound_ms=shard_k["K2"]["bound_ms"],
              warm_launches_per_steady_cycle=k2_per_cycle["defaults"],
              cold_launches_per_steady_cycle=k2_per_cycle["cold"],
              fresh_keys="plain ops (the releasing fit masked on the view, as the JAX package)",
@@ -1360,7 +1629,8 @@ def run_phases(stub) -> int:
              features_launches=features_launches["enqueue_gate"],
              server_launches=server["launches"]["enqueue_gate"],
              k8s_launches=k8s_launches["enqueue_gate"],
-             sim_launches=sim_launches["enqueue_gate"]),
+             sim_launches=sim_launches["enqueue_gate"],
+             shard_launches=shard_cycle_launches["enqueue_gate"]),
     ]
     print(json.dumps({"kernels": summary}))
     print(smi)

@@ -17,7 +17,7 @@ through the per-task Statement path with the sequential semantics
 column updates; in an isolated session it is per-job batched object
 updates (``bulk_transition``, ``bulk_add_tasks``, batched events).
 
-The dispatch is the single-device branch of the JAX package's default:
+The dispatch is the JAX package's default:
 the compacted solve when the pending rows fit the task capacity's one
 pending bucket, the full [T, N] solve otherwise.  The compacted solve runs
 warm-started by default (``KB_WARM``): its [P, W] candidate table is
@@ -46,7 +46,15 @@ with the warm plan's ``table_invalidate`` under it), ``audit_dispatch``,
 ``device_wait`` (the one readback, where the device time lands),
 ``fit_histogram_dispatch``, ``host_replay`` and ``fit_errors``.  The
 replay feeds the per-task latency, slow-replay and host-fallback series
-(``metrics/``).  Not ported: the sharded solve.
+(``metrics/``).
+
+The sharded solve (``parallel/``): when the session's mesh shards the
+node axis (``Session.mesh``, ``parallel/mesh.should_shard``), the swap
+places the snapshot on the mesh (``resident_snap(cols, snap, mesh)``) and
+the same dispatch runs the mesh's full, compacted or warm solve — K1 or
+K2 per shard — with ``shard_map`` first in ``engaged``, demoted by the
+guard to the ``"pjit"`` oracle; ``mode`` is then "sharded".  A 2-D mesh
+declines compaction, as the JAX package's dispatch does.
 """
 
 from __future__ import annotations
@@ -123,7 +131,7 @@ def plan_topk_bucket(snap: DeviceSnapshot, k: int):
     ``task_pending`` is read on the host (a device read for a snapshot on
     the card)."""
     capT = int(snap.task_req.shape[0])
-    capN = int(snap.node_idle.shape[0])
+    capN = int(snap.n_nodes if hasattr(snap, "n_nodes") else snap.node_idle.shape[0])
     if k <= 0 or k >= capN:
         return None, 0
     bucket = topk_bucket_for(capT)
@@ -168,7 +176,7 @@ def dispatch_topk(guard) -> int:
     return resolve_topk()
 
 
-def _warm_state(cols, device, config, guard, warm: bool, k: int):
+def _warm_state(cols, device, config, guard, warm: bool, k: int, impl=None):
     """The carried-table state for this dispatch, or None when the warm
     path must not run: an explicitly cold caller (backfill's pass solves a
     mid-cycle snapshot and must not consume allocate's deltas), no column
@@ -180,7 +188,7 @@ def _warm_state(cols, device, config, guard, warm: bool, k: int):
             or config.weights.extra_rows
             or (guard is not None and not guard.allow("warm"))):
         return None
-    return cols.warm_table_state(device)
+    return cols.warm_table_state(device, impl)
 
 
 def _warm_commit(wstate, call):
@@ -225,41 +233,78 @@ def _warm_plan(state, cols, pend_rows, k: int, config, tracer):
     return plan
 
 
+def _solves(snap, impl):
+    """The (full, compacted, warm) solves and their sentinel twins for
+    ``snap``: the single-device ones, or for a ``ShardedSnapshot`` the
+    mesh's (``parallel/mesh.py``) at ``impl``."""
+    from kube_batch_tpu_torch.ops import invariants as inv
+    from kube_batch_tpu_torch.ops.assignment import warm_allocate_solve
+    from kube_batch_tpu_torch.parallel import mesh as pm
+
+    if not isinstance(snap, pm.ShardedSnapshot):
+        return (allocate_solve, inv.allocate_sentinel_solve,
+                allocate_topk_solve, inv.allocate_topk_sentinel_solve,
+                warm_allocate_solve, inv.warm_allocate_sentinel_solve)
+
+    def bind(fn):
+        return lambda *a: fn(*a, impl=impl)
+
+    return (bind(pm.sharded_allocate_solve), bind(pm.sentinel_sharded_allocate_solve),
+            bind(pm.sharded_allocate_topk_solve),
+            bind(pm.sentinel_sharded_allocate_topk_solve),
+            bind(pm.sharded_warm_allocate_solve),
+            bind(pm.sentinel_sharded_warm_allocate_solve))
+
+
 def dispatch_allocate_solve(snap: DeviceSnapshot, config: AllocateConfig,
                             plan=None, cols=None, guard=None, wstate=None,
                             tracer=None):
     """``(result, mode, topk_info, ginfo)`` for one allocate pass over the
     device snapshot ``snap``, on the device its tensors lie on.  ``mode``
-    is "single"; ``topk_info`` is ``{"k", "bucket"}`` (plus ``"warm"``,
-    the plan's record, when the warm program ran) for the compacted solve,
-    None for the full solve.  ``plan`` is :func:`plan_topk_bucket`'s
-    answer when the caller has it; ``wstate`` the carried-table state
-    (:func:`_warm_state`, taken before the swap) that lets the compacted
-    solve run warm when its plan allows.
+    is "single", or "sharded" for a ``ShardedSnapshot`` (``snap`` placed
+    on a mesh: the sharded solves, ``"pjit"`` while the guard has
+    ``shard_map`` demoted); ``topk_info`` is ``{"k", "bucket"}`` (plus
+    ``"warm"``, the plan's record, when the warm program ran) for the
+    compacted solve, None for the full solve.  ``plan`` is
+    :func:`plan_topk_bucket`'s answer when the caller has it (a 2-D mesh
+    declines compaction, as the JAX package's dispatch does); ``wstate``
+    the carried-table state (:func:`_warm_state`, taken before the swap)
+    that lets the compacted solve run warm when its plan allows.
 
     ``guard`` (a :class:`GuardPlane`) makes the dispatch guarded: the
     sentinel variants run and ``ginfo["sentinel"]`` holds their (verdict,
     hist, checksum) tensors for the caller's readback, which must feed
     them to the guard before acting on the result.  ``ginfo`` also holds
-    the engaged fast paths, the bucket rows, the snapshot and the
-    effective config (what a trip bundle replays).  ``tracer`` attributes
-    the warm plan as a ``table_invalidate`` child of the caller's span."""
+    the engaged fast paths, the bucket rows, the implementation, the
+    snapshot and the effective config (what a trip bundle replays).
+    ``tracer`` attributes the warm plan as a ``table_invalidate`` child of
+    the caller's span."""
+    from kube_batch_tpu_torch.parallel import mesh as pm
+
     sentinel_on = guard is not None and guard.enabled
-    pend_rows, k = plan if plan is not None else plan_topk_bucket(snap, dispatch_topk(guard))
+    sharded = isinstance(snap, pm.ShardedSnapshot)
+    impl = None
+    if sharded and guard is not None and not guard.allow("shard_map"):
+        impl = "pjit"  # shard_map demoted: the oracle
+    if plan is None:
+        plan = plan_topk_bucket(snap, dispatch_topk(guard))
+        if sharded and snap.mesh.task_shards != 1:
+            plan = (None, 0)
+    pend_rows, k = plan
+    mode = "sharded" if sharded else "single"
+    base = ["shard_map"] if sharded and pm._impl(impl) == "shard_map" else []
+    full, full_s, topk, topk_s, warm, warm_s = _solves(snap, impl)
 
     def ginfo(engaged, sentinel, cfg):
-        return {"engaged": engaged, "sentinel": sentinel, "pend_rows": pend_rows,
-                "dev": snap, "config": cfg}
+        return {"engaged": base + engaged, "sentinel": sentinel, "pend_rows": pend_rows,
+                "impl": impl, "dev": snap, "config": cfg}
 
-    dev = snap.task_req.device
+    dev = snap.mesh.first if sharded else snap.task_req.device
     if pend_rows is not None:
         info = {"k": k, "bucket": int(pend_rows.shape[0])}
         cfg = config._replace(topk=k)
         wplan = _warm_plan(wstate, cols, pend_rows, k, config, tracer)
         if wplan is not None:
-            from kube_batch_tpu_torch.ops.assignment import warm_allocate_solve
-            from kube_batch_tpu_torch.ops.invariants import warm_allocate_sentinel_solve
-
             info["warm"] = dict(wstate.last)
             # the plan's rungs: the merge prefix M, the changed-node block C
             # and the re-rank sub-bucket (K2's rows on this path)
@@ -271,29 +316,72 @@ def dispatch_allocate_solve(snap: DeviceSnapshot, config: AllocateConfig,
                                         wplan["rerank_rows"], wplan["rerank_slots"])
             if sentinel_on:
                 res, v, h, e, _t, _er = _warm_commit(
-                    wstate, lambda: warm_allocate_sentinel_solve(
-                        snap, rows, wplan["table"], ptuple, cfg_w, warm_k_min(k)))
+                    wstate, lambda: warm_s(snap, rows, wplan["table"], ptuple, cfg_w,
+                                           warm_k_min(k)))
                 # the effective config (topk = W): a bundle replays the
                 # cold compacted program at the condemned width
-                return res, "single", info, ginfo(["topk", "warm"], (v, h, e), cfg_w)
+                return res, mode, info, ginfo(["topk", "warm"], (v, h, e), cfg_w)
             res, _t, _er = _warm_commit(
-                wstate, lambda: warm_allocate_solve(
-                    snap, rows, wplan["table"], ptuple, cfg_w, warm_k_min(k)))
-            return res, "single", info, ginfo(["topk", "warm"], None, cfg_w)
+                wstate, lambda: warm(snap, rows, wplan["table"], ptuple, cfg_w,
+                                     warm_k_min(k)))
+            return res, mode, info, ginfo(["topk", "warm"], None, cfg_w)
         rows = torch.from_numpy(pend_rows).to(dev)
         if sentinel_on:
-            from kube_batch_tpu_torch.ops.invariants import allocate_topk_sentinel_solve
-
-            res, v, h, e = allocate_topk_sentinel_solve(snap, rows, cfg)
-            return res, "single", info, ginfo(["topk"], (v, h, e), cfg)
-        return (allocate_topk_solve(snap, rows, cfg), "single", info,
-                ginfo(["topk"], None, cfg))
+            res, v, h, e = topk_s(snap, rows, cfg)
+            return res, mode, info, ginfo(["topk"], (v, h, e), cfg)
+        return topk(snap, rows, cfg), mode, info, ginfo(["topk"], None, cfg)
     if sentinel_on:
-        from kube_batch_tpu_torch.ops.invariants import allocate_sentinel_solve
+        res, v, h, e = full_s(snap, config)
+        return res, mode, None, ginfo([], (v, h, e), config)
+    return full(snap, config), mode, None, ginfo([], None, config)
 
-        res, v, h, e = allocate_sentinel_solve(snap, config)
-        return res, "single", None, ginfo([], (v, h, e), config)
-    return allocate_solve(snap, config), "single", None, ginfo([], None, config)
+
+def dispatch_allocate_oracle(dev, config: AllocateConfig):
+    """The shadow-oracle dispatch of an engaged allocate: the full program
+    (no compaction, no carry) on the same tensors; the ``"pjit"`` oracle
+    (the single-device program over the gathered snapshot) when the
+    committed solve ran sharded."""
+    from kube_batch_tpu_torch.parallel import mesh as pm
+
+    oracle_cfg = config._replace(topk=0)
+    if isinstance(dev, pm.ShardedSnapshot):
+        return pm.sharded_allocate_solve(dev, oracle_cfg, impl="pjit")
+    return allocate_solve(dev, oracle_cfg)
+
+
+def solve_target(ssn, n_nodes_padded: int):
+    """Where a session's device programs run for a node axis of
+    ``n_nodes_padded``: the session's mesh when it shards
+    (``parallel/mesh.should_shard``), else its device."""
+    from kube_batch_tpu_torch.parallel.mesh import should_shard
+
+    mesh = getattr(ssn, "mesh", None)
+    return mesh if should_shard(n_nodes_padded, mesh) else ssn.device
+
+
+def _dispatch_impl(guard) -> str:
+    """The sharded implementation the dispatch will run: ``"pjit"`` while
+    the guard has ``shard_map`` demoted, else ``KB_SHARD_MAP``'s."""
+    from kube_batch_tpu_torch.parallel.mesh import _impl
+
+    return _impl(None if guard is None or guard.allow("shard_map") else "pjit")
+
+
+def dispatch_failure_histogram(dev, pend_rows):
+    """The fit-error histogram on the tensors the solve read: on the [P]
+    bucket when the compacted solve planned one, else [T, N]; on the mesh
+    for a ``ShardedSnapshot`` (a 2-D mesh never plans a bucket)."""
+    from kube_batch_tpu_torch.parallel import mesh as pm
+
+    if isinstance(dev, pm.ShardedSnapshot):
+        if pend_rows is not None:
+            rows = torch.from_numpy(pend_rows).to(dev.mesh.first)
+            return pm.sharded_failure_histogram_bucket(dev, rows)
+        return pm.sharded_failure_histogram(dev)
+    if pend_rows is not None:
+        rows = torch.from_numpy(pend_rows).to(dev.task_req.device)
+        return failure_histogram_bucket_solve(dev, rows)
+    return failure_histogram_solve(dev)
 
 
 def republish_query_lease(ssn, snap=None, meta=None, build=None) -> None:
@@ -416,6 +504,8 @@ class AllocateAction(Action):
         self.last_phase_ms: Dict[str, float] = {}
         # bidding rounds the last solve ran
         self.last_solve_rounds = 0
+        # "single" | "sharded": which solve the last execute dispatched
+        self.last_solve_mode = "single"
         # {"k", "bucket", "exhausted", "reentries"} when the compacted
         # program ran, None for the full program
         self.last_topk = None
@@ -473,25 +563,36 @@ class AllocateAction(Action):
         # stamps hold the upload and the launches; the device time lands
         # in device_wait, whose readback waits for it
         with tracer.device_span("solve_dispatch", cols=cols) as sp_solve:
-            # the bucket plan from the host's own pending mask: no device read
+            # the session's mesh when the node axis shards, else its device
+            target = solve_target(ssn, snap.node_alloc.shape[0])
+            sharded = target is not ssn.device
+            # the bucket plan from the host's own pending mask: no device
+            # read; a 2-D mesh declines compaction
             plan = plan_topk_bucket(snap, dispatch_topk(gp))
+            if sharded and target.task_shards != 1:
+                plan = (None, 0)
             # the carried-table state is taken before the swap, so a fresh
             # one absorbs this swap's delta record
-            wstate = (_warm_state(cols, ssn.device, config, gp, True, plan[1])
+            wstate = (_warm_state(cols, target, config, gp, True, plan[1],
+                                  impl=_dispatch_impl(gp) if sharded else None)
                       if plan[0] is not None else None)
-            dev = resident_snap(cols, snap, ssn.device)
+            dev = resident_snap(cols, snap, target)
             t_up = telemetry.perf_counter()
             result, mode, topk_info, ginfo = dispatch_allocate_solve(
                 dev, config, plan=plan, cols=cols, guard=gp, wstate=wstate,
                 tracer=tracer)
+        self.last_solve_mode = mode
         sp_solve.set(mode=mode, engaged=list(ginfo["engaged"]))
+        if sharded:
+            tracer.annotate_collectives(sp_solve, ginfo["config"], snap, target,
+                                        pend_rows=ginfo.get("pend_rows"))
         # the shadow-oracle audit: every KB_AUDIT_EVERY-th engaged dispatch
         # runs the full solve (no compaction, no carry) on the same tensors
         # now, before any swap, and is compared after the host replay
         audit_dev = None
         if ginfo["engaged"] and gp.audit_due("allocate"):
             with tracer.device_span("audit_dispatch"):
-                audit_dev = allocate_solve(dev, config._replace(topk=0))
+                audit_dev = dispatch_allocate_oracle(dev, config)
         # the lease shares this dispatch's swap (memoized on the same snap)
         republish_query_lease(ssn, snap, meta)
         sentinel = ginfo["sentinel"]
@@ -507,7 +608,7 @@ class AllocateAction(Action):
         self.last_warm = (topk_info or {}).get("warm")
         if sentinel is not None and not consume_assignment_sentinel(
                 gp, "allocate", ssn, snap, meta, ginfo, verdict, vhist, echeck,
-                assigned, extra_report={"mode": "single"}):
+                assigned, extra_report={"mode": mode}):
             # the solve is condemned: fail closed — no replay, no binds, no
             # fit errors (the guard demoted, healed and dumped already)
             self.last_phase_ms.update(
@@ -528,11 +629,7 @@ class AllocateAction(Action):
             self.last_fit_histogram = True
             pend_rows = plan[0]
             with tracer.device_span("fit_histogram_dispatch"):
-                if pend_rows is not None:
-                    rows = torch.from_numpy(pend_rows).to(dev.task_req.device)
-                    fail_hist_dev = failure_histogram_bucket_solve(dev, rows)
-                else:
-                    fail_hist_dev = failure_histogram_solve(dev)
+                fail_hist_dev = dispatch_failure_histogram(dev, pend_rows)
         t_fit1 = telemetry.perf_counter()
         with tracer.span("host_replay"):
             self._replay(ssn, snap, meta, assigned, pipelined, task_job)
@@ -557,11 +654,11 @@ class AllocateAction(Action):
             metrics.observe_task_latencies((t4 - t0) * 1e6 / self._n_applied,
                                            self._n_applied)
         if audit_dev is not None:
-            self._compare_audit(ssn, gp, ginfo, audit_dev, assigned, pipelined, T)
+            self._compare_audit(ssn, gp, ginfo, audit_dev, assigned, pipelined, T, mode)
 
     # ------------------------------------------------------------------
     def _compare_audit(self, ssn, gp, ginfo, audit_dev, assigned, pipelined,
-                       T: int) -> None:
+                       T: int, mode: str = "single") -> None:
         """Compare the committed fast-path result with the shadow oracle
         (read back after the host replay)."""
         Ta = audit_dev.assigned.shape[0]
@@ -570,7 +667,7 @@ class AllocateAction(Action):
         mism = int(np.sum(a[:T] != assigned)
                    + np.sum(a[Ta:Ta + T].astype(bool) != pipelined))
         report = {"audit_mismatches": mism, "engaged": ginfo["engaged"],
-                  "mode": "single"}
+                  "mode": mode}
         gp.note_audit(
             "allocate", ginfo["engaged"], mism == 0,
             detail=f"fast-vs-oracle mismatch at {mism} task rows",

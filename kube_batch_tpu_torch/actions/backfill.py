@@ -31,6 +31,7 @@ from kube_batch_tpu_torch.actions.allocate import (
     plan_topk_bucket,
     republish_query_lease,
     session_allocate_config,
+    solve_target,
 )
 from kube_batch_tpu_torch.api.columns import resident_snap
 from kube_batch_tpu_torch.api.job_info import FitError, FitErrors
@@ -117,8 +118,11 @@ class BackfillAction(Action):
         gp = guard_of(ssn.cache)
         tracer = tracer_of(ssn.cache)
         with tracer.device_span("solve_dispatch", cols=cols, action="backfill"):
+            target = solve_target(ssn, snap.node_alloc.shape[0])
             plan = plan_topk_bucket(snap, dispatch_topk(gp))
-            dev = resident_snap(cols, snap, ssn.device)
+            if target is not ssn.device and target.task_shards != 1:
+                plan = (None, 0)  # a 2-D mesh declines compaction
+            dev = resident_snap(cols, snap, target)
             # cold (no carried table): this mid-cycle snapshot must not
             # consume allocate's deltas
             result, _mode, _topk, ginfo = dispatch_allocate_solve(

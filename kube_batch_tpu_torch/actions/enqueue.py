@@ -24,8 +24,10 @@ The guard checks the gate's output (admitted rows were candidates, the
 budgets finite) with its verdict in the same readback, fails closed on a
 violation, and every ``KB_AUDIT_EVERY``-th gate dispatch compares the
 admissions with the reference walk's.  The gate's upload, launch and
-readback run in a ``gate_dispatch`` span (``obs/trace.py``).  Not ported:
-the mesh dispatch of the gate.
+readback run in a ``gate_dispatch`` span (``obs/trace.py``).  When the
+cycle's solves shard over the session's mesh the gate runs on the mesh's
+first device (``parallel/mesh.dispatch_enqueue_gate``) and its invariant
+is checked on the host from the gate's inputs, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -43,6 +45,11 @@ from kube_batch_tpu_torch.guard import guard_of, make_heal
 from kube_batch_tpu_torch.ops.admission import enqueue_gate
 from kube_batch_tpu_torch.obs.trace import tracer_of
 from kube_batch_tpu_torch.ops.invariants import enqueue_gate_sentinel_solve
+from kube_batch_tpu_torch.parallel.mesh import (
+    dispatch_enqueue_gate,
+    shard_map_enabled,
+    should_shard,
+)
 from kube_batch_tpu_torch.utils.priority_queue import PriorityQueue
 
 OVERCOMMIT_FACTOR = 1.2
@@ -59,6 +66,8 @@ class EnqueueAction(Action):
         self.last_path = "walk"
         # candidates the last columnar gate walked (0: no gate ran)
         self.last_gate_rows = 0
+        # whether the last gate rode the mesh
+        self.last_gate_mesh = False
 
     def execute(self, ssn) -> None:
         self.last_gate_rows = 0
@@ -205,11 +214,29 @@ class EnqueueAction(Action):
         gp = guard_of(ssn.cache)
         self.last_gate_rows = k
         bad = 0
+        # when the cycle's solves shard, the scan rides the mesh: one launch
+        # on its first device (every rank's, under distributed), as the
+        # JAX package's replicated shard_map scan
+        use_mesh = should_shard(cols.nodes.cap, ssn.mesh) and shard_map_enabled()
+        self.last_gate_mesh = use_mesh
         with tracer_of(ssn.cache).device_span("gate_dispatch", cols=cols) as sp_gate:
+            idle_v = idle.vec.astype(np.float32)
+            quanta_v = spec.quanta.astype(np.float32)
             inputs = (torch.from_numpy(minr).to(dev), torch.from_numpy(candv).to(dev),
-                      torch.from_numpy(idle.vec.astype(np.float32)).to(dev),
-                      torch.from_numpy(spec.quanta.astype(np.float32)).to(dev))
-            if gp.enabled:
+                      torch.from_numpy(idle_v).to(dev), torch.from_numpy(quanta_v).to(dev))
+            if use_mesh:
+                admitted = dispatch_enqueue_gate(
+                    *inputs, n_nodes_padded=cols.nodes.cap, mesh=ssn.mesh,
+                    n_rows=k).cpu().numpy()[:k]
+                if gp.enabled:
+                    # the mesh gate has no fused sentinel (the JAX
+                    # package's): the invariant is checked on the host from
+                    # the dispatch's own inputs
+                    bad = int(np.sum(admitted & ~candv[:k]))
+                    if not (np.isfinite(minr).all() and np.isfinite(idle_v).all()
+                            and np.isfinite(quanta_v).all()):
+                        bad += 1
+            elif gp.enabled:
                 # the gate sentinel: admitted ⊆ candidates and finite
                 # budgets, checked on the gate's output, its verdict riding
                 # the one readback

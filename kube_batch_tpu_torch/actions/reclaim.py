@@ -17,8 +17,11 @@ sentinel follows the solve, and the three result fields and its verdict
 come back in one transfer (a condemned solve evicts nothing).  The
 solve's swap re-arms the what-if lease.  The dispatch and the readback
 run in ``solve_dispatch`` and ``device_wait`` spans (``action=`` reclaim
-or preempt, ``obs/trace.py``).  Not ported: the mesh dispatch and its
-shadow audit.
+or preempt, ``obs/trace.py``).  When the session's mesh shards the node
+axis (``parallel/mesh.py``) the solve runs sharded: ``shard_map`` is then
+the engaged fast path — demoted to the ``"pjit"`` oracle by a guard trip —
+and every ``KB_AUDIT_EVERY``-th engaged solve is compared with the oracle
+after the decode, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,15 +33,20 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from kube_batch_tpu_torch.actions.allocate import build_session_snapshot, republish_query_lease
+from kube_batch_tpu_torch.actions.allocate import (
+    build_session_snapshot,
+    republish_query_lease,
+    solve_target,
+)
 from kube_batch_tpu_torch.api.columns import resident_snap
 from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.framework.interface import Action
 from kube_batch_tpu_torch.framework.session import FitFailure
-from kube_batch_tpu_torch.guard import consume_sentinel, guard_of
+from kube_batch_tpu_torch.guard import consume_sentinel, guard_of, make_heal, sentinel_bundle_thunk
 from kube_batch_tpu_torch.obs.trace import tracer_of
 from kube_batch_tpu_torch.ops.eviction import EvictConfig, evict_solve
 from kube_batch_tpu_torch.ops.invariants import evict_sentinel_solve
+from kube_batch_tpu_torch.parallel import mesh as pm
 from kube_batch_tpu_torch.utils import telemetry
 
 logger = logging.getLogger("kube_batch_tpu_torch")
@@ -115,16 +123,34 @@ def solve_claims(ssn, mode: str):
     tracer = tracer_of(ssn.cache)
     config = evict_config(ssn, mode)
     sentinel = None
-    # a device span: the resident swap's scatters land on it; nothing is
-    # engaged on one device (the JAX package's shard_map is the only
-    # demotable path of this solve)
+    audit_dev = None
+    engaged: List[str] = []
+    # a device span: the resident swap's scatters land on it; shard_map is
+    # the only demotable path of this solve, so nothing is engaged on one
+    # device
     with tracer.device_span("solve_dispatch", cols=cols, action=mode) as sp:
-        dev = resident_snap(cols, snap, ssn.device)
-        if gp.enabled:
+        target = solve_target(ssn, snap.node_alloc.shape[0])
+        dev = resident_snap(cols, snap, target)
+        if target is not ssn.device:
+            # demotion-aware: a tripped shard_map runs the pjit oracle until
+            # its half-open probe re-promotes it
+            impl = None if gp.allow("shard_map") else "pjit"
+            if pm._impl(impl) == "shard_map":
+                engaged = ["shard_map"]
+            if gp.enabled:
+                result, rounds, *sentinel = pm.sentinel_sharded_evict_solve(
+                    dev, config, impl=impl)
+            else:
+                result, rounds = pm.sharded_evict_solve(dev, config, impl=impl)
+            if engaged and gp.audit_due(mode):
+                # the shadow oracle on the same tensors, read back after
+                # the decode below
+                audit_dev = pm.sharded_evict_solve(dev, config, impl="pjit")[0]
+        elif gp.enabled:
             result, rounds, *sentinel = evict_sentinel_solve(dev, config)
         else:
             result, rounds = evict_solve(dev, config)
-    sp.set(engaged=[])
+    sp.set(engaged=list(engaged))
     # this swap retired the what-if lease: re-arm it off the same
     # (memoized) resident snapshot, so serving is not dark until the next
     # cycle's allocate
@@ -147,12 +173,11 @@ def solve_claims(ssn, mode: str):
         tail = packed[3 * Tc:]
         # host cross-checks: a claim must target a row the host believes
         # pending, a victim one it believes Running (the device copies are
-        # what a corruption flips); no audit: nothing is engaged on one
-        # device
+        # what a corruption flips)
         host_bad = int(np.sum((claim_node >= 0) & ~snap.task_pending[:T])
                        + np.sum(evicted & (snap.task_status[:T] != int(TaskStatus.RUNNING))))
         if not consume_sentinel(gp, mode, ssn, snap, dev, config, int(tail[0]),
-                                tail[1:-1], int(tail[-1]), [], host_bad=host_bad):
+                                tail[1:-1], int(tail[-1]), engaged, host_bad=host_bad):
             # condemned: no evictions from it
             return [], stats
 
@@ -169,6 +194,22 @@ def solve_claims(ssn, mode: str):
     claims = [(ref(ti), meta.node_names[int(claim_node[ti])],
                victims_by_claim.get(ti, []))
               for ti in np.flatnonzero(claim_node >= 0).tolist()]
+    if audit_dev is not None:
+        a = torch.cat([audit_dev.claim_node, audit_dev.evicted.to(torch.int32),
+                       audit_dev.victim_claimant]).cpu().numpy()
+        mism = int(np.sum(a[:T] != claim_node)
+                   + np.sum(a[Tc:Tc + T].astype(bool) != evicted)
+                   + np.sum(a[2 * Tc:2 * Tc + T] != victim_claimant))
+        gp.note_audit(
+            mode, engaged, mism == 0,
+            detail=f"{mode} shard_map-vs-pjit mismatch at {mism} rows",
+            dump=sentinel_bundle_thunk(gp, mode, dev, config,
+                                       {"audit_mismatches": mism, "engaged": engaged}),
+            heal=make_heal(ssn))
+        if mism:
+            # the fast path is demoted; the claims decoded above came from
+            # the mismatched program, so this cycle evicts nothing
+            return [], stats
     return claims, stats
 
 

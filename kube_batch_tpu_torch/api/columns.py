@@ -51,8 +51,10 @@ occupy: the what-if probe's tie-hash rows) and ``resident_swap_guard``
 query plane's ``LeaseBroker.swap_guard``, which waits out in-flight
 probes and retires the lease whose tensors the swap rewrites).
 ``revalidate_resident`` is the leader failover's keep-or-drop check on
-the surviving residency.  Not ported: the JAX package's mesh-sharded
-residency.
+the surviving residency.  On the sharded path the residency is keyed by
+the mesh (``resident_snap(cols, snap, mesh)``): node columns per node
+shard, the rest per distinct device
+(``api/resident.ShardedPerCycleDeviceCache``).
 """
 
 from __future__ import annotations
@@ -103,16 +105,30 @@ CODE_PHASE: List[PodGroupPhase] = list(PodGroupPhase)
 N_PHASES = len(CODE_PHASE)
 
 
+def _path_name(key) -> str:
+    """A residency key's path name: "sharded" for a mesh, else "single"."""
+    from kube_batch_tpu_torch.parallel.mesh import Mesh
+
+    return "sharded" if isinstance(key, Mesh) else "single"
+
+
 def resident_snap(cols, snap, device):
     """The device snapshot a device program reads: resident tensors when a
     ColumnStore backs the session and ``KB_DEVICE_CACHE`` is on (the
     ingest-static features by version, the per-cycle columns by scatter),
     else (``KB_DEVICE_CACHE=0``) a full upload of ``snap``.  ``snap`` stays the host's copy; only
     the returned tensors feed the solve.  A repeat call with the same
-    ``snap`` object returns the same tensors."""
+    ``snap`` object returns the same tensors.
+
+    ``device`` may be a mesh (``parallel/mesh.Mesh``): the result is then
+    a ``ShardedSnapshot`` whose residency is keyed by the mesh, as the JAX
+    package keys it (``_sharded_resident_snap``)."""
     from kube_batch_tpu_torch.api.convert import host_field, snapshot_from_numpy
     from kube_batch_tpu_torch.api.resident import StagedUpload
+    from kube_batch_tpu_torch.parallel.mesh import Mesh
 
+    if isinstance(device, Mesh):
+        return _sharded_resident_snap(cols, snap, device)
     dev = resolve_device(device)
     if cols is None:
         return snapshot_from_numpy(snap, dev)
@@ -153,6 +169,70 @@ def resident_snap(cols, snap, device):
     st = cols._warm_tables.get(dev)
     if st is not None:
         st.absorb(cache.delta_record, cache.version)
+    if cols.on_swap is not None:
+        cols.on_swap(snap, out)
+    return out
+
+
+def _sharded_resident_snap(cols, snap, mesh):
+    """:func:`resident_snap` on a mesh: the ingest-static features per
+    placement by version, the per-cycle columns through the mesh's
+    ``ShardedPerCycleDeviceCache``, the rest uploaded per placement; one
+    staged transfer per distinct device.  Returns a ``ShardedSnapshot``."""
+    from kube_batch_tpu_torch.api.convert import host_field
+    from kube_batch_tpu_torch.api.resident import StagedUpload
+    from kube_batch_tpu_torch.parallel.mesh import (
+        NODE1_FIELDS, NODE_FIELDS, ShardedSnapshot, node_slice, place_snapshot,
+    )
+
+    if cols is None:
+        return place_snapshot(snap, mesh)
+    if not switch_on("KB_DEVICE_CACHE"):
+        if cols._per_cycle_dev or cols._warm_tables:
+            cols.drop_resident()
+        return place_snapshot(snap, mesh)
+    cache = cols.per_cycle_cache(mesh)
+    out = cache.memo(snap)
+    if out is not None:
+        return out
+    ns = mesh.node_shards
+    guard = cols.resident_swap_guard
+    with guard() if guard is not None else contextlib.nullcontext():
+        uploads = {d: StagedUpload(d) for d in cache.devices}
+        made = cols.resident_features_sharded(uploads, mesh)
+        made.update(cache.stage(snap, uploads))
+        for name in DeviceSnapshot._fields:
+            if name in made:
+                continue
+            host = host_field(name, getattr(snap, name))
+            if name in NODE1_FIELDS:
+                handles = {(d, j): (d, uploads[d].add(node_slice(name, host, j, ns)))
+                           for d, j in cache.node_places}
+            else:
+                handles = {d: (d, uploads[d].add(host)) for d in cache.devices}
+            made[name] = lambda hs=handles: {p: uploads[d].tensor(h).clone()
+                                             for p, (d, h) in hs.items()}
+        try:
+            for up in uploads.values():
+                up.run()
+            placed = {name: made[name]() for name in DeviceSnapshot._fields}
+        except BaseException:
+            cols.drop_resident()
+            raise
+        shards = []
+        for (i, j) in mesh.positions():
+            if not mesh.is_local(i, j):
+                shards.append(None)
+                continue
+            d = mesh.device(i, j)
+            shards.append(DeviceSnapshot(**{
+                name: placed[name][(d, j) if name in NODE_FIELDS or name in NODE1_FIELDS else d]
+                for name in DeviceSnapshot._fields}))
+        out = ShardedSnapshot(mesh, shards)
+        cache.remember(snap, out)
+    for key, st in cols._warm_tables.items():
+        if isinstance(key, tuple) and key[0] == mesh:
+            st.absorb(cache.delta_record, cache.version)
     if cols.on_swap is not None:
         cols.on_swap(snap, out)
     return out
@@ -971,19 +1051,63 @@ class ColumnStore:
                 made[field] = lambda t=tensor: t
         return made
 
-    def per_cycle_cache(self, device: torch.device):
-        """The per-cycle resident cache for ``device``, made on first use.
-        A device change drops the other device's cache, so the fresh one
-        uploads in full once and scatters resume."""
-        from kube_batch_tpu_torch.api.resident import PerCycleDeviceCache
+    def resident_features_sharded(self, uploads, mesh) -> Dict:
+        """:meth:`resident_features` on ``mesh``'s placements: ``uploads``
+        holds one staged upload per distinct device, and each field yields
+        its placement → tensor dict (node columns per node shard)."""
+        from kube_batch_tpu_torch.api.convert import host_field
+        from kube_batch_tpu_torch.parallel.mesh import node_slice
 
-        cache = self._per_cycle_dev.get(device)
+        cache = self._dev_cache.setdefault(mesh, {})
+        versions = {"task": self.task_feature_version,
+                    "node": self.node_feature_version}
+        node_places = self._per_cycle_dev[mesh].node_places
+        devices = self._per_cycle_dev[mesh].devices
+        made = {}
+        for field, (col, axis) in self.FEATURE_FIELDS.items():
+            version = versions[axis]
+            host = host_field(field, getattr(self, col))
+            ver, shape, placed = cache.get(field, (-1, None, None))
+            if ver == version and shape == host.shape:
+                made[field] = lambda placed=placed: placed
+                continue
+            places = node_places if axis == "node" else devices
+            handles = {}
+            for p in places:
+                d = p[0] if isinstance(p, tuple) else p
+                part = node_slice(field, host, p[1], mesh.node_shards) if axis == "node" else host
+                handles[p] = (d, uploads[d].add(part))
+
+            def done(field=field, version=version, shape=host.shape, handles=handles):
+                placed = {p: uploads[d].tensor(h).clone() for p, (d, h) in handles.items()}
+                cache[field] = (version, shape, placed)
+                return placed
+
+            made[field] = done
+        return made
+
+    def per_cycle_cache(self, key):
+        """The per-cycle resident cache for ``key`` (a device, or a mesh:
+        ``ShardedPerCycleDeviceCache``), made on first use.  Only the path
+        that just ran keeps a cache: a device or mesh change drops the
+        other's residency and carried tables, so the fresh one uploads in
+        full once and scatters resume."""
+        from kube_batch_tpu_torch.api.resident import (
+            PerCycleDeviceCache, ShardedPerCycleDeviceCache,
+        )
+        from kube_batch_tpu_torch.parallel.mesh import Mesh
+
+        cache = self._per_cycle_dev.get(key)
         if cache is None:
-            for stale in [k for k in self._per_cycle_dev if k != device]:
+            for stale in [k for k in self._per_cycle_dev if k != key]:
                 del self._per_cycle_dev[stale]
                 self._dev_cache.pop(stale, None)
-                self._warm_tables.pop(stale, None)
-            cache = self._per_cycle_dev[device] = PerCycleDeviceCache(device)
+                for wkey in [w for w in self._warm_tables
+                             if w == stale or (isinstance(w, tuple) and w[0] == stale)]:
+                    del self._warm_tables[wkey]
+            cache = self._per_cycle_dev[key] = (
+                ShardedPerCycleDeviceCache(key) if isinstance(key, Mesh)
+                else PerCycleDeviceCache(key))
         return cache
 
     def per_cycle_resident(self, snap, upload) -> Dict:
@@ -993,14 +1117,20 @@ class ColumnStore:
         return self.per_cycle_cache(upload.device).stage(snap, upload)
 
     def resident_counters(self) -> Dict[str, Dict[str, int]]:
-        """The per-cycle cache's counters under its path name ("single":
-        the port has no sharded residency)."""
-        return {"single": cache.counters() for cache in self._per_cycle_dev.values()}
+        """The per-cycle cache's counters under its path name: "single"
+        for a device's cache, "sharded" for a mesh's."""
+        return {_path_name(key): cache.counters()
+                for key, cache in self._per_cycle_dev.items()}
 
     def export_delta_record(self, device=None):
         """The last swap's delta record and the cache's swap version, or
-        ``(None, 0)`` when ``device`` has no resident cache."""
-        cache = self._per_cycle_dev.get(torch.device("cuda" if device is None else device))
+        ``(None, 0)`` when ``device`` (a device or a mesh) has no resident
+        cache."""
+        from kube_batch_tpu_torch.parallel.mesh import Mesh
+
+        key = device if isinstance(device, Mesh) else torch.device(
+            "cuda" if device is None else device)
+        cache = self._per_cycle_dev.get(key)
         if cache is None:
             return None, 0
         return dict(cache.delta_record), int(cache.version)
@@ -1026,7 +1156,7 @@ class ColumnStore:
         (``replicate/follower.FollowerApplier.revalidate_resident``)
         applies the same keep-iff-synced contract."""
         errors = [str(e) for e in self.check_consistency(cache)]
-        tokens = {"single": int(rc.version) for rc in self._per_cycle_dev.values()}
+        tokens = {_path_name(key): int(rc.version) for key, rc in self._per_cycle_dev.items()}
         ok = not errors and all(v > 0 for v in tokens.values())
         if not ok and self._per_cycle_dev:
             self.drop_resident()
@@ -1037,11 +1167,20 @@ class ColumnStore:
         }
 
     # ---- warm-started allocate: carried candidate tables (KB_WARM) ----
-    def warm_table_state(self, device):
+    def warm_table_state(self, device, impl=None):
         """The carried candidate-table state for ``device``, made on first
-        use; it resets itself when its shape or config key changes."""
+        use; it resets itself when its shape or config key changes.  On a
+        mesh the state is keyed by (mesh, impl), the JAX package's dispatch
+        slot, and its table lies on the mesh's first device."""
         from kube_batch_tpu_torch.api.resident import WarmTableState
+        from kube_batch_tpu_torch.parallel.mesh import Mesh
 
+        if isinstance(device, Mesh):
+            key = (device, impl)
+            st = self._warm_tables.get(key)
+            if st is None:
+                st = self._warm_tables[key] = WarmTableState(device.first, key=device)
+            return st
         device = resolve_device(device)
         st = self._warm_tables.get(device)
         if st is None:
@@ -1054,9 +1193,11 @@ class ColumnStore:
         self._warm_tables.clear()
 
     def warm_counters(self) -> Dict[str, Dict]:
-        """The carried tables' counters under their path name ("single":
-        the port has no sharded warm path)."""
-        return {"single": st.counters() for st in self._warm_tables.values()}
+        """The carried tables' counters under their path name: "single",
+        or "sharded:<impl>" for a mesh's dispatch slot (the JAX package's
+        names)."""
+        return {("sharded:" + key[1] if isinstance(key, tuple) else "single"): st.counters()
+                for key, st in self._warm_tables.items()}
 
     def device_snapshot(self, ssn):
         """(DeviceSnapshot of numpy arrays, SnapshotMeta) for an exclusive

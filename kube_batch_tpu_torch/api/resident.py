@@ -1,6 +1,7 @@
 """Per-cycle device-resident snapshot columns, refreshed by row scatters.
 
-Mirrors ``kube_batch_tpu/api/resident.py`` (its single-device half).  The
+Mirrors ``kube_batch_tpu/api/resident.py``, the mesh's residency
+(``ShardedPerCycleDeviceCache``) included.  The
 ingest-static columns ride ``ColumnStore.resident_features`` (re-uploaded
 when their axis version moves); this module keeps the *per-cycle* columns
 (statuses, node ledgers, job and queue rows) alive on the device between
@@ -38,7 +39,12 @@ reads back before the next action swaps, and no action keeps a snapshot
 tensor afterwards.  All run on one stream, so a swap's writes follow the
 kernels already queued on the tensors.
 
-The second half of the module is the warm-started allocate's host
+On a mesh (``parallel/mesh.py``) ``ShardedPerCycleDeviceCache`` keeps
+each node-axis field per (device, node shard) and every other field per
+distinct device, with the JAX package's per-shard decisions and counters
+and its churn-adaptive slot ladder.
+
+The last part of the module is the warm-started allocate's host
 planner (``WarmTableState``, the JAX package's, keyed by device): every
 swap's delta record is absorbed into it, and each warm dispatch asks it
 which carried rows to re-rank and which nodes' keys to refresh.  The
@@ -264,6 +270,221 @@ class PerCycleDeviceCache:
 
 
 # ==========================================================================
+# Mesh-sharded residency
+# ==========================================================================
+
+#: the subset whose leading axis is the node axis: sliced per node shard on
+#: the sharded path (``parallel/mesh.snapshot_shardings``); everything else
+#: is kept once per distinct device
+NODE_AXIS_FIELDS = frozenset((
+    "node_idle", "node_releasing", "node_used", "node_valid", "node_sched",
+))
+
+#: per-shard slot-width buckets of the mesh scatter (the JAX package's
+#: static default; the live ladder follows the churn EWMA, capped here)
+SHARD_SCATTER_SLOT_BUCKETS: Tuple[int, ...] = (16, 128, 1024)
+SHARD_SCATTER_SLOTS = SHARD_SCATTER_SLOT_BUCKETS[-1]
+
+#: churn EWMA smoothing for the adaptive per-shard ladder
+CHURN_EWMA_DECAY = 0.8
+
+
+def all_shard_buckets(max_slots: int) -> Tuple[int, ...]:
+    """Every per-shard bucket width the adaptive ladder can select: powers
+    of two from 16 up to the cap (the widths the JAX package compiles at
+    its cold upload)."""
+    out = []
+    v = min(16, max_slots)
+    while True:
+        out.append(v)
+        if v >= max_slots:
+            return tuple(out)
+        v = min(v * 2, max_slots)
+
+
+def adaptive_ladder(ewma: float, max_slots: int) -> Tuple[int, ...]:
+    """The per-shard slot ladder sized from the churn EWMA: the base is the
+    smallest power of two ≥ max(16, 2 × ewma), then ×8 steps to the cap.
+    Zero churn gives the static default."""
+    base = 16
+    target = max(16.0, 2.0 * ewma)
+    while base < target and base < max_slots:
+        base *= 2
+    base = min(base, max_slots)
+    ladder = [base]
+    while ladder[-1] < max_slots:
+        ladder.append(min(ladder[-1] * 8, max_slots))
+    return tuple(ladder)
+
+
+class ShardedPerCycleDeviceCache(PerCycleDeviceCache):
+    """The per-cycle fields resident on a mesh (``parallel/mesh.py``): each
+    node-axis field as one tensor per (device, node shard) holding that
+    shard's rows, every other field once per distinct device.  No tensor is
+    shared with another placement, with the single-device cache or with a
+    swap's staging buffers, so the in-place refreshes below never write
+    through one placement into another, even on a mesh whose devices
+    repeat.
+
+    The decisions and the counters are the JAX package's
+    ``ShardedPerCycleDeviceCache``'s: a node-axis delta is partitioned by
+    owning shard and costed at the live per-shard ladder's bucket of the
+    widest shard's rows (a full upload past the ladder's top or when the
+    payload is not smaller than the column); other fields as the
+    single-device cache.  The ladder retargets from the churn EWMA of the
+    widest per-shard delta, once per swap (``ladder_retargets``).  Under
+    ``distributed`` the byte counters carry this process's share of the
+    node-axis fields.  What moves: each placement's changed rows (written
+    with ``index_copy_``) or its whole slice."""
+
+    def __init__(self, mesh) -> None:
+        super().__init__(mesh.first)
+        self.mesh = mesh
+        self.n_shards = mesh.node_shards
+        self.churn_ewma = 0.0
+        self._ladder: Tuple[int, ...] = adaptive_ladder(0.0, SHARD_SCATTER_SLOTS)
+        self._cycle_max = 0
+        self.ladder_retargets = 0
+        # placements: every local (device, node shard) pair, and the
+        # distinct devices
+        self.node_places = []
+        for (i, j) in mesh.local_positions():
+            key = (mesh.device(i, j), j)
+            if key not in self.node_places:
+                self.node_places.append(key)
+        self.devices = mesh.distinct()
+
+    def counters(self) -> Dict[str, int]:
+        out = super().counters()
+        out["churn_ewma"] = round(self.churn_ewma, 2)
+        out["slot_ladder"] = list(self._ladder)
+        out["ladder_retargets"] = self.ladder_retargets
+        return out
+
+    def _host_fraction(self) -> float:
+        """This process's share of the mesh (the per-host byte scale)."""
+        if self.mesh.distributed:
+            import torch.distributed as dist
+
+            return 1.0 / dist.get_world_size(self.mesh.group)
+        return 1.0
+
+    def _places(self, field: str):
+        return self.node_places if field in NODE_AXIS_FIELDS else self.devices
+
+    def _part(self, field: str, host: np.ndarray, place) -> np.ndarray:
+        if field in NODE_AXIS_FIELDS:
+            s = host.shape[0] // self.n_shards
+            return host[place[1] * s:(place[1] + 1) * s]
+        return host
+
+    def _full_sharded(self, field: str, host: np.ndarray, uploads) -> Callable:
+        frac = self._host_fraction() if field in NODE_AXIS_FIELDS else 1.0
+        self.full_uploads += 1
+        self.delta_record.setdefault(field, None)
+        self.bytes_full += int(host.nbytes * frac)
+        self._mirror[field] = host.copy()
+        old = self._dev.get(field) or {}
+        handles = {}
+        for place in self._places(field):
+            part = self._part(field, host, place)
+            dev = place[0] if isinstance(place, tuple) else place
+            handles[place] = (dev, uploads[dev].add(part))
+            self.bytes_shipped += part.nbytes
+
+        def done() -> Dict:
+            out = {}
+            for place, (dev, h) in handles.items():
+                src = uploads[dev].tensor(h)
+                t = old.get(place)
+                if t is not None and t.shape == src.shape and t.dtype == src.dtype:
+                    t.copy_(src)
+                else:
+                    t = src.clone()
+                out[place] = t
+            self._dev[field] = out
+            return out
+
+        return done
+
+    def _refresh(self, field: str, host: np.ndarray, uploads) -> Callable:
+        sharded = field in NODE_AXIS_FIELDS
+        frac = self._host_fraction() if sharded else 1.0
+        self.bytes_if_full += int(host.nbytes * frac)
+        mirror = self._mirror.get(field)
+        if mirror is None or mirror.shape != host.shape or mirror.dtype != host.dtype:
+            return self._full_sharded(field, host, uploads)
+        changed = changed_rows(mirror, host)
+        if changed.size == 0:
+            self.clean_hits += 1
+            cur = self._dev[field]
+            return lambda: cur
+        self.delta_record[field] = changed
+        if sharded:
+            s = host.shape[0] // self.n_shards
+            shard_ids = changed // s
+            counts = np.bincount(shard_ids, minlength=self.n_shards)
+            widest = int(counts.max())
+            self._cycle_max = max(self._cycle_max, widest)
+            if widest > min(self._ladder[-1], SHARD_SCATTER_SLOTS):
+                return self._full_sharded(field, host, uploads)
+            slots = _slot_bucket(widest, self._ladder)
+            if self._payload_bytes(slots, host) * self.n_shards >= host.nbytes:
+                return self._full_sharded(field, host, uploads)
+            self.bytes_scatter += int(self._payload_bytes(slots, host) * self.n_shards * frac)
+        else:
+            if changed.size > SCATTER_SLOTS:
+                return self._full_sharded(field, host, uploads)
+            slots = _slot_bucket(changed.size, SCATTER_SLOT_BUCKETS)
+            if self._payload_bytes(slots, host) >= host.nbytes:
+                return self._full_sharded(field, host, uploads)
+            self.bytes_scatter += self._payload_bytes(slots, host)
+        self.scatter_updates += 1
+        mirror[changed] = host[changed]
+        cur = self._dev[field]
+        handles = {}
+        for place in self._places(field):
+            if sharded:
+                j = place[1]
+                rows = changed[(changed >= j * s) & (changed < (j + 1) * s)]
+                if rows.size == 0:
+                    continue
+                local = rows - j * s
+            else:
+                rows = local = changed
+            dev = place[0] if isinstance(place, tuple) else place
+            vals = host[rows]
+            r64 = local.astype(np.int64)
+            handles[place] = (dev, uploads[dev].add(r64), uploads[dev].add(vals))
+            self.bytes_shipped += r64.nbytes + vals.nbytes
+
+        def done() -> Dict:
+            for place, (dev, h_rows, h_vals) in handles.items():
+                cur[place].index_copy_(0, uploads[dev].tensor(h_rows),
+                                       uploads[dev].tensor(h_vals))
+            return cur
+
+        return done
+
+    def stage(self, snap, uploads) -> Dict[str, Callable[[], Dict]]:
+        """Stage a swap of ``snap``'s per-cycle fields into ``uploads`` (one
+        :class:`StagedUpload` per distinct device); returns field → what
+        yields its placement → tensor dict once the uploads ran."""
+        self.version += 1
+        self.delta_record = {}
+        out = {field: self._refresh(field, np.asarray(getattr(snap, field)), uploads)
+               for field in PER_CYCLE_FIELDS}
+        self.churn_ewma = (CHURN_EWMA_DECAY * self.churn_ewma
+                           + (1.0 - CHURN_EWMA_DECAY) * self._cycle_max)
+        self._cycle_max = 0
+        new = adaptive_ladder(self.churn_ewma, SHARD_SCATTER_SLOTS)
+        if new != self._ladder:
+            self._ladder = new
+            self.ladder_retargets += 1
+        return out
+
+
+# ==========================================================================
 # Warm-started allocate (KB_WARM): the carried candidate table's planner
 # ==========================================================================
 #
@@ -327,9 +548,8 @@ def _ratchet(current: int, needed: int, low_streak: int, floor: int = 0):
 
 
 class WarmTableState:
-    """One device's carried candidate table and its invalidation planner
-    (the JAX package's ``WarmTableState``, keyed by device instead of by
-    mesh).  Owned by the ColumnStore (``warm_table_state``) and dropped
+    """One device's (or mesh's) carried candidate table and its
+    invalidation planner (the JAX package's ``WarmTableState``).  Owned by the ColumnStore (``warm_table_state``) and dropped
     wholesale on axis growth, resident drops (guard heals) and device
     changes, so a table never outlives the index space it was ranked in."""
 
@@ -339,8 +559,11 @@ class WarmTableState:
         "node_sched",
     )
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, key=None):
         self.device = device
+        # the resident cache this state absorbs: its device, or the mesh
+        # whose first device holds the table
+        self.key = device if key is None else key
         self._reset()
         # lifetime counters
         self.plans = 0
@@ -438,7 +661,7 @@ class WarmTableState:
         "table", "w", "cold"}: numpy plan arrays, the carried (or freshly
         emptied) table and the stored width.  Reads back the previous
         solve's [P] erosion flags (one small sync)."""
-        cache = cols._per_cycle_dev.get(self.device)
+        cache = cols._per_cycle_dev.get(self.key)
         if cache is None or cache.version != self._absorbed_version:
             return None
         P = int(pend_rows.shape[0])

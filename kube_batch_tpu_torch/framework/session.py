@@ -127,8 +127,11 @@ class Session:
                  dirty_jobs=frozenset()):
         self.uid = str(uuid.uuid4())
         self.cache = cache
-        # where the session's device programs run
+        # where the session's device programs run; ``mesh`` (set by
+        # open_session) is where they run sharded once the node axis
+        # reaches parallel/mesh.SHARD_MIN_NODES
         self.device = device
+        self.mesh = None
         self.spec = cluster.spec
         # exclusive: the cache's own objects (no clone), and the close unwinds
         # what is session-only (pipelined and unready-allocated placements);
@@ -566,13 +569,15 @@ def _clear_fit_state(job: JobInfo) -> None:
 # ---- session lifecycle (framework/framework.go:30-62) -------------------
 
 def open_session(cache, tiers: List[Tier], device=None,
-                 isolated: bool = False) -> Session:
+                 isolated: bool = False, mesh=None) -> Session:
     """Open a scheduling session: by default an exclusive one — take the
     cache's gate, view its live objects, sync the column job rows — then
     run every plugin's OnSessionOpen and drop gang-invalid jobs, marking
     them Unschedulable (session.go:107-124).  ``device`` is where the
     session's device programs run (None means CUDA; see
-    ``kube_batch_tpu_torch.device``).  ``isolated=True`` is the reference's
+    ``kube_batch_tpu_torch.device``); ``mesh`` (``parallel/mesh.py``) is
+    where they run sharded, the actions deciding per node axis as the JAX
+    package's do (``should_shard``).  ``isolated=True`` is the reference's
     deep-cloned session (``cache.snapshot()``): no gate, no column rows,
     the objects' branches throughout, and nothing of the session's own
     state reaches the cache — what-if callers inspect it freely.
@@ -592,6 +597,7 @@ def open_session(cache, tiers: List[Tier], device=None,
         cluster = cache.snapshot()
         clone_ms = (time.perf_counter() - t0) * 1e3
         ssn = Session(cache, cluster, tiers, dev, exclusive=False)
+        ssn.mesh = mesh
         ssn.clone_ms = clone_ms
         _open_plugins_and_gate(ssn, tiers, get_plugin_builder)
         return ssn
@@ -615,6 +621,7 @@ def open_session(cache, tiers: List[Tier], device=None,
         ssn = Session(cache, cluster, tiers, dev,
                       open_reuse=oc if use_delta else None,
                       dirty_jobs=delta.jobs if use_delta else frozenset())
+        ssn.mesh = mesh
         if not use_delta:
             # reseed the open cache from this full rebuild, before the gate
             # mutates ssn.jobs (the same dict as cluster.jobs)

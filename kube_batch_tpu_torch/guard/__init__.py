@@ -16,8 +16,10 @@ program of the cycle:
    diagnostics bundle (``guard/bundle.py``); after ``KB_GUARD_COOLDOWN``
    clean cycles a half-open probe re-promotes.
 
-The port demotes ``topk`` and ``warm`` only: it has no sharded path, and
-its kernels are not opt-in (a CUDA tensor never falls back to a kernel's
+The port demotes ``topk``, ``warm`` and ``shard_map`` (the sharded
+solves' shard bodies, whose oracle is ``"pjit"``: the single-device
+program over the gathered snapshot); ``pallas`` is never engaged, the
+kernels not being opt-in (a CUDA tensor never falls back to a kernel's
 plain version).
 
 Knobs: ``KB_GUARD=0`` (no sentinel, no audits, no demotion),

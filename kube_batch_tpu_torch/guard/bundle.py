@@ -57,6 +57,8 @@ def dump_bundle(action: str, snap, config, report: Dict,
 
     root = directory or bundle_dir()
     os.makedirs(root, exist_ok=True)
+    if hasattr(snap, "gathered"):
+        snap = snap.gathered()  # a ShardedSnapshot: the whole snapshot
     host = snapshot_to_numpy(snap)
     arrays = {f: np.asarray(getattr(host, f)) for f in host._fields}
     if pend_rows is not None:

@@ -8,7 +8,9 @@ carries a health state:
        └── clean probe ──┘◀──────────── trip during probe ───────────┘
 
 A demoted path's dispatches run its oracle (``topk``: the full program;
-``warm``: the cold per-solve table build); ``probing`` is half-open: the
+``warm``: the cold per-solve table build; ``shard_map``: the ``"pjit"``
+oracle, the single-device program over the gathered snapshot);
+``probing`` is half-open: the
 next dispatch runs the fast path again under the sentinel, and one clean
 engaged cycle re-promotes.  Time counts in scheduling cycles
 (``Scheduler.run_once`` calls :meth:`GuardPlane.end_cycle`).
@@ -45,9 +47,10 @@ from kube_batch_tpu_torch.utils.switches import env_int
 logger = logging.getLogger("kube_batch_tpu_torch")
 
 #: the JAX package's demotable fast paths.  The port engages "topk" (the
-#: compacted solve) and "warm" (the carried table); "shard_map" and
-#: "pallas" keep their slots so the state has the same keys, but nothing
-#: in the port engages them
+#: compacted solve), "warm" (the carried table) and "shard_map" (the
+#: sharded solves' shard bodies; demoted, they run the "pjit" oracle);
+#: "pallas" keeps its slot so the state has the same keys, but nothing in
+#: the port engages it (a CUDA tensor always runs the kernels)
 FAST_PATHS = ("topk", "shard_map", "pallas", "warm")
 
 HEALTHY, DEMOTED, PROBING = "healthy", "demoted", "probing"

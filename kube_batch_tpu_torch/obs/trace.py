@@ -17,9 +17,11 @@ time lands in the ``device_wait`` span, whose readback waits for it.
 Nothing here synchronizes the device.
 
 Where the port differs from the JAX package: there is no jit, so no span
-carries ``compiles`` or ``retrace`` and ``retraces_attributed`` stays 0;
-``KB_TRACE_COLLECTIVES`` and ``annotate_collectives`` belong to the
-sharded path, which the port does not have yet.
+carries ``compiles`` or ``retrace`` and ``retraces_attributed`` stays 0.
+On the sharded path, ``KB_TRACE_COLLECTIVES=1`` has
+:meth:`Tracer.annotate_collectives` put the solve's collective bytes per
+round and per solve (``parallel/mesh.collective_stats``, at the JAX
+package's abstract shapes) on the ``solve_dispatch`` span.
 
 Complete per-cycle trees land in the flight recorder's ring
 (``obs/recorder.py``) and export as Chrome trace-event JSON
@@ -242,6 +244,9 @@ class Tracer:
         # no jit in the port: nothing is ever attributed here (kept so the
         # surfaces have the JAX package's keys)
         self.retraces_attributed = 0
+        # sharded dispatch spans carry their collective bytes (opt-in)
+        self.collectives = env_flag("KB_TRACE_COLLECTIVES", False)
+        self._collective_cache: Dict = {}
 
     # -- thread-local span stack -----------------------------------------
     def _stack(self) -> list:
@@ -394,6 +399,40 @@ class Tracer:
             out["ring"] = self.recorder.stats()
         out["last_cycle"] = self.last_cycle()
         return out
+
+    def annotate_collectives(self, span: Span, config, snap, mesh,
+                             pend_rows=None) -> None:
+        """Put the sharded solve's collective result bytes per round and
+        per solve on ``span`` (``KB_TRACE_COLLECTIVES=1``; memoized per
+        mesh, config and shapes).  The shapes are the JAX package's:
+        ``snap``'s task and node buckets, its audit's abstract R, W and K,
+        so the attribute equals the JAX package's."""
+        if not (self.enabled and self.collectives) or mesh is None:
+            return
+        try:
+            from kube_batch_tpu_torch.parallel.mesh import (
+                collective_stats,
+                shard_map_enabled,
+            )
+
+            if not shard_map_enabled():
+                return
+            T = int(snap.task_req.shape[0])
+            N = int(snap.node_idle.shape[0])
+            pend = int(pend_rows.shape[0]) if pend_rows is not None else None
+            key = (mesh, config, T, N, pend)
+            if key not in self._collective_cache:
+                stats = collective_stats(mesh, config=config, shape=dict(T=T, N=N),
+                                         pend_bucket=pend)
+                self._collective_cache[key] = {
+                    "per_round_bytes": stats["per_round_bytes"],
+                    "per_solve_bytes": stats["per_solve_bytes"],
+                }
+            out = self._collective_cache[key]
+        except Exception:  # noqa: BLE001 — attribution only
+            return
+        if out:
+            span.set(collective_bytes=out)
 
     def stage_attribution(self) -> Dict:
         """The seed-stable longitudinal summary: span counts per stage plus

@@ -208,13 +208,15 @@ def local_idle_fit_any(snap: DeviceSnapshot, static_ok) -> torch.Tensor:
 
 
 def evict_rounds(snap: DeviceSnapshot, config: EvictConfig, bids_fn,
-                 fits_idle_any=None) -> EvictResult:
+                 fits_idle_any=None, n_nodes=None) -> EvictResult:
     """The rounds: eligibility, ranks, one winner per node, victim picking
     with its caps and coverage, and preempt's commit gate.  ``bids_fn``
     supplies the [T, N]-scale bids; ``fits_idle_any`` is the idle gate's
-    probe (required when ``config.idle_gate`` is set for reclaim)."""
+    probe (required when ``config.idle_gate`` is set for reclaim).  The
+    rounds read no node column: ``n_nodes`` (default the snapshot's) is
+    the node count, which the sharded solve's tail passes."""
     T, R = snap.task_req.shape
-    N = snap.node_alloc.shape[0]
+    N = snap.node_alloc.shape[0] if n_nodes is None else n_nodes
     J = snap.job_min_avail.shape[0]
     Q = snap.queue_weight.shape[0]
     dev = snap.task_req.device

@@ -231,7 +231,8 @@ def _victim_base(snap: DeviceSnapshot, config: EvictConfig) -> _VictimBase:
 
 
 def _evict_probe(snap: DeviceSnapshot, req, pending, queue, min_avail,
-                 assigned0, bid_fn, config: EvictConfig, base: _VictimBase):
+                 assigned0, bid_fn, config: EvictConfig, base: _VictimBase,
+                 n_nodes=None):
     """The hypothetical preempt pass for one gang: which nodes its unplaced
     members would claim and which Running victims would go, built on the
     eviction solve's own victim machinery (``claim_winners``,
@@ -240,10 +241,12 @@ def _evict_probe(snap: DeviceSnapshot, req, pending, queue, min_avail,
     the preempt victim filter (preempt.go:113-121) is the queue test.
 
     ``bid_fn(claimant_ok, cap) -> (best, has)`` is the [G, N] bid head.
+    ``n_nodes`` (default the snapshot's) is the node count: the sharded
+    probe's tail passes it.
     Returns (claim_node [G] i32, victims [T] bool, covered [] bool)."""
     G = req.shape[0]
     T = snap.task_req.shape[0]
-    N = snap.node_alloc.shape[0]
+    N = snap.node_alloc.shape[0] if n_nodes is None else n_nodes
     J = snap.job_min_avail.shape[0]
     Q = snap.queue_weight.shape[0]
     dev = req.device

@@ -30,7 +30,9 @@ oracle); ``KB_PERIOD_MIN`` pins the minimum spacing between cycle starts
 soft cycle budget whose overrun sheds the close's status writes.  A conf
 loaded from ``conf_path`` is reloaded at a cycle boundary when the file
 changes, and a broken edit keeps the running conf.  ``device=None`` means
-CUDA and raises without a card.
+CUDA and raises without a card.  ``mesh=`` (``parallel/mesh.py``) is where
+the solves run sharded once the node axis reaches ``SHARD_MIN_NODES``;
+by default every CUDA card (no mesh with one card or on the CPU).
 
 Every stage of the cycle runs inside a span of the cache's tracer
 (``obs/trace.py``): ``ingest_drain``, ``resync``, ``session_open``,
@@ -132,6 +134,7 @@ class Scheduler:
         on_cycle_end=None,
         clock=None,
         device=None,
+        mesh=None,
     ):
         self.cache = cache
         # the loop's time source (monotonic() and sleep())
@@ -140,6 +143,11 @@ class Scheduler:
         # resolve actions at construction — unknown names raise (util.go:63-70)
         self.actions: List[Action] = [get_action(n) for n in self.conf.actions]
         self.device = resolve_device(device)
+        # where the solves run sharded (parallel/mesh.py): the caller's
+        # mesh, else every CUDA card (None with one card and on the CPU)
+        from kube_batch_tpu_torch.parallel.mesh import default_mesh
+
+        self.mesh = mesh if mesh is not None else default_mesh(self.device)
         self.schedule_period = schedule_period
         self.on_cycle_end = on_cycle_end
         self._stop = False
@@ -262,7 +270,7 @@ class Scheduler:
         start = telemetry.perf_counter()
         budget_start = self.clock.monotonic() if self.cycle_budget > 0 else 0.0
         with tracer.span("session_open") as sp:
-            ssn = open_session(cache, self.conf.tiers, self.device)
+            ssn = open_session(cache, self.conf.tiers, self.device, mesh=self.mesh)
         cycle["open"] = sp.dur_ms
         # the configured pipeline, for actions whose behaviour depends on
         # what runs after them (reclaim's idle-fit claimant gate)

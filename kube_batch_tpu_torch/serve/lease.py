@@ -44,7 +44,7 @@ class SnapshotLease(NamedTuple):
     version: int          # dirty-tracker version token at the open
     config: object        # AllocateConfig the session implies
     evict_config: object  # EvictConfig (preempt) for the eviction probe
-    mesh: object          # always None: the port has no sharded solve
+    mesh: object          # the solve mesh (None = single-device)
     probe_rows: tuple     # next-free task rows (the tie-hash rows)
     queue_rows: Dict[str, int]  # queue name → row
     #: preempt victim gates of the session's conf that the eviction probe

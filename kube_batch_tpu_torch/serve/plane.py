@@ -22,8 +22,10 @@ record's seq; a follower's plane (``replicate/follower.py``) sets
 
 Where the port differs from the JAX package:
 
-- no mesh: the lease's ``mesh`` is always None (the sharded probe is not
-  ported);
+- a lease published by a sharded cycle holds the session's mesh and its
+  ``ShardedSnapshot``, and its probes run sharded
+  (``parallel/mesh.sharded_probe_solve``: K1 per shard at the probe's
+  rows), as the JAX package's;
 - the batch is not padded to ``max_batch`` gangs: nothing is compiled per
   shape, so a flush probes exactly its requests (the gang axis keeps the
   JAX package's G bucket, so each gang's rows are the same);
@@ -235,12 +237,15 @@ class QueryPlane:
         cols = ssn.columns
         if cols is None:
             return  # an isolated session: nothing resident to lease
-        from kube_batch_tpu_torch.actions.allocate import session_allocate_config
+        from kube_batch_tpu_torch.actions.allocate import session_allocate_config, solve_target
         from kube_batch_tpu_torch.actions.reclaim import victim_gates
         from kube_batch_tpu_torch.api.columns import resident_snap
         from kube_batch_tpu_torch.ops.eviction import EvictConfig
 
-        dev = resident_snap(cols, snap, ssn.device)
+        # the cycle's own placement: its mesh when its solves sharded
+        target = solve_target(ssn, snap.node_alloc.shape[0])
+        mesh = None if target is ssn.device else target
+        dev = resident_snap(cols, snap, target)
         config = session_allocate_config(ssn)
         gates = victim_gates(ssn, "preempt")
         if not self._gate_gap_warned and gates & {"drf", "proportion"}:
@@ -273,7 +278,7 @@ class QueryPlane:
             version=int(getattr(ssn.cache, "last_open_version", 0)),
             config=config,
             evict_config=evict_config,
-            mesh=None,
+            mesh=mesh,
             probe_rows=tuple(cols.peek_task_rows(self.max_gang)),
             queue_rows=queue_rows,
             unmodeled_gates=tuple(sorted(gates & {"drf", "proportion"})),
@@ -285,7 +290,7 @@ class QueryPlane:
             # report the staleness coordinates a caught-up follower's do;
             # the swap's own delta record rides along as the diff's fast path
             try:
-                hint, hint_version = cols.export_delta_record(ssn.device)
+                hint, hint_version = cols.export_delta_record(target)
                 seq = pub.publish_cycle(snap, meta, lease, delta_hint=hint,
                                         cache_version=hint_version)
                 lease = lease._replace(seq=seq)
@@ -530,11 +535,15 @@ class QueryPlane:
         pbatch, rows = self._encode(lease, reqs)
         with_evictions = any(r["evictions"] for r in reqs)
         dev = lease.snap.task_req.device
-        res = probe_solve(
-            lease.snap, probe_batch_from_numpy(pbatch, dev),
-            torch.from_numpy(rows).to(dev), lease.config, lease.evict_config,
-            with_evictions,
-        )
+        args = (probe_batch_from_numpy(pbatch, dev), torch.from_numpy(rows).to(dev))
+        if lease.mesh is not None:
+            from kube_batch_tpu_torch.parallel.mesh import sharded_probe_solve
+
+            res = sharded_probe_solve(lease.snap, *args, lease.mesh, lease.config,
+                                      lease.evict_config, with_evictions)
+        else:
+            res = probe_solve(lease.snap, *args, lease.config, lease.evict_config,
+                              with_evictions)
         self.dispatches += 1
         metrics.register_whatif_dispatch()
         fields = ["assigned", "pipelined", "committed", "feasible", "reasons",

@@ -26,8 +26,11 @@ order, the same report.  What differs is the port's own: ``SimRunner`` and
 card), the allocate action is read off the scheduler's own action list
 (the port's registry builds a fresh action per scheduler), the writeback
 worker is retired through ``Scheduler.close()``, the cache's workers stop
-when the run ends, and the report has no ``solve_collectives`` (the port
-has no sharded solve).
+when the run ends, and ``SimRunner`` takes ``mesh=`` (the Scheduler's,
+``parallel/mesh.py``): a sharded run's report carries
+``solve_collectives`` (``parallel/mesh.collective_stats`` at the JAX
+package's abstract shapes of the store's capacities), as the JAX
+package's does.
 """
 
 from __future__ import annotations
@@ -245,7 +248,7 @@ def preset(name: str, seed: int = 0) -> SimConfig:
 
 
 class SimRunner:
-    def __init__(self, cfg: SimConfig, device=None):
+    def __init__(self, cfg: SimConfig, device=None, mesh=None):
         self.cfg = cfg
         self.clock = VirtualClock()
         self.heap = EventHeap()
@@ -278,7 +281,7 @@ class SimRunner:
         # makes run_forever() pace in virtual time if a caller wants it
         self.scheduler = Scheduler(
             self.cache, conf=conf, schedule_period=cfg.period,
-            clock=self.clock, device=device,
+            clock=self.clock, device=device, mesh=mesh,
         )
         # the configured allocate action, whose per-cycle records
         # (last_topk, last_warm) the longitudinal counters read
@@ -730,6 +733,17 @@ class SimRunner:
         from kube_batch_tpu_torch.api.resident import scatter_summary
 
         scatter = scatter_summary(self.cache.columns.resident_counters())
+        # a sharded run carries the solve's collective bytes per round and
+        # per solve beside the scatter counters
+        solve_collectives = None
+        mesh = self.scheduler.mesh
+        if "sharded" in scatter and mesh is not None:
+            from kube_batch_tpu_torch.parallel.mesh import collective_stats, shard_map_enabled
+
+            if shard_map_enabled():
+                cols = self.cache.columns
+                solve_collectives = collective_stats(
+                    mesh, shape=dict(T=cols.tasks.cap, N=cols.nodes.cap, R=cols.R))
         # cycle tracing plane: publish any still-armed flight dumps (a
         # trigger near the end of the horizon must not lose its capture)
         # and carry the SEED-STABLE stage-attribution summary — span
@@ -770,6 +784,8 @@ class SimRunner:
                     if self.warm_live else None
                 ),
             },
+            **({"solve_collectives": solve_collectives}
+               if solve_collectives is not None else {}),
             # fault-hardening evidence: bind integrity (no lost/duplicate
             # binds), the egress breaker's life, the repair queue's story
             "bind_integrity": {
@@ -893,14 +909,14 @@ def run_preset(name: str, seed: int = 0, cycles: Optional[int] = None,
                trace_path: Optional[str] = None,
                pipelined: bool = False,
                chrome_trace_path: Optional[str] = None,
-               device=None) -> Dict:
+               device=None, mesh=None) -> Dict:
     """One-call entrypoint used by the CLI and the tests; ``device=None``
-    means CUDA."""
+    means CUDA; ``mesh`` runs the solves sharded."""
     cfg = preset(name, seed=seed)
     if cycles is not None:
         cfg.cycles = cycles
     cfg.pipelined = pipelined
-    runner = SimRunner(cfg, device=device)
+    runner = SimRunner(cfg, device=device, mesh=mesh)
     report = runner.run()
     report["metric"] = f"sim_{name}_makespan_vt"
     report["value"] = report.get("makespan_vt")

@@ -671,13 +671,15 @@ def run_cycles(cache, device, churn: Callable[[int], dict], ingest_s: float,
                keep_states: bool = False, profile: bool = False,
                n_cycles: int = 3, check_swaps: bool = False,
                pipelined: bool = False, warmup_cycles: int = 0,
-               overlap_pairs: int = 0) -> dict:
+               overlap_pairs: int = 0, mesh=None) -> dict:
     """``n_cycles`` cycles of the shipped conf on ``cache``; ``churn(c)``
     runs before cycle ``c`` > 0 and returns what it did.  With
     ``check_swaps`` every resident swap is held against a fresh upload
     (:class:`SwapCheck`); with ``pipelined`` each cycle is
-    ``run_once_pipelined`` (module docstring).  Returns the report."""
-    sched = Scheduler(cache, conf=load_scheduler_conf(shipped_conf_path()), device=device)
+    ``run_once_pipelined`` (module docstring); ``mesh`` is the
+    Scheduler's (``parallel/mesh.py``).  Returns the report."""
+    sched = Scheduler(cache, conf=load_scheduler_conf(shipped_conf_path()), device=device,
+                      mesh=mesh)
     try:
         return _run_cycles(sched, cache, churn, ingest_s, keep_states, profile,
                            n_cycles, check_swaps, pipelined,
@@ -729,7 +731,8 @@ def _run_cycles_probed(sched, cache, churn, ingest_s, keep_states, profile, n_cy
         churn_s = time.perf_counter() - t
         pending = int(cache.columns.schedulable_pending_mask().sum())
         binds_before = len(cache.binder.binds)
-        resident_before = cols.resident_counters().get("single", {})
+        path = "sharded" if sched.mesh is not None else "single"
+        resident_before = cols.resident_counters().get(path, {})
         guard_before = guard_counters(cache)
         check.ms, check.swaps = 0.0, 0
         if hook is not None:
@@ -791,10 +794,11 @@ def _run_cycles_probed(sched, cache, churn, ingest_s, keep_states, profile, n_cy
                           if j.pod_group is not None and j.task_status_index.get(TaskStatus.PENDING)
                           for cond in j.pod_group.conditions
                           if cond.type == "Unschedulable"})
-        resident = cols.resident_counters().get("single")
+        resident = cols.resident_counters().get(path)
         if resident is not None:
-            resident = scatter_summary({"single": {
-                k: v - resident_before.get(k, 0) for k, v in resident.items()}})["single"]
+            resident = scatter_summary({path: {
+                k: (v - resident_before.get(k, 0) if isinstance(v, int) else v)
+                for k, v in resident.items()}})[path]
         state = observed(cache)
         claimants = actions["reclaim"].last_stats.get("pipelined", 0)
         guard_after = guard_counters(cache)
@@ -809,6 +813,7 @@ def _run_cycles_probed(sched, cache, churn, ingest_s, keep_states, profile, n_cy
             swaps_checked=swaps_checked, swap_check_ms=check.ms,
             digest=digest(state, claimants),
             topk=topk, rounds=allocate.last_solve_rounds,
+            solve_mode=allocate.last_solve_mode,
             warm=allocate.last_warm, guard=guard,
             new_binds=len(cache.binder.binds) - binds_before,
             binds=len(cache.binder.binds), new_evicts=len(new_evicts),
@@ -872,10 +877,11 @@ def _run_cycles_probed(sched, cache, churn, ingest_s, keep_states, profile, n_cy
 
 def drive(n_tasks: int, n_nodes: int, arrivals: int, host_ports_frac: float = 0.0,
           seed: int = 0, device=None, keep_states: bool = False,
-          profile: bool = False) -> dict:
+          profile: bool = False, mesh=None) -> dict:
     """The headline drive (module docstring).  Returns the report; with
     ``keep_states`` it also carries each cycle's :func:`observed`, with
-    ``profile`` each cycle's :func:`device_profile`."""
+    ``profile`` each cycle's :func:`device_profile`; ``mesh`` runs it
+    sharded (``parallel/mesh.py``)."""
     t = time.perf_counter()
     cache = synthetic_cluster(n_tasks, n_nodes, gang_size=GANG, n_queues=N_QUEUES,
                               seed=seed, host_ports_frac=host_ports_frac)
@@ -886,20 +892,21 @@ def drive(n_tasks: int, n_nodes: int, arrivals: int, host_ports_frac: float = 0.
             add_arrivals(cache, arrivals, seed + 1, "arrive")
         return {}
 
-    report = run_cycles(cache, device, churn, ingest_s, keep_states, profile)
+    report = run_cycles(cache, device, churn, ingest_s, keep_states, profile, mesh=mesh)
     return dict(tasks=n_tasks, nodes=n_nodes, arrivals=arrivals,
                 host_ports_frac=host_ports_frac, **report)
 
 
 def drive_overcommit(n_running: int, n_pending: int, n_nodes: int, seed: int = 0,
                      device=None, keep_states: bool = False,
-                     profile: bool = False) -> dict:
-    """The overcommit drive (module docstring)."""
+                     profile: bool = False, mesh=None) -> dict:
+    """The overcommit drive (module docstring); ``mesh`` runs it sharded."""
     t = time.perf_counter()
     cache = synthetic_overcommit_cluster(n_running=n_running, n_pending=n_pending,
                                          n_nodes=n_nodes, gang_size=GANG, seed=seed)
     ingest_s = time.perf_counter() - t
-    report = run_cycles(cache, device, lambda c: {}, ingest_s, keep_states, profile)
+    report = run_cycles(cache, device, lambda c: {}, ingest_s, keep_states, profile,
+                        mesh=mesh)
     return dict(running=n_running, pending=n_pending, nodes=n_nodes, **report)
 
 

@@ -15,8 +15,12 @@ never match by design (ROADMAP Queue 3): the JAX package's device spans
 carry ``compiles`` / ``retrace`` from its jit, which the port does not
 have, and the port's resident counters carry ``bytes_shipped`` (its
 staged upload's own bytes), which the JAX package's do not.  The JAX side
-runs on its single-device path (``KB_SHARD=0``): the port has no sharded
-solve yet, and the sharded dispatch is another span shape.  Then the
+runs on its single-device path (``KB_SHARD=0``) beside the port's
+single-device cycle, and once at its default, the sharded path on the
+8-device CPU mesh, beside the port's ``Scheduler(mesh=...)`` on an 8-shard
+CPU mesh (the sharded residency's churn EWMA left out of the span trees:
+the JAX package's extra swap at each fit-error histogram decays it once
+more, ROADMAP Queue 3).  Then the
 what-if series on ``test_torch_whatif.py``'s world, the replication series
 on ``test_torch_replicate.py``'s leader under the allocate-only conf, and
 the transport's retry and breaker series on ``test_torch_transport.py``'s
@@ -223,6 +227,57 @@ def test_cycle_spans_and_series_match_jax(fixture, conf, mode, monkeypatch):
         psched.close()
         jcache.stop()
         pcache.stop()
+
+
+@pytest.mark.parametrize("fixture,conf,mode", [("homogeneous", "default", "serial")])
+def test_sharded_cycle_spans_and_series_match_jax(fixture, conf, mode, monkeypatch):
+    """The sharded cycle (the JAX package's default at these capacities,
+    the port's on its mesh): span trees and metric writes equal.  The JAX
+    package's sharded programs are dropped after it, so this worker's
+    compiled executables do not pile up (``test_torch_sim_parity``'s
+    module docstring has why)."""
+    import gc
+
+    import jax
+
+    from kube_batch_tpu_torch.parallel.mesh import make_mesh
+    from test_torch_shard_cycle import _solve_spans as sharded_spans
+    from test_torch_shard_cycle import assert_same_trees as assert_same_sharded_trees
+
+    monkeypatch.delenv("KB_SHARD", raising=False)
+    # no residency on either side: the JAX package's sharded cache compiles
+    # a scatter per slot bucket and field shape at its first upload, and
+    # the residency's spans are test_torch_shard_cycle.py's
+    monkeypatch.setenv("KB_DEVICE_CACHE", "0")
+    jcache, pcache = FIXTURES[fixture]()
+    for cache in (jcache, pcache):
+        cache.columns.reserve(**RESERVE)
+    jconf, pconf = CONFS[conf]()
+    jsched = JaxScheduler(jcache, conf=jconf)
+    psched = Scheduler(pcache, conf=pconf, device="cpu", mesh=make_mesh(["cpu"] * 8))
+    rng = np.random.default_rng(7)
+    try:
+        with recording() as logs:
+            for cycle in range(3):
+                for sched in (jsched, psched):
+                    if mode == "serial":
+                        sched.run_once()
+                    else:
+                        sched.run_once_pipelined()
+                        sched.drain_pipeline()
+                where = f"sharded {fixture} {conf} {mode} cycle {cycle}"
+                _assert_same(observed(jcache), observed(pcache), where)
+                apply(jcache, pcache, kubelet(jcache, rng, cycle))
+        assert_same_sharded_trees(jcache, pcache, f"sharded {fixture}")
+        assert_same_series(logs, f"sharded {fixture}")
+        assert sharded_spans(pcache) and sharded_spans(jcache) == sharded_spans(pcache)
+    finally:
+        jsched.close()
+        psched.close()
+        jcache.stop()
+        pcache.stop()
+        jax.clear_caches()
+        gc.collect()
 
 
 # --------------------------------------------------------------------------

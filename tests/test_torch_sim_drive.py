@@ -5,7 +5,9 @@ first 5 virtual seconds, 16 cycles — and held against the JAX package's
 the same binds in the same order (``bind_digest``) and the same trace
 (``trace_sha256``).  The port's two legs, the defaults and
 ``KB_WARM=0``, must bind identically; the defaults leg runs compacted
-cycles with the carried table."""
+cycles with the carried table.  At 200 nodes (padded past the shard
+gate) the JAX package's default sharded run and the port's run on an
+8-shard CPU mesh bind and trace alike, with equal ``solve_collectives``."""
 
 from __future__ import annotations
 
@@ -64,3 +66,23 @@ def test_drive_runner_records_every_cycle():
     assert sum(c["apply_ms"] for c in runner.cycle_log) > 0
     assert [(c["pending"], c["running"]) for c in runner.cycle_log] == [
         (rec["pending"], rec["running"]) for rec in report["fairness_series"]]
+
+
+def test_sharded_drive_matches_jax():
+    """The drive's scenario at 200 nodes (the node axis pads to 256, past
+    the shard gate), the JAX package at its default (its sharded path on
+    the 8-device CPU mesh) and the port's ``SimRunner(mesh=...)`` on an
+    8-shard CPU mesh: the same binds, the same trace, and the report's
+    ``solve_collectives`` equal."""
+    from kube_batch_tpu_torch.parallel.mesh import make_mesh
+    from kube_batch_tpu_torch.sim import SimRunner
+
+    cfg = drive_config(200, 60, 3)
+    report = SimRunner(cfg, device="cpu", mesh=make_mesh(["cpu"] * 8)).run()
+    jcfg = JaxSimConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)})
+    want = JaxSimRunner(jcfg).run()
+    assert "sharded" in want["resident_scatter"] and "sharded" in report["resident_scatter"]
+    assert want["bind_digest"] == report["bind_digest"]
+    assert want["trace_sha256"] == report["trace_sha256"]
+    assert report["solve_collectives"] == want["solve_collectives"]
+    assert report["solve_collectives"]["per_round_bytes"] > 0

@@ -117,7 +117,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     server seeded by the watch from the port's stub apiserver holding its
     Lease while it binds a gang over HTTP, the chip drive's writers), then
     the simulator (the fault preset's node crash, the CLI's smoke run),
-    leaves no jax, no kube_batch_tpu and no yaml module loaded
+    then the multi-device solve (``parallel/``: a sharded solve on a
+    4-shard CPU mesh and the dryrun), leaves no jax, no kube_batch_tpu and no yaml module loaded
     (kube_batch_tpu_torch itself shares the prefix, so the match is exact
     on the package name)."""
     code = textwrap.dedent("""
@@ -348,6 +349,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             assert sim_main(["--preset", "smoke", "--cycles", "6",
                              "--no-fairness-series"], device="cpu") == 0
         assert '"metric": "sim_smoke_makespan_vt"' in sim_out.getvalue()
+        import kube_batch_tpu_torch.parallel.distributed
+        from kube_batch_tpu_torch.parallel.mesh import make_mesh, sharded_allocate_solve
+        from kube_batch_tpu_torch.testing import dryrun
+        mesh = make_mesh(["cpu"] * 4)
+        sres = sharded_allocate_solve(synthetic_device_snapshot(
+            300, 256, seed=1, device="cpu")[0], AllocateConfig(), mesh)
+        assert (sres.assigned >= 0).any()
+        assert dryrun.run(4, "cpu")["bucket_5120_equal"]
         bad = sorted(n for n in sys.modules
                      if n in ("jax", "jaxlib", "yaml") or n.startswith(("jax.", "jaxlib.", "yaml."))
                      or n == "kube_batch_tpu" or n.startswith("kube_batch_tpu."))
