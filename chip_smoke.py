@@ -162,7 +162,21 @@ three queues, 12 virtual cycles — with the defaults and with
 compacted cycles in the defaults leg; one JSON line per cycle and leg
 (its wall split into events applied, ``run_once``, kubelet drain and
 metrics sample), then the virtual-time p50 / p99 of job wait, JCT and pod arrival → bind.
-Each phase prints one JSON
+The audit phase
+(``kube_batch_tpu_torch/analysis``), run right after the build while the
+card holds nothing else, runs every registered device program once under
+the recorder: the single-device registry and the sharded one (four
+positions) at the audit point with every rule judged (float64, transfers,
+host syncs against each program's budget, in-place residents, task ×
+node planes, the budget, in-place allocations, node-scaled per-round
+moves), each program's recorded syncs held equal to CUDA's sync-debug
+count of the same call; then the single-device programs at bench-20k and
+headline-50k and the sharded ones at headline-50k, each program's peak
+``max_memory_allocated`` against the card's memory.  Any finding not on
+the allowlist, or any sync count that differs, fails; one ``audit`` line
+carries per program and point the peak and base bytes, the headroom, the
+syncs (recorded and sync-debug) and rounds, the transfers and the sharded
+tail's move bytes a round.  Each phase prints one JSON
 line; any failure raises (non-zero exit).  The last three lines are the kernels'
 summary, the card's name and power limit, and ``{"ok": true, "device":
 ...}``.
@@ -255,6 +269,51 @@ def phase_build():
     _build.load_library()
     emit("build", seconds=info.seconds, library=str(info.path.name),
          ptxas=info.ptxas)
+
+
+def phase_audit():
+    """The device-program audits on the card (module docstring)."""
+    from kube_batch_tpu_torch.analysis import memory_audit as ma
+    from kube_batch_tpu_torch.analysis import program_audit as pa
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    single = tuple(pa.REGISTRY)
+    mesh = _shard_mesh()
+    sharded = pa.sharded_registry(mesh)
+    bench, headline = ma.shape_points()[:2]
+    runs, reports = {}, []
+
+    def record(entries, points):
+        for sp in points:
+            for e in entries:
+                runs[(e.name, sp.name, str(dev))] = pa.run_entry(e, sp, dev, sync_debug=True)
+        return ma.run_memory_audit(entries, points, dev, runs=runs, reports=reports)
+
+    found = record(single + sharded, [pa.AUDIT_POINT])
+    found += pa.run_audit(single + sharded, dev, runs=runs)
+    found += record(single, [bench, headline])
+    found += record(sharded, [headline])
+    budget, label = ma.budget_bytes(dev)
+    entries = {}
+    for rep in reports:
+        run = runs[(rep.entry, rep.point, str(dev))]
+        entries.setdefault(rep.entry, {})[rep.point] = dict(
+            peak_bytes=rep.peak_bytes, base_bytes=rep.base_bytes,
+            headroom_bytes=budget - rep.peak_bytes, syncs=rep.syncs,
+            sync_debug=run.sync_debug, rounds=rep.rounds, transfers=rep.transfers,
+            round_move_bytes=rep.round_move_bytes, planes=rep.planes, ms=run.ms)
+    gaps = {f"{k[0]}@{k[1]}": [len(r.rec.syncs), r.sync_debug]
+            for k, r in runs.items() if r.rec is not None and len(r.rec.syncs) != r.sync_debug}
+    emit("audit", seconds=time.perf_counter() - t0, budget_bytes=budget, budget=label,
+         points={sp.name: dict(T=sp.T, N=sp.N, P=sp.P, R=sp.R)
+                 for sp in (pa.AUDIT_POINT, bench, headline)},
+         programs=len(single), sharded_programs=len(sharded), mesh=str(mesh),
+         findings=[f.render() for f in found], sync_gaps=gaps, entries=entries)
+    if found:
+        fail(f"audit: {len(found)} finding(s): {[f.render() for f in found][:5]}")
+    if gaps:
+        fail(f"audit: recorded syncs differ from the sync-debug count: {gaps}")
 
 
 def phase_kernels(snap):
@@ -1484,6 +1543,7 @@ def run_phases(stub) -> int:
 
     smi = phase_device()
     phase_build()
+    phase_audit()
     main_kw = dict(n_tasks=N_TASKS, n_nodes=N_NODES, gang_size=GANG,
                    n_queues=N_QUEUES, seed=0, device="cuda")
     snap, _meta = synthetic_device_snapshot(**main_kw)

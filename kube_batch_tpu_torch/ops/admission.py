@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 
 from kube_batch_tpu_torch.ops import kernels
+from kube_batch_tpu_torch.utils.seams import opaque
 
 
 def gate_scan(min_res, cand, idle0, quanta, n_rows: Optional[int] = None):
@@ -55,6 +56,7 @@ def gate_scan(min_res, cand, idle0, quanta, n_rows: Optional[int] = None):
     return admitted
 
 
+@opaque
 def enqueue_gate(min_res, cand, idle0, quanta, n_rows: Optional[int] = None):
     """:func:`gate_scan` on the device of ``min_res``: the plain version for
     a CPU tensor, the CUDA kernel for a CUDA tensor (one CTA, one warp

@@ -41,6 +41,7 @@ from kube_batch_tpu_torch.ops.kernels import (  # noqa: F401 — _tie_break_hash
 from kube_batch_tpu_torch.ops.ordering import run_starts
 from kube_batch_tpu_torch.ops.ordering import segmented_prefix as _segmented_prefix
 from kube_batch_tpu_torch.ops.scoring import ScoreWeights, score_matrix
+from kube_batch_tpu_torch.utils.seams import round_end
 
 _I32_MIN = -(2**31)
 
@@ -113,8 +114,8 @@ def _queue_gate(cand, order, task_job, task_queue, resreq, qalloc, deserved,
     js = task_job.long()[order]
     rq = torch.where(cs[:, None], resreq[order], 0.0)
     prefix = _segmented_prefix(rq, run_starts(qs))
-    cols = fairness.semantic_cols(R)
-    pos_overused = (deserved[qs] <= qalloc[qs] + prefix + quanta)[:, cols].all(dim=-1)
+    sem = fairness.semantic_mask(R, resreq.device)
+    pos_overused = ((deserved[qs] <= qalloc[qs] + prefix + quanta) | ~sem).all(dim=-1)
     ci = cs.float()[:, None]
     pos_in_job = _segmented_prefix(ci, run_starts(js))[:, 0].to(torch.int32)
     in_chunk = cs & (pos_in_job < job_need[js])
@@ -262,7 +263,7 @@ def allocate_rounds(snap: DeviceSnapshot, config: AllocateConfig, head_fn,
             assigned = torch.where(newly, best, assigned)
             pipelined = pipelined | acc_p
             i += 1
-            progress = bool(newly.any())  # host sync, once per round
+            progress = round_end(newly.any())  # host sync, once per round
         rounds_run += i
         rounds_capped = progress and i >= config.rounds
 
@@ -301,9 +302,9 @@ def allocate_rounds(snap: DeviceSnapshot, config: AllocateConfig, head_fn,
         node_releasing=releasing,
         node_used=used,
         deserved=deserved,
-        rounds_run=torch.tensor(rounds_run, dtype=i32, device=dev),
+        rounds_run=torch.full((), rounds_run, dtype=i32, device=dev),
         topk_exhausted=exhausted,
-        topk_reentries=torch.tensor(reentries, dtype=i32, device=dev),
+        topk_reentries=torch.full((), reentries, dtype=i32, device=dev),
     )
 
 
@@ -329,8 +330,12 @@ def allocate_solve(snap: DeviceSnapshot, config: AllocateConfig) -> AllocateResu
 # same round.  Compacted == full, bit for bit, by construction.
 
 
+#: the sort key of NEG, computed once on the host
+_NEG_KEY = int(f32_sort_key(torch.tensor([NEG], dtype=torch.float32))[0])
+
+
 def _neg_key() -> int:
-    return int(f32_sort_key(torch.tensor([NEG], dtype=torch.float32))[0])
+    return _NEG_KEY
 
 
 def lex_topk(skey: torch.Tensor, hash_: torch.Tensor, idx0: torch.Tensor,

@@ -42,6 +42,7 @@ from kube_batch_tpu_torch.ops.feasibility import fits, static_predicates
 from kube_batch_tpu_torch.ops.kernels import NEG, _tie_break_hash
 from kube_batch_tpu_torch.ops.ordering import run_starts, segmented_prefix
 from kube_batch_tpu_torch.ops.scoring import ScoreWeights, score_matrix
+from kube_batch_tpu_torch.utils.seams import round_end
 
 BIG = 1 << 30
 SHARE_DELTA = 1e-6  # drf.go:23 shareDelta
@@ -243,7 +244,7 @@ def evict_rounds(snap: DeviceSnapshot, config: EvictConfig, bids_fn,
         # improvement over reclaim.go); claimants with host-only
         # constraints are exempt, their device fit being approximate
         claimant_base = claimant_base & ~(fits_idle_any & ~snap.task_needs_host)
-    sem = fairness.semantic_cols(R)
+    sem = fairness.semantic_mask(R, dev)
     vn = snap.task_node.long().clamp(0, N - 1)
 
     claim_node = torch.full((T,), -1, dtype=i32, device=dev)
@@ -275,7 +276,7 @@ def evict_rounds(snap: DeviceSnapshot, config: EvictConfig, bids_fn,
             # the victim's Resreq within its queue's remaining budget over
             # the semantic dims (proportion.go:171-196)
             victim_ok = victim_ok & (
-                snap.task_resreq <= qbudget_rem[tql] + snap.quanta)[:, sem].all(dim=-1)
+                (snap.task_resreq <= qbudget_rem[tql] + snap.quanta) | ~sem).all(dim=-1)
         if preempt and config.victim_drf:
             victim_post_share = fairness.dominant_share(
                 job_alloc_now[tj] - snap.task_resreq, snap.total)
@@ -332,7 +333,7 @@ def evict_rounds(snap: DeviceSnapshot, config: EvictConfig, bids_fn,
         evicted = evicted | final_take
         victim_claimant = torch.where(final_take, winner_task[vn], victim_claimant)
         i += 1
-        progress = bool(new_claim.any())  # host sync, once per round
+        progress = round_end(new_claim.any())  # host sync, once per round
 
     if preempt and config.gang:
         # commit gate: the preemptor job must reach Pipelined

@@ -7,32 +7,30 @@ dimension (``PODS_INDEX``).
 
 from __future__ import annotations
 
-from typing import List
-
-import numpy as np
 import torch
 
 from kube_batch_tpu_torch.api.resources import PODS_INDEX
 
 
-def semantic_mask(R: int) -> np.ndarray:
-    m = np.ones(R, bool)
-    m[PODS_INDEX] = False
-    return m
+def semantic_mask(R: int, device) -> torch.Tensor:
+    """[R] bool on ``device``: the semantic dimensions (all but pods).
+    Indexing a device tensor with a Python list uploads the list first, a
+    blocking copy each time; the masked forms below upload nothing."""
+    return torch.arange(R, device=device) != PODS_INDEX
 
 
-def semantic_cols(R: int) -> List[int]:
-    """Indices of the semantic dimensions (all but pods)."""
-    return np.flatnonzero(semantic_mask(R)).tolist()
+def _semantic_amax(ratios: torch.Tensor) -> torch.Tensor:
+    """Max over the semantic dims of the last axis (the pods dim reads as
+    -inf, so it never wins)."""
+    sem = semantic_mask(ratios.shape[-1], ratios.device)
+    return torch.where(sem, ratios, float("-inf")).amax(dim=-1)
 
 
 def dominant_share(alloc: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
     """[., R], [R] → [.] max over semantic dims of alloc/total, 0 where the
     cluster has none of a resource (drf.go:161-171)."""
-    cols = semantic_cols(total.shape[-1])
-    t = total[cols]
-    ratios = torch.where(t > 0, alloc[..., cols] / t.clamp(min=1e-9), 0.0)
-    return ratios.amax(dim=-1)
+    ratios = torch.where(total > 0, alloc / total.clamp(min=1e-9), 0.0)
+    return _semantic_amax(ratios)
 
 
 def proportion_deserved(
@@ -74,14 +72,12 @@ def overused(deserved: torch.Tensor, alloc: torch.Tensor,
              quanta: torch.Tensor) -> torch.Tensor:
     """[Q] bool — allocation already covers the deserved share
     (proportion.go:198-209), over the semantic dims."""
-    cols = semantic_cols(quanta.shape[-1])
-    return (deserved <= alloc + quanta)[..., cols].all(dim=-1)
+    sem = semantic_mask(quanta.shape[-1], quanta.device)
+    return ((deserved <= alloc + quanta) | ~sem).all(dim=-1)
 
 
 def queue_share(alloc: torch.Tensor, deserved: torch.Tensor) -> torch.Tensor:
     """[Q] — dominant allocated/deserved ratio (proportion.go:156-169);
     lower share schedules first."""
-    cols = semantic_cols(alloc.shape[-1])
-    d = deserved[..., cols]
-    ratios = torch.where(d > 0, alloc[..., cols] / d.clamp(min=1e-9), 0.0)
-    return ratios.amax(dim=-1)
+    ratios = torch.where(deserved > 0, alloc / deserved.clamp(min=1e-9), 0.0)
+    return _semantic_amax(ratios)

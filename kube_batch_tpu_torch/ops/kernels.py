@@ -12,9 +12,10 @@ Both replace Pallas kernels of ``kube_batch_tpu/ops/pallas_kernels.py``:
 Each wrapper takes its plain PyTorch version (``*_plain``, beside it) for a
 tensor on the CPU, and only then; for a CUDA tensor it launches the kernel
 or raises.  Each launch adds one to ``launches[name]`` (the enqueue gate,
-``ops/admission.py``, counts here too).  The tie hash and
-the f32 sort key live here, where both the kernels' plain versions and the
-solve (``ops/assignment.py``) read them.
+``ops/admission.py``, counts here too).  Each wrapper is
+``utils/seams.opaque``: the device-program audit records it as one call.
+The tie hash and the f32 sort key live here, where both the kernels' plain
+versions and the solve (``ops/assignment.py``) read them.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from kube_batch_tpu_torch.ops.feasibility import fits
+from kube_batch_tpu_torch.utils.seams import opaque
 
 NEG = -3.0e38
 #: node-block width of K2's winner triples (the JAX package's TOPK_BLOCK)
@@ -149,6 +151,7 @@ def _raise_on(lib, rc: int, name: str) -> None:
         )
 
 
+@opaque
 def masked_best_node_raw(score, static_ok, task_req, idle, releasing,
                          pending, quanta, t0: int = 0, n0: int = 0, rows=None):
     """K1, the fused round head: (best [T] i32, val [T] f32, hash [T] f32,
@@ -199,6 +202,7 @@ def masked_best_node_raw(score, static_ok, task_req, idle, releasing,
     return best, val, hsh, chose
 
 
+@opaque
 def masked_topk_blocks(score_static, task_req, idle, releasing, rows,
                        quanta, n0: int = 0):
     """K2, the fused candidate-table build: (skey [P, N] i32, bval, bhash,

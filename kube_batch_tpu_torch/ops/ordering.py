@@ -151,7 +151,7 @@ def virtual_task_ranks(
     prefix_q = segmented_prefix(rq[order_q], q_start)
     vq_sorted = fairness.queue_share(queue_alloc[qs] + prefix_q, deserved[qs])
     v_q = _scatter_back(order_q, vq_sorted)
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=v_q.device)
+    inf = torch.full((), float("inf"), dtype=torch.float32, device=v_q.device)
     head_vq = torch.full((n_jobs,), float("inf"), dtype=torch.float32,
                          device=v_q.device).scatter_reduce_(
         0, tj, torch.where(in_chunk, v_q, inf), reduce="amin")

@@ -70,6 +70,7 @@ from kube_batch_tpu_torch.ops.eviction import (
     victim_running,
 )
 from kube_batch_tpu_torch.ops.feasibility import failure_histogram, fits
+from kube_batch_tpu_torch.utils.seams import round_end
 
 #: the enqueue action's 20% overcommit (enqueue.go:74-81); the admission
 #: verdict mirrors it
@@ -137,8 +138,8 @@ def _gang_view(snap: DeviceSnapshot, req, valid, min_avail, queue, prio,
 
     # best effort = every semantic request below its quantum; such members
     # are never solver-pending
-    sem = fairness.semantic_cols(R)
-    best_effort = (req[:, sem] < snap.quanta[sem]).all(dim=1)
+    sem = fairness.semantic_mask(R, dev)
+    best_effort = ((req < snap.quanta) | ~sem).all(dim=1)
     pending = valid & ~best_effort
     # member creation order = submission order: only the order among the
     # gang's members matters (they are the only candidates)
@@ -150,7 +151,12 @@ def _gang_view(snap: DeviceSnapshot, req, valid, min_avail, queue, prio,
         0, qsafe.long().reshape(1), torch.where(queue >= 0, gang_req, 0.0)[None])
 
     def app(arr, value):
-        return torch.cat([arr, torch.as_tensor(value, device=dev).to(arr.dtype).reshape(1)])
+        # a Python value is filled on the device: never a blocking upload
+        if isinstance(value, torch.Tensor):
+            tail = value.to(arr.dtype).reshape(1)
+        else:
+            tail = torch.full((1,), value, dtype=arr.dtype, device=dev)
+        return torch.cat([arr, tail])
 
     J = snap.job_min_avail.shape[0]  # the appended job's row
     return snap._replace(
@@ -297,7 +303,7 @@ def _evict_probe(snap: DeviceSnapshot, req, pending, queue, min_avail,
         claim_node = torch.where(new_claim, best, claim_node)
         evicted = evicted | final_take
         i += 1
-        progress = bool(new_claim.any())  # host sync, once per round
+        progress = round_end(new_claim.any())  # host sync, once per round
 
     if config.gang:
         # preempt's commit gate: the allocate pass's placements plus the
@@ -357,11 +363,13 @@ def probe_solve(snap: DeviceSnapshot, batch: ProbeBatch, probe_rows: torch.Tenso
         # committed cycle's histogram for the submitted gang's rows
         fit0 = (fits(view.task_req, snap.node_idle, snap.quanta)
                 | fits(view.task_req, snap.node_releasing, snap.quanta))
-        qsafe = g.queue.clamp(0, Q - 1).long()
-        queue_known = (g.queue >= 0) & (g.queue < Q) & snap.queue_valid[qsafe]
+        # a [1] index, not a 0-d one: indexing with a 0-d tensor reads it
+        # back to the host first
+        q1 = g.queue.clamp(0, Q - 1).long().reshape(1)
+        queue_known = (g.queue >= 0) & (g.queue < Q) & snap.queue_valid[q1][0]
         enqueue_ok = _admission_verdict(
             oc_idle, snap.quanta, g.min_res, g.has_min_res,
-            snap.queue_alloc[qsafe], snap.queue_capability[qsafe], queue_known)
+            snap.queue_alloc[q1][0], snap.queue_capability[q1][0], queue_known)
         if with_evictions:
             def bid_fn(claimant_ok, cap, g=g, static_ok=static_ok, score=score):
                 feas = static_ok & claimant_ok[:, None] & fits(g.req, cap, snap.quanta)

@@ -452,25 +452,25 @@ def sentinel_sharded_warm_allocate_solve(snap, pend_rows, table, plan, config,
     return res, verdict, hist, eligibility_checksum(g), table2, eroded
 
 
-def sharded_failure_histogram(snap, mesh=None):
+def sharded_failure_histogram(snap, mesh=None, impl=None):
     """[T, N_REASONS] i32 over the mesh: per-shard partial counts, one sum."""
     from kube_batch_tpu_torch.ops.assignment import failure_histogram_solve
     from kube_batch_tpu_torch.parallel import shard_solve
 
     ss = _placed(snap, mesh)
-    if _impl(None) == "pjit":
+    if _impl(impl) == "pjit":
         return failure_histogram_solve(ss.gathered())
     return shard_solve.failure_histogram_shard_map(ss)
 
 
-def sharded_failure_histogram_bucket(snap, pend_rows, mesh=None):
+def sharded_failure_histogram_bucket(snap, pend_rows, mesh=None, impl=None):
     """The histogram on the [P] pending bucket (1-D meshes)."""
     from kube_batch_tpu_torch.ops.assignment import failure_histogram_bucket_solve
     from kube_batch_tpu_torch.parallel import shard_solve
 
     ss = _placed(snap, mesh)
     _check_1d(ss, "the bucketed histogram")
-    if _impl(None) == "pjit":
+    if _impl(impl) == "pjit":
         return failure_histogram_bucket_solve(ss.gathered(), pend_rows.to(ss.mesh.first))
     return shard_solve.failure_histogram_bucket_shard_map(ss, pend_rows)
 
@@ -500,14 +500,14 @@ def sentinel_sharded_evict_solve(snap, config, mesh=None, impl=None):
 
 
 def sharded_probe_solve(snap, batch, probe_rows, mesh, config, evict_config,
-                        with_evictions: bool = False):
+                        with_evictions: bool = False, impl=None):
     """The batched what-if probe over the mesh: K1 per shard at the probe's
     rows, every ProbeResult field on the first device."""
     from kube_batch_tpu_torch.ops.probe import probe_solve
     from kube_batch_tpu_torch.parallel import shard_solve
 
     ss = _placed(snap, mesh)
-    if _impl(None) == "pjit":
+    if _impl(impl) == "pjit":
         dev0 = ss.mesh.first
         return probe_solve(ss.gathered(), type(batch)(*(f.to(dev0) for f in batch)),
                            probe_rows.to(dev0), config, evict_config, with_evictions)

@@ -24,7 +24,10 @@ device, through ``ops/assignment.allocate_rounds`` and
 ``ops/eviction.evict_rounds`` — the JAX package runs it replicated on
 every shard; the outputs are equal.  Each round the tail's ledgers and
 pending mask are sliced back to each position's device (a no-op where the
-position shares the first device).
+position shares the first device).  Those moves are not collectives of
+the JAX package's program, whose tail runs on every shard: they are
+counted apart (``Collectives.move``), per round with their bytes and
+shapes, as what a mesh of distinct cards would move.
 
 Each collective counts its result bytes, per round and per solve, under
 the JAX package's definition (``utils/jitstats.collective_inventory``: a
@@ -71,21 +74,37 @@ TIME_COLLECTIVES = False
 class Collectives:
     """One solve's collectives: per phase ("per_round", "per_solve") and
     primitive, the count and the result bytes; the rounds run; and, when
-    ``TIME_COLLECTIVES`` is set, their wall ms."""
+    ``TIME_COLLECTIVES`` is set, their wall ms.  ``sites`` lists every
+    collective and every move of the tail back to a position, one dict
+    each (kind, phase, round, bytes, shape); the moves are not in
+    ``ops``."""
 
     def __init__(self, mesh, kind: str):
         self.mesh = mesh
         self.kind = kind
         self.ops = {"per_round": {}, "per_solve": {}}
+        self.sites: List[dict] = []
         self.rounds = 0
         self.ms = {"per_round": 0.0, "per_solve": 0.0}
         self.timing = TIME_COLLECTIVES
         last_collectives[kind] = self
 
-    def note(self, phase: str, prim: str, nbytes: int) -> None:
+    def note(self, phase: str, prim: str, out: torch.Tensor) -> None:
+        """One collective whose result is ``out``."""
         rec = self.ops[phase].setdefault(prim, {"count": 0, "bytes": 0})
         rec["count"] += 1
-        rec["bytes"] += int(nbytes)
+        rec["bytes"] += _nbytes(out)
+        self._site(prim, phase, out)
+
+    def move(self, t: torch.Tensor, d) -> torch.Tensor:
+        """``t`` from the first device to a position's device ``d`` inside
+        the round loop, counted whether or not ``d`` is another device."""
+        self._site("move", "per_round", t)
+        return t.to(d)
+
+    def _site(self, kind: str, phase: str, t: torch.Tensor) -> None:
+        self.sites.append({"kind": kind, "phase": phase, "round": self.rounds,
+                           "bytes": _nbytes(t), "shape": tuple(t.shape)})
 
     def _sync(self) -> None:
         for d in self.mesh.distinct():
@@ -155,7 +174,7 @@ def _gather_nodes(acct: Collectives, local: Dict, dev0, dim: int = 0, row: int =
     if len(parts) == 1:
         return parts[0]
     out = torch.cat(parts, dim)
-    acct.note("per_solve", "all_gather", _nbytes(out))
+    acct.note("per_solve", "all_gather", out)
     return out
 
 
@@ -165,7 +184,7 @@ def _gather_tasks(acct: Collectives, blocks: List[torch.Tensor]):
     if len(blocks) == 1:
         return blocks[0]
     out = torch.cat(blocks)
-    acct.note("per_round", "all_gather", _nbytes(out))
+    acct.note("per_round", "all_gather", out)
     return out
 
 
@@ -174,7 +193,7 @@ def _psum(acct: Collectives, phase: str, local: Dict, dev0, row: int = 0):
     on the first device; counted at one part's size (the JAX psum's
     result)."""
     parts = acct.timed(phase, lambda: collect(acct.mesh, local, dev0, row))
-    acct.note(phase, "psum", _nbytes(parts[0]))
+    acct.note(phase, "psum", parts[0])
     out = parts[0]
     for p in parts[1:]:
         out = out + p
@@ -237,7 +256,7 @@ def _combine_best(acct: Collectives, payloads: Dict, dev0, row: int = 0,
     parts = acct.timed("per_round", lambda: collect(acct.mesh, local, dev0, row))
     g = torch.stack(parts)                                  # [S, 3|4, T]
     if count:
-        acct.note("per_round", "all_gather", _nbytes(g))
+        acct.note("per_round", "all_gather", g)
     gv, gk, gi = g[:, 0], g[:, 1], g[:, 2]
     vmax_k = gv.amax(dim=0)
     vmax = _inv_sort_key(vmax_k)
@@ -305,9 +324,9 @@ def allocate_shard_map(ss, config):
                 if i != row:
                     continue
                 pick, val, hsh, chose = masked_best_node_raw(
-                    score, ok, req, idle_g[n0:n0 + N_loc].to(d),
-                    rel_g[n0:n0 + N_loc].to(d), pending[t0:t0 + T_blk].to(d), q,
-                    t0=t0, n0=n0)
+                    score, ok, req, acct.move(idle_g[n0:n0 + N_loc], d),
+                    acct.move(rel_g[n0:n0 + N_loc], d),
+                    acct.move(pending[t0:t0 + T_blk], d), q, t0=t0, n0=n0)
                 payload[(i, j)] = (val, hsh.to(i32), pick + n0, chose.to(i32))
             vmax, best, chose = _combine_best(acct, payload, grid.dev0, row, count=row == 0)
             best_b.append(best)
@@ -338,7 +357,7 @@ def _merge_candidates(grid: _Grid, acct: Collectives, payload: Dict, P: int, K: 
     the merge: shard-major concatenation (positions ascend with the global
     node index), the exact lexicographic top-K, the summed feasible count."""
     g = torch.stack(acct.timed("per_solve", lambda: collect(grid.mesh, payload, grid.dev0)))
-    acct.note("per_solve", "all_gather", _nbytes(g))
+    acct.note("per_solve", "all_gather", g)
 
     def cat(a, b):
         return g[:, :, a:b].permute(1, 0, 2).reshape(P, -1)
@@ -459,7 +478,7 @@ def evict_shard_map(ss, config):
                 if b["i"] != row:
                     continue
                 s, d, R = b["s"], b["d"], b["s"].task_req.shape[1]
-                vo = victim_ok.to(d)
+                vo = acct.move(victim_ok, d)
                 vnode = b["vnode"]
                 in_shard = (vnode >= 0) & (vnode < N_loc)
                 vreq = torch.where((vo & in_shard)[:, None], s.task_resreq, 0.0)
@@ -470,7 +489,7 @@ def evict_shard_map(ss, config):
                                           b["Q"] * N_loc).view(b["Q"], N_loc, R)
                 cap = per_qn if preempt else tot_v[None] - per_qn
                 capq = cap + s.quanta
-                co = claimant_ok[b["t0"]:b["t0"] + T_blk].to(d)
+                co = acct.move(claimant_ok[b["t0"]:b["t0"] + T_blk], d)
                 feas = b["static_ok"] & (co & b["q_ok"])[:, None]
                 req = b["view"].task_req
                 for r in range(R):
@@ -520,7 +539,7 @@ def failure_histogram_shard_map(ss):
     if len(blocks) == 1:
         return blocks[0]
     out = torch.cat(blocks)
-    acct.note("per_solve", "all_gather", _nbytes(out))
+    acct.note("per_solve", "all_gather", out)
     return out
 
 
@@ -599,9 +618,9 @@ def probe_shard_map(ss, batch, probe_rows, config, evict_config, with_evictions:
             payload = {}
             for i, j, d, s, n0, g, view, ok, score in blocks:
                 pick, val, hsh, chose = masked_best_node_raw(
-                    score, ok, view.task_req, idle_g[n0:n0 + N_loc].to(d),
-                    rel_g[n0:n0 + N_loc].to(d), pending.to(d), s.quanta, n0=n0,
-                    rows=rows_d[d])
+                    score, ok, view.task_req, acct.move(idle_g[n0:n0 + N_loc], d),
+                    acct.move(rel_g[n0:n0 + N_loc], d), acct.move(pending, d), s.quanta,
+                    n0=n0, rows=rows_d[d])
                 payload[(i, j)] = (val, hsh.to(i32), pick + n0, chose.to(i32))
             vmax, best, chose = _combine_best(acct, payload, dev0, grid.row0)
             return best, vmax > NEG, chose > 0
@@ -612,17 +631,17 @@ def probe_shard_map(ss, batch, probe_rows, config, evict_config, with_evictions:
             (i, j): failure_histogram(view, ok, fits(view.task_req, s.node_idle, s.quanta)
                                       | fits(view.task_req, s.node_releasing, s.quanta))
             for i, j, d, s, n0, g, view, ok, score in blocks}, dev0, grid.row0)
-        qsafe = g0.queue.clamp(0, Q - 1).long()
-        queue_known = (g0.queue >= 0) & (g0.queue < Q) & s0.queue_valid[qsafe]
+        q1 = g0.queue.clamp(0, Q - 1).long().reshape(1)  # not 0-d: no readback
+        queue_known = (g0.queue >= 0) & (g0.queue < Q) & s0.queue_valid[q1][0]
         enqueue_ok = prb._admission_verdict(
             oc_idle, s0.quanta, g0.min_res, g0.has_min_res,
-            s0.queue_alloc[qsafe], s0.queue_capability[qsafe], queue_known)
+            s0.queue_alloc[q1][0], s0.queue_capability[q1][0], queue_known)
         if with_evictions:
             def bid_fn(claimant_ok, cap, blocks=blocks):
                 payload = {}
                 for i, j, d, s, n0, g, view, ok, score in blocks:
-                    feas = (ok & claimant_ok.to(d)[:, None]
-                            & fits(g.req, cap[n0:n0 + N_loc].to(d), s.quanta))
+                    feas = (ok & acct.move(claimant_ok, d)[:, None]
+                            & fits(g.req, acct.move(cap[n0:n0 + N_loc], d), s.quanta))
                     lval, lkey, lidx, _pick = _local_best(torch.where(feas, score, NEG),
                                                           ties[(i, j)], n0)
                     payload[(i, j)] = (lval, lkey, lidx, None)

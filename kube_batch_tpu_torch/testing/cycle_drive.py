@@ -244,7 +244,9 @@ def count_syncs(device: torch.device):
     """Count the host↔device synchronisations inside the block (CUDA's
     sync-debug warnings: every blocking copy and scalar read); yields a
     one-element list that holds the count afterwards.  On the CPU the
-    count stays 0."""
+    count stays 0.  The notice the first switch to the sync-debug mode
+    prints in a process ("... does not detect all synchronizing
+    operations") is not a sync and is not counted."""
     box = [0]
     if device.type != "cuda":
         yield box
@@ -256,7 +258,8 @@ def count_syncs(device: torch.device):
             yield box
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    box[0] = sum(1 for w in caught if "synchroniz" in str(w.message))
+    box[0] = sum(1 for w in caught
+                 if "called a synchronizing CUDA operation" in str(w.message))
 
 
 @contextlib.contextmanager

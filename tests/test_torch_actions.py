@@ -23,6 +23,7 @@ from kube_batch_tpu_torch.framework.interface import get_action
 from kube_batch_tpu_torch.framework.session import close_session, open_session
 from fixtures import GiB, build_node, build_pod
 from test_torch_cycle import _assert_same, _from_events, observed
+from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
 
 
 def run_both(events, action_names):

@@ -23,6 +23,7 @@ from kube_batch_tpu_torch.testing.kernel_bench import (
     gate_corners,
     gate_tensors,
 )
+from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
 
 CASES = dict(gate_corners(), main=gate_case())
 

@@ -30,6 +30,7 @@ from kube_batch_tpu_torch.cli import whatif as port_whatif_cli
 from kube_batch_tpu_torch.cmd import main as port_main
 from kube_batch_tpu_torch.cmd import options as port_options
 from fixtures import GiB, build_node, build_pod
+from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
 
 ARGVS = [
     [],

@@ -60,6 +60,7 @@ from kube_batch_tpu_torch.scheduler import Scheduler
 from kube_batch_tpu_torch.testing import synthetic as port_synth
 from kube_batch_tpu_torch.testing.cycle_drive import oracle_switches
 from fixtures import GiB, build_node, build_pod
+from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
 
 N_CYCLES = 3
 

@@ -48,6 +48,7 @@ from kube_batch_tpu_torch.framework.session import close_session, open_session
 from kube_batch_tpu_torch.plugins.gang import GangPlugin
 from kube_batch_tpu_torch.scheduler import Scheduler
 from test_torch_cycle import _assert_same, apply, observed
+from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
 
 GiB = float(1 << 30)
 

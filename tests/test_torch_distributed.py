@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 from kube_batch_tpu_torch.api.convert import snapshot_to_numpy
+from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
 
 
 @pytest.mark.slow

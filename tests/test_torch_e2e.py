@@ -23,6 +23,7 @@ import time
 import pytest
 
 from kube_batch_tpu_torch.testing import e2e
+from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

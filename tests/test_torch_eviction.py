@@ -24,6 +24,7 @@ from kube_batch_tpu.testing.synthetic import synthetic_overcommit_cluster
 from kube_batch_tpu_torch.api.convert import snapshot_from_numpy
 from kube_batch_tpu_torch.ops.eviction import EvictConfig, evict_solve
 from fixtures import GiB, build_cache, build_node, build_pod
+from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
 
 
 def _snapshot(cache):

@@ -50,6 +50,7 @@ from kube_batch_tpu_torch.ops.eviction import EvictConfig, EvictResult
 from kube_batch_tpu_torch.scheduler import Scheduler
 from test_torch_cycle import apply
 from test_torch_warm import session_snapshot
+from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
 
 CPU = torch.device("cpu")
 GiB = float(1 << 30)

@@ -42,6 +42,7 @@ from kube_batch_tpu_torch.framework.session import close_session, open_session
 from kube_batch_tpu_torch.scheduler import Scheduler
 from kube_batch_tpu_torch.testing.synthetic import synthetic_cluster
 from test_torch_cycle import FIXTURES, apply, kubelet, mirror, observed
+from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -35,6 +35,7 @@ from kube_batch_tpu_torch.cache.cache import SchedulerCache
 from kube_batch_tpu_torch.scheduler import Scheduler
 from kube_batch_tpu_torch.testing.cycle_drive import isolated_cycle
 from test_torch_cycle import CONFS, FIXTURES, _assert_same, apply, kubelet, observed
+from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
 
 GiB = float(1 << 30)
 

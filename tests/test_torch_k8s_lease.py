@@ -23,6 +23,7 @@ import kube_batch_tpu_torch.cmd.leader_election as port_le
 import kube_batch_tpu_torch.k8s.transport as port_transport
 
 from test_server import _LeaseStub
+from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
 
 PKGS = {"jax": (jax_le, jax_transport), "port": (port_le, port_transport)}
 STAMPS = ("renewTime", "acquireTime")

@@ -33,6 +33,7 @@ from kube_batch_tpu_torch.api import pod as port_pod
 from kube_batch_tpu_torch.testing import k8s_drive
 
 import test_k8s_shim as shim
+from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
 
 MODS = (jax_translate, port_translate)
 FIXTURES = shim.FIXTURES

@@ -43,6 +43,7 @@ import kube_batch_tpu_torch.metrics.metrics as port_metrics
 from kube_batch_tpu.scheduler import Scheduler as JaxScheduler
 from kube_batch_tpu_torch.scheduler import Scheduler
 from test_torch_cycle import CONFS, FIXTURES, _assert_same, apply, kubelet, observed
+from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
 
 REGISTRIES = {"jax": jax_metrics, "port": port_metrics}
 

@@ -24,6 +24,7 @@ from kube_batch_tpu.testing.synthetic import synthetic_device_snapshot
 from kube_batch_tpu_torch.api.convert import snapshot_from_numpy
 from kube_batch_tpu_torch.ops import fairness, feasibility, ordering, scoring
 from kube_batch_tpu_torch.ops.assignment import f32_sort_key, lex_topk
+from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
 
 
 def _t(a):

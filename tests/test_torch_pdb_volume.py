@@ -44,6 +44,7 @@ from kube_batch_tpu_torch.framework.session import close_session, open_session
 from kube_batch_tpu_torch.testing.cycle_drive import oracle_switches
 from fixtures import GiB, build_node, build_pod
 from test_torch_cycle import _assert_same, _from_events, mirror, observed
+from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
 
 REPO = Path(__file__).resolve().parent.parent
 

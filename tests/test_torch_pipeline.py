@@ -39,6 +39,7 @@ from kube_batch_tpu_torch.framework.session import close_session, open_session
 from kube_batch_tpu_torch.scheduler import CycleTrigger, Scheduler
 from kube_batch_tpu_torch.testing.cycle_drive import oracle_switches
 from test_torch_cycle import CONFS, _assert_same, mirror, observed
+from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
 
 GiB = float(1 << 30)
 

@@ -44,6 +44,7 @@ from test_torch_delta import (
     port_cluster,
     run_actions,
 )
+from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
 
 CPU = torch.device("cpu")
 #: realistic capacities: with tiny columns the cache rightly prefers whole

@@ -48,6 +48,7 @@ from kube_batch_tpu_torch.api import serialize as port_serialize
 from fixtures import GiB, build_node, build_pod
 from test_torch_cycle import mirror
 from test_torch_metrics import recording, span_tree
+from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
 
 #: allocate only, over the built-in tiers: both leaders publish one record
 #: a cycle, so the frames compare byte for byte

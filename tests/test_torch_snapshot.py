@@ -28,6 +28,7 @@ from kube_batch_tpu_torch.api.snapshot import BITSET_FIELDS, DeviceSnapshot, buc
 from kube_batch_tpu_torch.device import resolve_device
 from kube_batch_tpu_torch.ops.assignment import AllocateConfig
 from kube_batch_tpu_torch.testing.synthetic import synthetic_device_snapshot
+from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -118,7 +119,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     Lease while it binds a gang over HTTP, the chip drive's writers), then
     the simulator (the fault preset's node crash, the CLI's smoke run),
     then the multi-device solve (``parallel/``: a sharded solve on a
-    4-shard CPU mesh and the dryrun), leaves no jax, no kube_batch_tpu and no yaml module loaded
+    4-shard CPU mesh and the dryrun), then the device-program audits
+    (``analysis/``: both tiers over the single-device registry on the CPU),
+    leaves no jax, no kube_batch_tpu and no yaml module loaded
     (kube_batch_tpu_torch itself shares the prefix, so the match is exact
     on the package name)."""
     code = textwrap.dedent("""
@@ -357,6 +360,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             300, 256, seed=1, device="cpu")[0], AllocateConfig(), mesh)
         assert (sres.assigned >= 0).any()
         assert dryrun.run(4, "cpu")["bucket_5120_equal"]
+        from kube_batch_tpu_torch.analysis import memory_audit, program_audit
+        runs = {}
+        assert program_audit.run_audit(program_audit.REGISTRY, "cpu", runs=runs) == []
+        assert memory_audit.run_memory_audit(program_audit.REGISTRY, device="cpu",
+                                             runs=runs) == []
         bad = sorted(n for n in sys.modules
                      if n in ("jax", "jaxlib", "yaml") or n.startswith(("jax.", "jaxlib.", "yaml."))
                      or n == "kube_batch_tpu" or n.startswith("kube_batch_tpu."))

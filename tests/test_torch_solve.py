@@ -49,6 +49,7 @@ from kube_batch_tpu_torch.ops.assignment import (
     allocate_solve,
     allocate_topk_solve,
 )
+from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
 
 
 def _session_snapshot(cache):

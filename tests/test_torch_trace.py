@@ -48,6 +48,7 @@ from kube_batch_tpu_torch.obs.recorder import FlightRecorder
 from kube_batch_tpu_torch.scheduler import Scheduler
 from test_torch_cycle import mirror
 from test_torch_metrics import record_tree, recording, span_tree
+from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
 
 GiB = float(1 << 30)
 

@@ -24,6 +24,7 @@ import pytest
 
 import kube_batch_tpu.k8s.transport as jax_transport
 import kube_batch_tpu_torch.k8s.transport as port_transport
+from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
 
 MODS = (jax_transport, port_transport)
 

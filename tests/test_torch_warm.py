@@ -40,6 +40,7 @@ from kube_batch_tpu_torch.api.convert import (
     snapshot_from_numpy,
 )
 from kube_batch_tpu_torch.ops import assignment as pasg
+from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
 
 CPU = torch.device("cpu")
 

@@ -42,6 +42,7 @@ from kube_batch_tpu_torch.serve.lease import LeaseBroker, SnapshotLease
 from kube_batch_tpu_torch.serve.plane import QueryPlane, WhatifError
 from fixtures import GiB, build_node, build_pod
 from test_torch_cycle import mirror
+from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
 
 CONF = load_scheduler_conf(None)
 LEGS = ("contract", "jax")
