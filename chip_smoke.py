@@ -162,7 +162,17 @@ three queues, 12 virtual cycles — with the defaults and with
 compacted cycles in the defaults leg; one JSON line per cycle and leg
 (its wall split into events applied, ``run_once``, kubelet drain and
 metrics sample), then the virtual-time p50 / p99 of job wait, JCT and pod arrival → bind.
-The audit phase
+The lockdep phase (``testing/lock_drive.py``, 4 096 × 1 024) installs the
+port's lock checker and its guarded-access corroborator and drives every
+threaded surface of one standalone server under them: HTTP ingest,
+``run_forever`` pipelined over single-pod arrivals (some carrying
+MinResources, so the gate launches), ``/v1/whatif`` through the batcher and
+the lease, the publisher with a follower on the card; it fails on any
+violation, on fewer than the four hot structures instrumented, or when K1,
+K2 or the gate did not launch under the checker, and prints the edges and
+the five sites with the most wait.  Its ``static`` line runs tiers A and D
+of the analyzer over the installed package tree, which must have no
+finding.  The audit phase
 (``kube_batch_tpu_torch/analysis``), run right after the build while the
 card holds nothing else, runs every registered device program once under
 the recorder: the single-device registry and the sharded one (four
@@ -190,6 +200,7 @@ import json
 import os
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -314,6 +325,44 @@ def phase_audit():
         fail(f"audit: {len(found)} finding(s): {[f.render() for f in found][:5]}")
     if gaps:
         fail(f"audit: recorded syncs differ from the sync-debug count: {gaps}")
+
+
+def phase_lockdep():
+    """The port's lock checker on the card (``testing/lock_drive.py``): with
+    the checker and the guarded-access corroborator installed, the
+    standalone server at mid size takes the cluster over HTTP, runs the
+    pipelined ``run_forever`` over single-pod arrivals (every other one with
+    MinResources, so the gate launches), answers ``/v1/whatif`` through the
+    batcher and the lease, and a follower on the card applies its
+    publisher's records and answers from its own plane.  No violation, the
+    four hot structures instrumented, K1, K2 and the gate launched under the
+    checker.  Then tiers A and D over the installed package tree: no
+    finding."""
+    from kube_batch_tpu_torch.analysis.engine import iter_python_files, run_paths
+    from kube_batch_tpu_torch.analysis.races import RACE_RULES
+    from kube_batch_tpu_torch.analysis.rules import ALL_RULES
+    import kube_batch_tpu_torch
+    from kube_batch_tpu_torch.testing.lock_drive import drive_lockdep
+
+    t_phase = time.perf_counter()
+    r = drive_lockdep(MID_TASKS, MID_NODES, device="cuda")
+    emit("lockdep", shape=[MID_TASKS, MID_NODES], **r)
+    if r["violations"]:
+        fail(f"lockdep: {r['violations']} violation(s): {r['violation_descriptions']}")
+    if r["guarded"] != 4:
+        fail(f"lockdep: {r['guarded']} of 4 hot structures instrumented")
+    if not all(r["launches"][k] for k in KERNELS):
+        fail(f"lockdep: a kernel was not launched under the checker: {r['launches']}")
+    t0 = time.perf_counter()
+    tree = os.path.dirname(kube_batch_tpu_torch.__file__)
+    found = run_paths([tree], rules=list(ALL_RULES) + list(RACE_RULES))
+    emit("static", tiers="A+D", tree=tree,
+         files=sum(1 for _ in iter_python_files([Path(tree)])),
+         rules=len(ALL_RULES) + len(RACE_RULES), findings=[f.render() for f in found],
+         seconds=time.perf_counter() - t0, phase_s=time.perf_counter() - t_phase)
+    if found:
+        fail(f"static: {len(found)} finding(s): {[f.render() for f in found][:5]}")
+    return r["launches"]
 
 
 def phase_kernels(snap):
@@ -1544,6 +1593,7 @@ def run_phases(stub) -> int:
     smi = phase_device()
     phase_build()
     phase_audit()
+    lockdep_launches = phase_lockdep()
     main_kw = dict(n_tasks=N_TASKS, n_nodes=N_NODES, gang_size=GANG,
                    n_queues=N_QUEUES, seed=0, device="cuda")
     snap, _meta = synthetic_device_snapshot(**main_kw)
@@ -1639,6 +1689,7 @@ def run_phases(stub) -> int:
              server_follower_launches=server["follower"]["k1_launches"],
              k8s_launches=k8s_launches["masked_best_node_raw"],
              sim_launches=sim_launches["masked_best_node_raw"],
+             lockdep_launches=lockdep_launches["masked_best_node_raw"],
              shard_launches={"full": shard_launches["full"]["masked_best_node_raw"],
                              "full_2x2": shard_launches["full_2x2"]["masked_best_node_raw"],
                              **shard_cycle_launches["masked_best_node_raw"]},
@@ -1664,6 +1715,7 @@ def run_phases(stub) -> int:
              server_launches=server["launches"]["masked_topk_blocks"],
              k8s_launches=k8s_launches["masked_topk_blocks"],
              sim_launches=sim_launches["masked_topk_blocks"],
+             lockdep_launches=lockdep_launches["masked_topk_blocks"],
              shard_launches={"compacted": shard_launches["compacted"]["masked_topk_blocks"],
                              **shard_cycle_launches["masked_topk_blocks"]},
              shard_ms=shard_k["K2"]["ms"], shard_shape=shard_k["K2"]["shape"],
@@ -1690,6 +1742,7 @@ def run_phases(stub) -> int:
              server_launches=server["launches"]["enqueue_gate"],
              k8s_launches=k8s_launches["enqueue_gate"],
              sim_launches=sim_launches["enqueue_gate"],
+             lockdep_launches=lockdep_launches["enqueue_gate"],
              shard_launches=shard_cycle_launches["enqueue_gate"]),
     ]
     print(json.dumps({"kernels": summary}))

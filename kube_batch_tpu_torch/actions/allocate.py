@@ -69,6 +69,7 @@ import torch
 from kube_batch_tpu_torch import metrics
 from kube_batch_tpu_torch.api.cluster_info import ClusterInfo
 from kube_batch_tpu_torch.api.columns import resident_snap
+from kube_batch_tpu_torch.api.convert import read_back
 from kube_batch_tpu_torch.api.snapshot import DeviceSnapshot, SnapshotMeta, build_snapshot
 from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.framework.interface import Action
@@ -417,8 +418,8 @@ def result_binds(res: AllocateResult, meta: SnapshotMeta) -> List[Tuple[str, str
     order: every surviving non-pipelined placement (after the solve's last
     revert, each belongs to a committed job).  Pipelined placements wait
     for their node's releasing capacity and are not bound."""
-    assigned = res.assigned.cpu().numpy()[: meta.n_tasks]
-    pipelined = res.pipelined.cpu().numpy()[: meta.n_tasks]
+    assigned, pipelined = read_back((res.assigned, res.pipelined))
+    assigned, pipelined = assigned[: meta.n_tasks], pipelined[: meta.n_tasks]
     rows = np.flatnonzero((assigned >= 0) & ~pipelined)
     return [(meta.task_keys[t], meta.node_names[assigned[t]])
             for t in rows.tolist()]
@@ -474,25 +475,20 @@ def session_allocate_config(ssn) -> AllocateConfig:
 def _read_back(res: AllocateResult, T: int, sentinel=None):
     """(assigned [T] i32, pipelined [T] bool, rounds_run, topk_exhausted,
     topk_reentries, verdict, hist, checksum) of the first T task rows in
-    ONE device-to-host
-    transfer; the sentinel's (verdict, hist, checksum) ride it (0, None, 0
-    without a sentinel), so the guard adds no transfer."""
-    parts = [res.assigned, res.pipelined.to(torch.int32),
-             torch.stack([res.rounds_run, res.topk_exhausted,
-                          res.topk_reentries]).to(torch.int32)]
+    ONE device-to-host transfer (``read_back``); the sentinel's (verdict,
+    hist, checksum) ride it (0, None, 0 without a sentinel), so the guard
+    adds no transfer.  The result rows are the padded task axis; an object
+    snapshot has fewer live tasks (T) than rows."""
+    parts = [res.assigned, res.pipelined, res.rounds_run, res.topk_exhausted,
+             res.topk_reentries]
     if sentinel is not None:
-        verdict, hist, check = sentinel
-        parts += [verdict.reshape(1), hist, check.reshape(1)]
-    packed = torch.cat(parts).cpu().numpy()
-    # the result rows are the padded task axis; an object snapshot has
-    # fewer live tasks (T) than rows (Tr)
-    Tr = int(res.assigned.shape[0])
-    out = (packed[:T], packed[Tr:Tr + T].astype(bool), int(packed[2 * Tr]),
-           int(packed[2 * Tr + 1]), int(packed[2 * Tr + 2]))
+        parts += list(sentinel)
+    got = read_back(parts)
+    out = (got[0][:T], got[1][:T], int(got[2]), int(got[3]), int(got[4]))
     if sentinel is None:
         return out + (0, None, 0)
-    tail = packed[2 * Tr + 3:]
-    return out + (int(tail[0]), tail[1:-1].copy(), int(tail[-1]))
+    verdict, hist, check = got[5:]
+    return out + (int(verdict), hist, int(check))
 
 
 class AllocateAction(Action):
@@ -577,6 +573,9 @@ class AllocateAction(Action):
                                   impl=_dispatch_impl(gp) if sharded else None)
                       if plan[0] is not None else None)
             dev = resident_snap(cols, snap, target)
+            # kbt: allow[KBT014] the upload/solve split of last_phase_ms (a port-only key); a child
+            # span here would change the cycle's span tree, which is held equal to
+            # the JAX package's
             t_up = telemetry.perf_counter()
             result, mode, topk_info, ginfo = dispatch_allocate_solve(
                 dev, config, plan=plan, cols=cols, guard=gp, wstate=wstate,
@@ -661,11 +660,9 @@ class AllocateAction(Action):
                        T: int, mode: str = "single") -> None:
         """Compare the committed fast-path result with the shadow oracle
         (read back after the host replay)."""
-        Ta = audit_dev.assigned.shape[0]
-        a = torch.cat([audit_dev.assigned, audit_dev.pipelined.to(torch.int32)]
-                      ).cpu().numpy()
-        mism = int(np.sum(a[:T] != assigned)
-                   + np.sum(a[Ta:Ta + T].astype(bool) != pipelined))
+        a_assigned, a_pipelined = read_back((audit_dev.assigned, audit_dev.pipelined))
+        mism = int(np.sum(a_assigned[:T] != assigned)
+                   + np.sum(a_pipelined[:T] != pipelined))
         report = {"audit_mismatches": mism, "engaged": ginfo["engaged"],
                   "mode": mode}
         gp.note_audit(

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from kube_batch_tpu_torch.api.columns import PHASE_CODE, READY_STATUSES
+from kube_batch_tpu_torch.api.convert import read_back
 from kube_batch_tpu_torch.api.types import PodGroupPhase
 from kube_batch_tpu_torch.framework.interface import Action
 from kube_batch_tpu_torch.framework.session import JOB_ENQUEUEABLE, JOB_ORDER
@@ -242,9 +243,11 @@ class EnqueueAction(Action):
                 # the one readback
                 admitted_dev, verdict, _hist = enqueue_gate_sentinel_solve(
                     *inputs, n_rows=k)
-                packed = torch.cat([admitted_dev[:k].to(torch.int32),
-                                    verdict.reshape(1)]).cpu().numpy()
-                admitted, bad = packed[:k].astype(bool), int(packed[k])
+                # kbt: allow[KBT010] the enqueue gate's ONE sanctioned
+                # readback: the admitted rows and the sentinel verdict ride
+                # one copy
+                admitted, verdict = read_back((admitted_dev[:k], verdict))
+                bad = int(verdict)
             else:
                 admitted = enqueue_gate(*inputs, n_rows=k).cpu().numpy()[:k]
         sp_gate.set(candidates=int(k))

@@ -31,7 +31,6 @@ from collections import defaultdict
 from typing import Dict, List
 
 import numpy as np
-import torch
 
 from kube_batch_tpu_torch.actions.allocate import (
     build_session_snapshot,
@@ -39,6 +38,7 @@ from kube_batch_tpu_torch.actions.allocate import (
     solve_target,
 )
 from kube_batch_tpu_torch.api.columns import resident_snap
+from kube_batch_tpu_torch.api.convert import read_back
 from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.framework.interface import Action
 from kube_batch_tpu_torch.framework.session import FitFailure
@@ -156,28 +156,24 @@ def solve_claims(ssn, mode: str):
     # cycle's allocate
     republish_query_lease(ssn, snap, meta)
     T = meta.n_tasks
-    Tc = result.claim_node.shape[0]
     # one readback: the three result fields, and the sentinel's verdict,
     # histogram and checksum riding it
-    parts = [result.claim_node, result.evicted.to(torch.int32), result.victim_claimant]
+    parts = [result.claim_node, result.evicted, result.victim_claimant]
     if sentinel is not None:
-        verdict, hist, check = sentinel
-        parts += [verdict.reshape(1), hist, check.reshape(1)]
+        parts += sentinel
     with tracer.device_span("device_wait", action=mode):
-        packed = torch.cat(parts).cpu().numpy()
-    claim_node = packed[:T]
-    evicted = packed[Tc:Tc + T].astype(bool)
-    victim_claimant = packed[2 * Tc:2 * Tc + T]
+        got = read_back(parts)
+    claim_node, evicted, victim_claimant = (a[:T] for a in got[:3])
     stats = {"rounds": rounds, "solve_ms": (telemetry.perf_counter() - t0) * 1e3}
     if sentinel is not None:
-        tail = packed[3 * Tc:]
+        verdict, hist, check = got[3:]
         # host cross-checks: a claim must target a row the host believes
         # pending, a victim one it believes Running (the device copies are
         # what a corruption flips)
         host_bad = int(np.sum((claim_node >= 0) & ~snap.task_pending[:T])
                        + np.sum(evicted & (snap.task_status[:T] != int(TaskStatus.RUNNING))))
-        if not consume_sentinel(gp, mode, ssn, snap, dev, config, int(tail[0]),
-                                tail[1:-1], int(tail[-1]), engaged, host_bad=host_bad):
+        if not consume_sentinel(gp, mode, ssn, snap, dev, config, int(verdict),
+                                hist, int(check), engaged, host_bad=host_bad):
             # condemned: no evictions from it
             return [], stats
 
@@ -195,11 +191,9 @@ def solve_claims(ssn, mode: str):
                victims_by_claim.get(ti, []))
               for ti in np.flatnonzero(claim_node >= 0).tolist()]
     if audit_dev is not None:
-        a = torch.cat([audit_dev.claim_node, audit_dev.evicted.to(torch.int32),
-                       audit_dev.victim_claimant]).cpu().numpy()
-        mism = int(np.sum(a[:T] != claim_node)
-                   + np.sum(a[Tc:Tc + T].astype(bool) != evicted)
-                   + np.sum(a[2 * Tc:2 * Tc + T] != victim_claimant))
+        a = read_back((audit_dev.claim_node, audit_dev.evicted, audit_dev.victim_claimant))
+        mism = int(sum(np.sum(x[:T] != y)
+                       for x, y in zip(a, (claim_node, evicted, victim_claimant))))
         gp.note_audit(
             mode, engaged, mism == 0,
             detail=f"{mode} shard_map-vs-pjit mismatch at {mism} rows",

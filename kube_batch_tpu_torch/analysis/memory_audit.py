@@ -41,6 +41,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 import torch
 
 from kube_batch_tpu_torch.analysis.findings import Finding
+from kube_batch_tpu_torch.device import resolve_device
 
 #: the JAX package's tier-C ids (``hbm_audit.HBM_RULES``), with what each
 #: checks in the port
@@ -249,13 +250,15 @@ class EntryReport:
     findings: List[Tuple[str, str]] = dataclasses.field(default_factory=list)
 
 
-def audit_entry_at(entry, sp: ShapePoint, device="cpu", budget: Optional[int] = None,
+def audit_entry_at(entry, sp: ShapePoint, device=None, budget: Optional[int] = None,
                    label: Optional[str] = None, runs: Optional[Dict] = None) -> EntryReport:
-    """Run one entry at one point (reusing ``runs``, see
-    ``program_audit.cached_run``) and apply KBT201–204.  A build or run
+    """Run one entry at one point on ``device`` (None: the card, which
+    raises without one), reusing ``runs`` (see
+    ``program_audit.cached_run``), and apply KBT201–204.  A build or run
     failure is a KBT000 finding that names the point."""
     from kube_batch_tpu_torch.analysis.program_audit import cached_run
 
+    device = resolve_device(device)
     if budget is None:
         budget, label = budget_bytes(device)
     rep = EntryReport(entry=entry.name, point=sp.name, steady=entry.steady,
@@ -428,15 +431,17 @@ def apply_allowlist(reports: Sequence[EntryReport], entry_names: Sequence[str],
 
 
 def run_memory_audit(registry=None, points: Optional[Sequence[ShapePoint]] = None,
-                     device="cpu", select: Optional[Sequence[str]] = None,
+                     device=None, select: Optional[Sequence[str]] = None,
                      allowlist=None, reports: Optional[list] = None,
                      runs: Optional[Dict] = None) -> List[Finding]:
-    """Every entry at every point on ``device`` (default: the single-device
-    and sharded registries at :func:`points_for`); the allowlisted
-    findings dropped.  ``reports``, a list, receives each
-    :class:`EntryReport`; ``runs`` reuses recorded calls."""
+    """Every entry at every point on ``device`` (None: the card, which
+    raises without one; default registry: the single-device and sharded
+    ones at :func:`points_for`); the allowlisted findings dropped.
+    ``reports``, a list, receives each :class:`EntryReport`; ``runs``
+    reuses recorded calls."""
     from kube_batch_tpu_torch.analysis.program_audit import default_registry
 
+    device = resolve_device(device)
     if registry is None:
         registry = default_registry(device)
     if points is None:
@@ -456,9 +461,11 @@ def run_memory_audit(registry=None, points: Optional[Sequence[ShapePoint]] = Non
 
 
 def headroom_report(registry=None, points: Optional[Sequence[ShapePoint]] = None,
-                    device="cpu") -> Dict:
-    """Bytes against the budget per entry and point: the numbers a
-    benchmark sizes its cells by."""
+                    device=None) -> Dict:
+    """Bytes against the budget per entry and point on ``device`` (None:
+    the card, which raises without one): the numbers a benchmark sizes
+    its cells by."""
+    device = resolve_device(device)
     budget, label = budget_bytes(device)
     if points is None:
         points = points_for(device)

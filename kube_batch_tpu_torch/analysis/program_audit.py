@@ -670,9 +670,11 @@ def judge(entry: EntryPoint, run: Run) -> List[Finding]:
     return findings
 
 
-def audit_entry(entry: EntryPoint, device="cpu", sp: ShapePoint = AUDIT_POINT,
+def audit_entry(entry: EntryPoint, device=None, sp: ShapePoint = AUDIT_POINT,
                 runs: Optional[Dict] = None) -> List[Finding]:
-    return judge(entry, cached_run(runs, entry, sp, device))
+    """KBT101–104 over one entry at ``sp`` on ``device`` (None: the card,
+    which raises without one)."""
+    return judge(entry, cached_run(runs, entry, sp, resolve_device(device)))
 
 
 def default_registry(device) -> Tuple[EntryPoint, ...]:
@@ -688,11 +690,12 @@ def default_registry(device) -> Tuple[EntryPoint, ...]:
     return tuple(REGISTRY) + sharded_registry(make_mesh(devices))
 
 
-def run_audit(registry: Optional[Sequence[EntryPoint]] = None, device="cpu",
+def run_audit(registry: Optional[Sequence[EntryPoint]] = None, device=None,
               select: Optional[Sequence[str]] = None, sp: ShapePoint = AUDIT_POINT,
               runs: Optional[Dict] = None) -> List[Finding]:
-    """Every entry at ``sp`` on ``device``; ``select`` keeps a rule subset
-    (and every KBT000)."""
+    """Every entry at ``sp`` on ``device`` (None: the card, which raises
+    without one); ``select`` keeps a rule subset (and every KBT000)."""
+    device = resolve_device(device)
     if registry is None:
         registry = default_registry(device)
     findings: List[Finding] = []

@@ -73,3 +73,36 @@ def config_from_fields(fields):
 def result_to_numpy(res):
     """An ``AllocateResult`` of numpy arrays (0-d for the scalars)."""
     return type(res)(*(t.detach().cpu().numpy() for t in res))
+
+
+#: byte alignment of each tensor in ``read_back``'s buffer (the widest dtype)
+_PACK_ALIGN = 8
+
+
+def read_back(tensors) -> list:
+    """Tensors of one device as numpy arrays, in ONE blocking copy: the
+    bytes of each (any dtype, 0-d included) are laid end to end in one
+    uint8 buffer on its device, each at an 8-byte offset, with one
+    concatenation; the buffer crosses once, and every array is a view of
+    it in its tensor's shape and dtype.  Nothing is widened, so the copy
+    moves each tensor's own bytes.  A ``.cpu()`` per tensor would wait on
+    the device once per tensor; this is the JAX package's one
+    ``device_get`` of a tuple."""
+    tensors = list(tensors)
+    parts, offsets, o = [], [], 0
+    for t in tensors:
+        b = t.detach().reshape(-1).contiguous().view(torch.uint8)
+        parts.append(b)
+        offsets.append(o)
+        o += b.numel()
+        pad = -b.numel() % _PACK_ALIGN
+        if pad:
+            # never read: uninitialized, so it costs no fill
+            parts.append(torch.empty(pad, dtype=torch.uint8, device=b.device))
+            o += pad
+    flat = torch.cat(parts).cpu().numpy()
+    out = []
+    for t, a in zip(tensors, offsets):
+        dtype = torch.empty((), dtype=t.dtype).numpy().dtype
+        out.append(flat[a:a + t.numel() * dtype.itemsize].view(dtype).reshape(tuple(t.shape)))
+    return out

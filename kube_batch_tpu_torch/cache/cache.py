@@ -288,6 +288,8 @@ class SchedulerCache:
         events).  Advances inside a session are the cycle's own
         bookkeeping, and the cycle's own staged-ingest drain feeds the
         session about to open: neither wakes the trigger."""
+        # kbt: allow[KBT301] lock-free wake hint — a stale read costs at
+        # most one extra (cheap, idempotent) trigger wake, never a miss
         if self._session_active:
             return
         if threading.get_ident() in self._cycle_drain_threads:
@@ -315,8 +317,10 @@ class SchedulerCache:
         """Stage an ingest mutation instead of applying it (True when
         staged).  Off by default; a thread applying ingest directly never
         re-stages.  The wake signal fires outside the staging lock."""
+        # kbt: allow[KBT301] double-checked peek — re-read under the lock
         if not self.ingest_staging:
             return False
+        # kbt: allow[KBT301] own-ident set membership is GIL-atomic
         if threading.get_ident() in self._direct_apply_threads:
             return False
         with self._ingest_lock:
@@ -335,6 +339,7 @@ class SchedulerCache:
         earlier one.  setdefault on a dict is atomic under the GIL; other
         kinds are ignored."""
         if isinstance(obj, Pod) and obj.node_name is None:
+            # kbt: allow[KBT301] setdefault on a plain dict is GIL-atomic
             self._arrival_ts.setdefault(obj.key(), telemetry.perf_counter())
 
     def drain_staged_ingest(self) -> int:
@@ -346,7 +351,11 @@ class SchedulerCache:
         if not staged:
             return 0
         ident = threading.get_ident()
+        # kbt: allow[KBT301] own-ident set ops are GIL-atomic: each thread
+        # only ever adds/discards ITS OWN ident, so no two threads contend
+        # on the same element and a torn composite read is impossible
         nested = ident in self._direct_apply_threads
+        # kbt: allow[KBT301] own-ident set add is GIL-atomic (see above)
         self._direct_apply_threads.add(ident)
         self._cycle_drain_threads.add(ident)
         try:
@@ -359,6 +368,7 @@ class SchedulerCache:
         finally:
             self._cycle_drain_threads.discard(ident)
             if not nested:
+                # kbt: allow[KBT301] own-ident set discard is GIL-atomic
                 self._direct_apply_threads.discard(ident)
         return len(staged)
 
@@ -370,7 +380,9 @@ class SchedulerCache:
         raises drops only its own element."""
         if not ops:
             return 0
+        # kbt: allow[KBT301] double-checked peek — re-read under the lock
         if (self.ingest_staging
+                # kbt: allow[KBT301] own-ident set membership is GIL-atomic
                 and threading.get_ident() not in self._direct_apply_threads):
             with self._ingest_lock:
                 staged = self.ingest_staging
@@ -443,6 +455,7 @@ class SchedulerCache:
         if not ok:
             logger.warning("cache sync signal not received within %.1fs; "
                            "scheduling over %d nodes / %d jobs as-is",
+                           # kbt: allow[KBT301] log-only sizes — stale is fine
                            timeout, len(self.nodes), len(self.jobs))
         return ok
 
@@ -1381,6 +1394,8 @@ class SchedulerCache:
                 condition_only = (own_pg is not None and own_pg.phase == pg.phase
                                   and (own_pg.running, own_pg.failed, own_pg.succeeded)
                                   == (pg.running, pg.failed, pg.succeeded))
+            # kbt: allow[KBT001] status-write rate-limit cadence is wall-clock
+            # by design (job_updater.go:20-31); scheduling decisions never read it
             now = time.monotonic()
             if condition_only and now < self._status_next_write.get(job.uid, 0.0):
                 write = False
@@ -1421,6 +1436,8 @@ class SchedulerCache:
         only: PodGroup clones, rendered ops and decided queue writes."""
         to_write, ops = [], []
         with self._lock:
+            # kbt: allow[KBT001] same wall-clock rate-limit cadence as
+            # update_job_status above — write-stream pacing, not scenario time
             now = time.monotonic()
             next_write = self._status_next_write
             jitter = self._jitter.uniform(60.0, 90.0, size=len(updates)).tolist()
@@ -1479,6 +1496,8 @@ class SchedulerCache:
                 logger.error("queue status write %s failed: %s", name, e)
                 with self._lock:
                     # un-record so the next close retries the delta
+                    # kbt: allow[KBT002] dict .get on the delta-record map
+                    # (the "queue" in its name is QueueStatus, not a Queue)
                     if self._queue_status_written.get(name) == c:
                         del self._queue_status_written[name]
 

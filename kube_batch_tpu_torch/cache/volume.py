@@ -36,6 +36,18 @@ from kube_batch_tpu_torch.api.pod import (
 logger = logging.getLogger("kube_batch_tpu_torch")
 
 
+class _Taken:
+    """One probe's taken-PV state: the task, its picks so far (a live view
+    the caller appends to) and the memoized ledger scan."""
+
+    __slots__ = ("task_uid", "picked", "base")
+
+    def __init__(self, task_uid: str, picked):
+        self.task_uid = task_uid
+        self.picked = picked
+        self.base: Optional[set] = None
+
+
 class StandalonePVBinder:
     """VolumeBinder over a local PV ledger."""
 
@@ -110,10 +122,10 @@ class StandalonePVBinder:
                 held.update(res.values())
         return held
 
-    def _resolve(self, claim: str, hostname: str, held_of) -> Optional[str]:
+    def _resolve(self, claim: str, hostname: str, taken: "_Taken") -> Optional[str]:
         """A PV for ``claim`` reachable from ``hostname``: a durable binding
-        wins, then a pre-bound PV, then any free wildcard PV.  ``held_of()``
-        returns the PVs already taken; it is called only when a free PV must
+        wins, then a pre-bound PV, then any free wildcard PV.  The PVs
+        already taken (``_held(taken)``) are read only when a free PV must
         be found."""
         bound_pv = self.bound.get(claim)
         if bound_pv is not None:
@@ -121,7 +133,7 @@ class StandalonePVBinder:
             if pv is not None and self._reachable(pv, hostname):
                 return bound_pv
             return None
-        held = held_of()
+        held = self._held(taken)
         for pv in self._candidates():
             if pv.claim is not None and pv.claim != claim:
                 continue
@@ -132,17 +144,15 @@ class StandalonePVBinder:
             return pv.name
         return None
 
-    def _held_of(self, task_uid: str, picked):
-        """``_resolve``'s taken-PV thunk: everything bound or reserved by
-        another task, plus this task's picks so far; the ledger scan runs
-        once per call to the outer probe."""
-        base = []
-
-        def held() -> set:
-            if not base:
-                base.append(self._reserved_pvs(excluding_task=task_uid))
-            return base[0] | set(picked)
-        return held
+    def _held(self, taken: "_Taken") -> set:
+        """The PVs taken for ``taken.task_uid``: everything bound or
+        reserved by another task, plus this task's picks so far; the ledger
+        scan runs once per outer probe (memoized on ``taken``).  A method
+        of its own, called only from the resolvers under the lock, so that
+        tier D credits the ledger reads with the lock."""
+        if taken.base is None:
+            taken.base = self._reserved_pvs(excluding_task=taken.task_uid)
+        return taken.base | set(taken.picked)
 
     def volume_feasible(self, task, hostname: str) -> bool:
         """A probe without side effects: could ``allocate_volumes`` succeed
@@ -152,9 +162,9 @@ class StandalonePVBinder:
             return True
         with self._lock:
             picked: list = []
-            held_of = self._held_of(task.uid, picked)
+            taken = _Taken(task.uid, picked)
             for claim in claims:
-                pv = self._resolve(claim, hostname, held_of)
+                pv = self._resolve(claim, hostname, taken)
                 if pv is None:
                     return False
                 picked.append(pv)
@@ -173,9 +183,9 @@ class StandalonePVBinder:
             if not claims:
                 return
             picked: Dict[str, str] = {}
-            held_of = self._held_of(task.uid, picked.values())
+            taken = _Taken(task.uid, picked.values())
             for claim in claims:
-                pv = self._resolve(claim, hostname, held_of)
+                pv = self._resolve(claim, hostname, taken)
                 if pv is None:
                     raise FitFailure(
                         f"volume claim {claim!r} has no PV reachable from {hostname}")
@@ -278,12 +288,11 @@ class K8sPVLedger(StandalonePVBinder):
         prov = self.storage_classes.get(pvc.storage_class)
         return bool(prov) and prov != NO_PROVISIONER
 
-    def _resolve_k8s(self, key: str, hostname: str, held_of) -> Optional[str]:
+    def _resolve_k8s(self, key: str, hostname: str, taken: "_Taken") -> Optional[str]:
         """Pick a PV for claim ``key`` reachable from hostname, or the empty
         string for a dynamically-provisionable claim (nothing to reserve),
-        or None when the placement must fail.  ``held_of()`` returns the
-        PVs already taken (``_resolve``'s thunk); it is called only when a
-        free PV must be found."""
+        or None when the placement must fail.  The PVs already taken
+        (``_held(taken)``) are read only when a free PV must be found."""
         pvc = self.claims.get(key)
         if pvc is None:
             return None  # unknown claim — the cluster can't satisfy it
@@ -299,7 +308,7 @@ class K8sPVLedger(StandalonePVBinder):
             return None
         if self._dynamic(pvc):
             return ""  # provisioned after scheduling; feasible anywhere
-        held = held_of()
+        held = self._held(taken)
         for pv in self._candidates():
             if pv.claim is not None and pv.claim != key:
                 continue
@@ -323,9 +332,9 @@ class K8sPVLedger(StandalonePVBinder):
             return True
         with self._lock:
             picked: list = []
-            held_of = self._held_of(task.uid, picked)
+            taken = _Taken(task.uid, picked)
             for key in keys:
-                pv = self._resolve_k8s(key, hostname, held_of)
+                pv = self._resolve_k8s(key, hostname, taken)
                 if pv is None:
                     return False
                 if pv:
@@ -342,9 +351,9 @@ class K8sPVLedger(StandalonePVBinder):
             if not keys:
                 return
             picked: Dict[str, str] = {}
-            held_of = self._held_of(task.uid, picked.values())
+            taken = _Taken(task.uid, picked.values())
             for key in keys:
-                pv = self._resolve_k8s(key, hostname, held_of)
+                pv = self._resolve_k8s(key, hostname, taken)
                 if pv is None:
                     raise FitFailure(
                         f"volume claim {key!r} has no PV reachable from {hostname}")
@@ -426,6 +435,8 @@ class K8sPVLedger(StandalonePVBinder):
 
     # -- throttled, retried, OFF-CYCLE cluster writes ---------------------
     def _submit_writes(self, writes) -> None:
+        from kube_batch_tpu_torch.utils.blocking import allow_blocking
+
         # create + submit under the lock: the retry timer races the bind
         # dispatch thread here, two lazily-built executors would break the
         # single-writer ordering (and drain_writes' fence), and submits must
@@ -436,7 +447,11 @@ class K8sPVLedger(StandalonePVBinder):
 
                 self._writer = ThreadPoolExecutor(
                     max_workers=1, thread_name_prefix="pv-writes")
-            self._writer.submit(self._run_writes, writes)
+            with allow_blocking(
+                "only the FIRST submit blocks (one-time pv-writes worker "
+                "spawn, bounded); the lock is the submit-ordering fence"
+            ):
+                self._writer.submit(self._run_writes, writes)
 
     def _run_writes(self, writes) -> None:
         with self._lock:

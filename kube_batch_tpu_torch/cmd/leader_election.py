@@ -106,7 +106,7 @@ class LeaderElector:
                         continue
                 except OSError:
                     pass
-                # file-lock claim contention on local
+                # kbt: allow[KBT011] file-lock claim contention on local
                 # disk, not an apiserver call — no transport policy applies
                 time.sleep(0.05 * (attempt + 1))
         if fd is None:

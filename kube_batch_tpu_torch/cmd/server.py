@@ -172,6 +172,8 @@ def _profile(seconds: float) -> str:
                 f = f.f_back
             stacks[tuple(key)] += 1
         n_samples += 1
+        # kbt: allow[KBT011] profiler sampling cadence — a
+        # fixed-interval sampler, not a retry/backoff loop
         time.sleep(interval)  # the sampling cadence
     out = [
         f"samples: {n_samples} over {seconds:.1f}s "

@@ -40,7 +40,10 @@ class Action:
         raise NotImplementedError
 
 
+# kbt: allow[KBT003] import-time registry: filled once by module import
+# (plugins/__init__, actions/__init__), read-only at scheduling time
 _plugin_builders: Dict[str, Callable[[Arguments], Plugin]] = {}
+# kbt: allow[KBT003] import-time registry, same contract as _plugin_builders
 _action_builders: Dict[str, Callable[[], Action]] = {}
 
 

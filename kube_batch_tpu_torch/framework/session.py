@@ -35,7 +35,6 @@ whose stamps feed the plugin latency histogram.
 
 from __future__ import annotations
 
-import time
 import uuid
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -64,6 +63,7 @@ from kube_batch_tpu_torch.device import resolve_device
 from kube_batch_tpu_torch.framework.conf import Tier
 from kube_batch_tpu_torch.ops.scoring import ScoreWeights
 from kube_batch_tpu_torch.utils.switches import switch_on
+from kube_batch_tpu_torch.utils import telemetry
 
 # fn-kind names used in the per-plugin registries
 JOB_ORDER, QUEUE_ORDER, TASK_ORDER = "job_order", "queue_order", "task_order"
@@ -593,9 +593,9 @@ def open_session(cache, tiers: List[Tier], device=None,
 
     dev = resolve_device(device)
     if isolated:
-        t0 = time.perf_counter()
+        t0 = telemetry.perf_counter()
         cluster = cache.snapshot()
-        clone_ms = (time.perf_counter() - t0) * 1e3
+        clone_ms = (telemetry.perf_counter() - t0) * 1e3
         ssn = Session(cache, cluster, tiers, dev, exclusive=False)
         ssn.mesh = mesh
         ssn.clone_ms = clone_ms

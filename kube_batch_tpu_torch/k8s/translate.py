@@ -128,6 +128,8 @@ def _controller_uid(meta: dict) -> Optional[str]:
             return ref.get("uid") or ref.get("name")
     # ownerless pods are a valid spec state (bare pods), not unrecognized
     # input; None means "no controller", never a guess
+    # kbt: allow[KBT004] ownerless pods are a valid spec state (bare pods),
+    # not unrecognized input; None means "no controller", never a guess
     return None
 
 
@@ -173,6 +175,8 @@ def _affinity_from_k8s(aff: Optional[dict]) -> Optional[Affinity]:
     if not aff:
         # an absent affinity stanza is an unconstrained pod by the k8s
         # spec; None is the documented "no affinity" value, not a default
+        # kbt: allow[KBT004] absent affinity stanza = unconstrained pod by
+        # k8s spec; None is the documented "no affinity" value, not a default
         return None
     out = Affinity()
     node_aff = aff.get("nodeAffinity") or {}
@@ -206,6 +210,9 @@ def _affinity_from_k8s(aff: Optional[dict]) -> Optional[Affinity]:
         # an affinity stanza that parses to zero terms is an empty
         # selector (matches everything) per MatchNodeSelector semantics,
         # predicates.go:194-205 — open IS the reference behavior
+        # kbt: allow[KBT004] an affinity stanza that parses to zero terms is
+        # an empty selector (matches everything) per MatchNodeSelector
+        # semantics, predicates.go:194-205 — open IS the reference behavior
         return None
     return out
 
@@ -351,6 +358,9 @@ def pdb_from_k8s(obj: dict) -> Optional[PodDisruptionBudget]:
         # a percentage or unparseable minAvailable is not a gang signal;
         # skipping matches the reference (event_handlers.go:484-594) and
         # only forgoes gang semantics, never placement safety
+        # kbt: allow[KBT004] percentage/unparseable minAvailable is not a
+        # gang signal; skipping matches the reference (event_handlers.go:
+        # 484-594) and only forgoes gang semantics, never placement safety
         return None
     return PodDisruptionBudget(
         name=meta.get("name", ""),
@@ -470,6 +480,8 @@ def _volume_ingest(binder, method: str, *args) -> None:
     failing open."""
     # the one seam probe: a miss is logged below (an observable drop),
     # never silently swallowed
+    # kbt: allow[KBT008] the one audited seam probe: a miss is logged below
+    # (observable drop), never silently swallowed
     fn = getattr(binder, method, None)
     if fn is None:
         key = (type(binder).__name__, method)

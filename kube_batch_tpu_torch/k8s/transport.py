@@ -314,6 +314,7 @@ class GuardedBackend:
         self.breaker = breaker
         # mirror the backend's batch capability: cache._dispatch_async
         # probes for bind_many and must not find one we can't honor
+        # kbt: allow[KBT008] capability probe mirrors cache._dispatch_async's
         if getattr(backend, "bind_many", None) is None:
             self.bind_many = None  # type: ignore[assignment]
 

@@ -161,6 +161,9 @@ class WatchAdapter:
             # a capability probe, not an event drop: a binder without a pv
             # ledger has nothing to reconcile; ingest misses are surfaced
             # by translate._volume_ingest
+            # kbt: allow[KBT008] capability probe, not an event drop: a
+            # binder without a pv ledger has nothing to reconcile; ingest
+            # misses are separately surfaced by translate._volume_ingest
             pvs = getattr(binder, "pvs", None)
             if pvs is not None:
                 listed = {(i.get("metadata") or {}).get("name", "") for i in items}
@@ -168,6 +171,7 @@ class WatchAdapter:
                     binder.delete_pv(name)
         elif kind == "persistentvolumeclaims":
             binder = cache.volume_binder
+            # kbt: allow[KBT008] capability probe (see the pv branch above)
             claims = getattr(binder, "claims", None)  # capability probe
             if claims is not None:
                 listed = names()
@@ -178,6 +182,7 @@ class WatchAdapter:
             # provisioner entry would keep its claims "dynamically
             # provisionable" forever
             binder = cache.volume_binder
+            # kbt: allow[KBT008] capability probe (see the pv branch above)
             classes = getattr(binder, "storage_classes", None)  # capability probe
             if classes is not None:
                 listed = {(i.get("metadata") or {}).get("name", "") for i in items}

@@ -43,6 +43,9 @@ def gate_scan(min_res, cand, idle0, quanta, n_rows: Optional[int] = None):
     idle = idle0.clone()
     comp = torch.zeros_like(idle0)
     zero = torch.zeros((), dtype=idle0.dtype, device=idle0.device)
+    # kbt: allow[KBT005] the plain gate: the kernel's row-by-row reference scan;
+    # the main path runs it only on the CPU (on a card enqueue_gate launches
+    # the kernel)
     for i in range(n):
         m = min_res[i]
         eff = idle + comp

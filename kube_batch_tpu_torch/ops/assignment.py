@@ -237,6 +237,9 @@ def allocate_rounds(snap: DeviceSnapshot, config: AllocateConfig, head_fn,
                 best, has, chose_idle, exh_round, reentered = compact_head(
                     idle, releasing, pending)
                 exhausted = exhausted + exh_round
+                # kbt: allow[KBT005] `reentered` is already a host bool: the
+                # compact head's one sync a round, inside tier B's per-round
+                # budget of two
                 reentries += int(reentered)
             else:
                 best, has, chose_idle = head_fn(idle, releasing, pending)
@@ -331,6 +334,7 @@ def allocate_solve(snap: DeviceSnapshot, config: AllocateConfig) -> AllocateResu
 
 
 #: the sort key of NEG, computed once on the host
+# kbt: allow[KBT005] an import-time constant, computed once on a CPU tensor
 _NEG_KEY = int(f32_sort_key(torch.tensor([NEG], dtype=torch.float32))[0])
 
 
@@ -366,6 +370,8 @@ def lex_topk(skey: torch.Tensor, hash_: torch.Tensor, idx0: torch.Tensor,
     oi = torch.zeros((P, K), dtype=torch.int32, device=dev)
     os_ = torch.full((P, K), _I32_MIN, dtype=torch.int32, device=dev)
     oh = torch.full((P, K), -1, dtype=torch.int32, device=dev)
+    # kbt: allow[KBT005] K static extraction steps (the JAX package's trace-time
+    # unroll): a fixed few launches over [P, B] a step, once per table build
     for k in range(K):
         # global two-key argmax over the block winners; the first block
         # among full ties is the lowest position
@@ -618,6 +624,8 @@ def lex_topk3(skey: torch.Tensor, hash_: torch.Tensor, idx: torch.Tensor,
     oi = torch.zeros((P, K), dtype=torch.int32, device=dev)
     os_ = torch.full((P, K), _I32_MIN, dtype=torch.int32, device=dev)
     oh = torch.full((P, K), -1, dtype=torch.int32, device=dev)
+    # kbt: allow[KBT005] K static extraction steps (the JAX package's trace-time
+    # unroll): a fixed few launches over [P, B] a step, once per table build
     for k in range(K):
         gv = bval.amax(dim=1)
         t1 = bval >= gv[:, None]

@@ -195,6 +195,8 @@ def local_evict_bids(snap: DeviceSnapshot, config: EvictConfig, static_ok):
         # one-hot product; a gather selects the same values
         capq = cap + snap.quanta
         feas = static_ok & (claimant_ok & q_ok)[:, None]
+        # kbt: allow[KBT005] one compare per resource dimension (the JAX package's
+        # trace-time unroll over the small static R): no [P, N, R] tensor
         for r in range(R):
             feas &= snap.task_req[:, r, None] <= capq[:, :, r][tq]
         return _best_node(torch.where(feas, score, NEG), tie_hash)

@@ -52,6 +52,9 @@ def proportion_deserved(
     deserved = torch.zeros((Q, R), dtype=total.dtype, device=total.device)
     met = ~valid
     remaining = total
+    # kbt: allow[KBT005] the JAX while_loop's at most Q+1 water-filling passes,
+    # dispatched without a host sync (a pass whose condition is false leaves
+    # the state); once per solve, not a round
     for _ in range(max_iters):
         active = (remaining > 1e-6).any() & (valid & ~met).any()
         w = torch.where(valid & ~met, weight, 0.0)

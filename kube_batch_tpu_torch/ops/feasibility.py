@@ -19,6 +19,8 @@ def fits(req: torch.Tensor, budget: torch.Tensor,
     no [T, N, R] tensor is ever materialized."""
     bq = budget + quanta  # [N, R], the same f32 sum the JAX package forms
     ok = req[:, 0, None] <= bq[None, :, 0]
+    # kbt: allow[KBT005] one compare per resource dimension (the small static R, the
+    # JAX package's vmapped compare): no [T, N, R] tensor is materialized
     for r in range(1, req.shape[1]):
         ok &= req[:, r, None] <= bq[None, :, r]
     return ok
@@ -33,10 +35,14 @@ def static_predicates(snap: DeviceSnapshot) -> torch.Tensor:
     # selector: every required label bit present; taints: every hard taint
     # tolerated.  Word by word, so no [T, N, W] tensor is materialized.
     ok = node_ok[None, :].expand(T, N).clone()
+    # kbt: allow[KBT005] one pass per 32-bit label word (a static few): no [T, N, W]
+    # tensor is materialized
     for w in range(snap.task_sel_bits.shape[1]):
         sel = snap.task_sel_bits[:, w, None]
         ok &= (sel & snap.node_label_bits[None, :, w]) == sel
     ok &= ~snap.task_sel_impossible[:, None]
+    # kbt: allow[KBT005] one pass per 32-bit taint word (a static few): no [T, N, W]
+    # tensor is materialized
     for w in range(snap.task_tol_bits.shape[1]):
         ok &= (snap.node_taint_bits[None, :, w]
                & ~snap.task_tol_bits[:, w, None]) == 0
@@ -73,11 +79,15 @@ def _selector_taint_ok(snap: DeviceSnapshot):
     T = snap.task_sel_bits.shape[0]
     N = snap.node_label_bits.shape[0]
     sel_ok = torch.ones((T, N), dtype=torch.bool, device=snap.node_valid.device)
+    # kbt: allow[KBT005] one pass per 32-bit label word (a static few): no [T, N, W]
+    # tensor is materialized
     for w in range(snap.task_sel_bits.shape[1]):
         sel = snap.task_sel_bits[:, w, None]
         sel_ok &= (sel & snap.node_label_bits[None, :, w]) == sel
     sel_ok &= ~snap.task_sel_impossible[:, None]
     taints_ok = torch.ones_like(sel_ok)
+    # kbt: allow[KBT005] one pass per 32-bit taint word (a static few): no [T, N, W]
+    # tensor is materialized
     for w in range(snap.task_tol_bits.shape[1]):
         taints_ok &= (snap.node_taint_bits[None, :, w]
                       & ~snap.task_tol_bits[:, w, None]) == 0

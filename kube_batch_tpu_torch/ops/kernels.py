@@ -193,6 +193,8 @@ def masked_best_node_raw(score, static_ok, task_req, idle, releasing,
             score.data_ptr(), static_ok.data_ptr(), task_req.data_ptr(),
             idle.data_ptr(), releasing.data_ptr(), pending.data_ptr(),
             quanta.data_ptr(), None if rows is None else rows.data_ptr(),
+            # kbt: allow[KBT005] t0 and n0 are Python ints (the block
+            # origin); int() types them for ctypes, no tensor is read
             T, N, R, int(t0), int(n0), best.data_ptr(),
             val.data_ptr(), hsh.data_ptr(), chose.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
@@ -237,6 +239,7 @@ def masked_topk_blocks(score_static, task_req, idle, releasing, rows,
         rc = lib.kbt_masked_topk_blocks(
             score_static.data_ptr(), task_req.data_ptr(), idle.data_ptr(),
             releasing.data_ptr(), rows.data_ptr(), quanta.data_ptr(),
+            # kbt: allow[KBT005] n0 is a Python int (see K1's call above)
             P, N, R, int(n0), skey.data_ptr(), bval.data_ptr(),
             bhash.data_ptr(), bcol.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,

@@ -68,6 +68,8 @@ def multisort_ranks(keys: Sequence[torch.Tensor]) -> torch.Tensor:
     n = keys[0].shape[0]
     dev = keys[0].device
     order = torch.arange(n, device=dev)
+    # kbt: allow[KBT005] one stable sort per key over the static key list (the
+    # JAX package's trace-time unroll)
     for key in reversed(list(keys)):
         order = order[torch.argsort(key[order], stable=True)]
     rank = torch.empty(n, dtype=torch.int32, device=dev)

@@ -115,7 +115,11 @@ def probe_batch_from_numpy(batch, device) -> ProbeBatch:
     views, every other dtype kept."""
     src = batch._asdict() if hasattr(batch, "_asdict") else batch
     out = {}
+    # kbt: allow[KBT005] one upload per ProbeBatch field: encoding the host request
+    # is the batch's input transfer, not a readback
     for name in ProbeBatch._fields:
+        # kbt: allow[KBT005] the request batch arrives as host numpy arrays;
+        # this reads no tensor
         arr = np.asarray(src[name])
         if name in _PROBE_BITSETS:
             arr = arr.view(np.int32)
@@ -347,7 +351,17 @@ def probe_solve(snap: DeviceSnapshot, batch: ProbeBatch, probe_rows: torch.Tenso
     J = snap.job_min_avail.shape[0]  # the appended job's row
     T = snap.task_req.shape[0]
     G = batch.req.shape[1]
+    if not with_evictions:
+        # no eviction verdict: one empty answer, shared by every gang (the
+        # final stack copies it)
+        no_evict = (torch.full((G,), -1, dtype=torch.int32, device=dev),
+                    torch.zeros(T, dtype=torch.bool, device=dev),
+                    torch.zeros((), dtype=torch.bool, device=dev))
     out = []
+    # kbt: allow[KBT005] one solve per gang of the batch, where the JAX package vmaps
+    # the gangs into one dispatch: each gang's bidding rounds read back
+    # through round_end (tier B's budget); a one-launch batch is an open
+    # item in ROADMAP.md (the probe's per-gang loop)
     for b in range(batch.req.shape[0]):
         g = ProbeBatch(*(f[b] for f in batch))
         view = _gang_view(snap, g.req, g.valid, g.min_avail, g.queue, g.prio,
@@ -379,9 +393,7 @@ def probe_solve(snap: DeviceSnapshot, batch: ProbeBatch, probe_rows: torch.Tenso
                 snap, g.req, view.task_pending, g.queue, g.min_avail, res.assigned,
                 bid_fn, evict_config, victim_base)
         else:
-            claim_node = torch.full((G,), -1, dtype=torch.int32, device=dev)
-            victims = torch.zeros(T, dtype=torch.bool, device=dev)
-            evict_ok = torch.zeros((), dtype=torch.bool, device=dev)
+            claim_node, victims, evict_ok = no_evict
         out.append(ProbeResult(
             assigned=res.assigned,
             pipelined=res.pipelined,

@@ -109,6 +109,8 @@ def score_matrix(snap: DeviceSnapshot, w: ScoreWeights) -> torch.Tensor:
         s = s + w.node_affinity * node_affinity_preferred(snap)
     if w.pod_affinity:
         s = s + w.pod_affinity * pod_affinity_preferred(snap)
+    # kbt: allow[KBT005] one row per configured extra plugin, a static tuple
+    # (the JAX package's trace-time unroll)
     for _name, fn, weight in w.extra_rows:
         if weight:
             s = s + weight * fn(snap)

@@ -530,6 +530,7 @@ class QueryPlane:
 
     # ---- dispatch and decode -----------------------------------------
     def _probe(self, lease: SnapshotLease, reqs: List[dict]) -> List[dict]:
+        from kube_batch_tpu_torch.api.convert import read_back
         from kube_batch_tpu_torch.ops.probe import probe_batch_from_numpy, probe_solve
 
         pbatch, rows = self._encode(lease, reqs)
@@ -551,8 +552,9 @@ class QueryPlane:
         if with_evictions:
             # victims is [B, T]: read only when a request asked for it
             fields += ["claim_node", "victims", "evict_covered"]
-        # one readback per sub-batch, inside the dispatch region
-        host = {f: getattr(res, f).cpu().numpy() for f in fields}
+        # kbt: allow[KBT010] THE sanctioned serving choke point: one
+        # blocking copy per sub-batch, inside the dispatch region
+        host = dict(zip(fields, read_back(getattr(res, f) for f in fields)))
         return [self._decode(lease, r, host, b) for b, r in enumerate(reqs)]
 
     def _staleness(self, lease: SnapshotLease) -> dict:

@@ -6,7 +6,8 @@ Starts an AdminServer + QueryPlane on a loopback port against a small
 synthetic cluster, runs one scheduling cycle (which publishes the snapshot
 lease), then drives a batch of mixed feasible/infeasible gangs through the
 `kb-ctl whatif` CLI and asserts the verdicts and the Prometheus counters —
-including the amortization invariant (device dispatches < requests served).
+including the amortization invariant (device dispatches < requests served),
+counted over the smoke's own requests.
 
 Exit 0 = clean, 1 = a violated invariant.  A few seconds:
 
@@ -26,6 +27,25 @@ import urllib.request
 def _fail(msg: str) -> None:
     print(f"whatif smoke FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def _metrics(server: str) -> str:
+    with urllib.request.urlopen(f"{server}/metrics", timeout=30) as r:
+        return r.read().decode()
+
+
+def _counters(server: str):
+    """(feasible requests, infeasible requests, device dispatches) as
+    ``/metrics`` counts them."""
+    text = _metrics(server)
+
+    def counter(pat: str) -> float:
+        m = re.search(pat + r"\S*\s+([0-9.e+]+)", text)
+        return float(m.group(1)) if m else 0.0
+
+    return (counter(r'volcano_whatif_requests_total{verdict="feasible"}'),
+            counter(r'volcano_whatif_requests_total{verdict="infeasible"}'),
+            counter(r"volcano_whatif_device_dispatches_total"))
 
 
 def main(argv=None) -> None:
@@ -58,6 +78,9 @@ def main(argv=None) -> None:
             close_session(ssn)
         cache.flush_binds()
         server = f"http://127.0.0.1:{srv.port}"
+        # the counters are the process's: judge this smoke's own requests
+        # (an earlier plane in the same process has counted its own)
+        before = _counters(server)
 
         # mixed verdicts via the CLI, concurrent probes riding few dispatches
         rc = cli.main(["--server", server, "--queue", "q0", "--count", "2",
@@ -71,17 +94,8 @@ def main(argv=None) -> None:
         if rc != 0:
             _fail(f"infeasible probe exited {rc}")
 
-        with urllib.request.urlopen(f"{server}/metrics", timeout=30) as r:
-            text = r.read().decode()
-
-        def counter(pat: str) -> float:
-            m = re.search(pat + r"\S*\s+([0-9.e+]+)", text)
-            return float(m.group(1)) if m else 0.0
-
-        feas = counter(r'volcano_whatif_requests_total{verdict="feasible"}')
-        infeas = counter(
-            r'volcano_whatif_requests_total{verdict="infeasible"}')
-        dispatches = counter(r"volcano_whatif_device_dispatches_total")
+        after, text = _counters(server), _metrics(server)
+        feas, infeas, dispatches = (after[i] - before[i] for i in range(3))
         if feas < 8:
             _fail(f"feasible counter {feas} < 8")
         if infeas < 4:

@@ -24,6 +24,7 @@ from kube_batch_tpu_torch.framework.session import close_session, open_session
 from fixtures import GiB, build_node, build_pod
 from test_torch_cycle import _assert_same, _from_events, observed
 from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 
 def run_both(events, action_names):
@@ -201,3 +202,32 @@ def test_reference_exact_flags_are_read(conf_flag):
         assert ssn.conf_flag("backfill.realRequests", default=True)
     finally:
         close_session(ssn)
+
+
+def test_read_back_returns_each_tensor_in_its_own_dtype_and_shape():
+    # the one-copy readback the actions and the plane share: every dtype
+    # crosses as its own bytes (no widening), 0-d and empty tensors too
+    import numpy as np
+    import torch
+
+    from kube_batch_tpu_torch.api.convert import read_back
+
+    rng = np.random.default_rng(0)
+    arrays = [rng.integers(-5, 5, size=7).astype(np.int32),
+              rng.random((3, 5)) < 0.5,
+              np.int32(11),
+              rng.random((2, 3)).astype(np.float32),
+              np.zeros((0, 4), np.int64),
+              rng.integers(0, 255, size=3).astype(np.uint8),
+              rng.random(5)]
+    tensors = [torch.from_numpy(np.asarray(a)) for a in arrays]
+    got = read_back(tensors)
+    assert len(got) == len(arrays)
+    for a, g in zip(arrays, got):
+        a = np.asarray(a)
+        assert g.dtype == a.dtype and g.shape == a.shape
+        np.testing.assert_array_equal(g, a)
+    # a non-contiguous view reads back as its values
+    t = torch.arange(12, dtype=torch.int32).reshape(3, 4).T
+    (g,) = read_back([t])
+    np.testing.assert_array_equal(g, t.numpy())

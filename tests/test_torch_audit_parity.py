@@ -20,6 +20,7 @@ from kube_batch_tpu.analysis import hbm_audit as jax_hbm
 from kube_batch_tpu.analysis import jaxpr_audit as jax_b
 from kube_batch_tpu_torch.analysis import memory_audit, program_audit
 from kube_batch_tpu_torch.parallel.mesh import make_mesh
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 #: JAX entry name → the port's, where the port's function is named otherwise
 NAME_MAP = {

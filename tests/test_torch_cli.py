@@ -31,6 +31,7 @@ from kube_batch_tpu_torch.cmd import main as port_main
 from kube_batch_tpu_torch.cmd import options as port_options
 from fixtures import GiB, build_node, build_pod
 from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 ARGVS = [
     [],

@@ -49,6 +49,7 @@ from kube_batch_tpu_torch.plugins.gang import GangPlugin
 from kube_batch_tpu_torch.scheduler import Scheduler
 from test_torch_cycle import _assert_same, apply, observed
 from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 GiB = float(1 << 30)
 

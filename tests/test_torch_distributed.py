@@ -13,6 +13,7 @@ import pytest
 
 from kube_batch_tpu_torch.api.convert import snapshot_to_numpy
 from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 
 @pytest.mark.slow

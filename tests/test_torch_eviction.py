@@ -25,6 +25,7 @@ from kube_batch_tpu_torch.api.convert import snapshot_from_numpy
 from kube_batch_tpu_torch.ops.eviction import EvictConfig, evict_solve
 from fixtures import GiB, build_cache, build_node, build_pod
 from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 
 def _snapshot(cache):

@@ -51,6 +51,7 @@ from kube_batch_tpu_torch.scheduler import Scheduler
 from test_torch_cycle import apply
 from test_torch_warm import session_snapshot
 from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 CPU = torch.device("cpu")
 GiB = float(1 << 30)

@@ -43,6 +43,7 @@ from kube_batch_tpu_torch.scheduler import Scheduler
 from kube_batch_tpu_torch.testing.synthetic import synthetic_cluster
 from test_torch_cycle import FIXTURES, apply, kubelet, mirror, observed
 from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 REPO = Path(__file__).resolve().parent.parent
 

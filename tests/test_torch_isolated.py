@@ -36,6 +36,7 @@ from kube_batch_tpu_torch.scheduler import Scheduler
 from kube_batch_tpu_torch.testing.cycle_drive import isolated_cycle
 from test_torch_cycle import CONFS, FIXTURES, _assert_same, apply, kubelet, observed
 from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 GiB = float(1 << 30)
 

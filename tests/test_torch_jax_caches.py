@@ -20,6 +20,7 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import pytest
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 TESTS = Path(__file__).resolve().parent
 

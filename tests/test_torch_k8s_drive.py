@@ -13,6 +13,7 @@ from __future__ import annotations
 from kube_batch_tpu_torch.testing.cycle_drive import drive
 from kube_batch_tpu_torch.testing.k8s_drive import drive_k8s
 from kube_batch_tpu_torch.testing.server_drive import bindings_digest
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 TASKS, NODES, ARRIVALS = 2048, 256, 512
 

@@ -24,6 +24,7 @@ import kube_batch_tpu_torch.k8s.transport as port_transport
 
 from test_server import _LeaseStub
 from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 PKGS = {"jax": (jax_le, jax_transport), "port": (port_le, port_transport)}
 STAMPS = ("renewTime", "acquireTime")

@@ -34,6 +34,7 @@ from kube_batch_tpu_torch.testing import k8s_drive
 
 import test_k8s_shim as shim
 from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 MODS = (jax_translate, port_translate)
 FIXTURES = shim.FIXTURES

@@ -29,6 +29,7 @@ from kube_batch_tpu_torch import plugins as _port_plugins  # noqa: F401 — regi
 import test_k8s_shim as shim
 from test_torch_k8s_translate import canon
 from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 FIXTURES = shim.FIXTURES
 

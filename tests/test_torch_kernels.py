@@ -22,6 +22,7 @@ from kube_batch_tpu_torch.ops.kernels import (
 )
 from kube_batch_tpu_torch.testing.kernel_bench import offset_copy
 from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 QUANTA = np.asarray([10.0, 10 * 2**20, 0.1, 10.0], np.float32)
 

@@ -33,6 +33,7 @@ from kube_batch_tpu_torch.analysis.program_audit import (
 )
 from kube_batch_tpu_torch.parallel.mesh import make_mesh
 from kube_batch_tpu_torch.parallel.shard_solve import Collectives
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 # a fixture point with unambiguous axis extents: task dims {4096, 2048,
 # 1024}, node dims {512, 256} (T/8 = 512 collides with N and the node axis
@@ -141,23 +142,23 @@ class TestSelfEnforcement:
 
 class TestPlantedBugs:
     def test_planted_over_budget_program_is_detected(self):
-        rep = audit_entry_at(_tn_entry("planted.big"), _SP, budget=1024, label="1 KiB (test)")
+        rep = audit_entry_at(_tn_entry("planted.big"), _SP, budget=1024, label="1 KiB (test)", device="cpu")
         assert _rules(rep) == ["KBT201"]
         assert "exceed" in rep.findings[0][1] and "fixture" in rep.findings[0][1]
 
     def test_planted_tn_temporary_in_a_steady_program_is_detected(self):
-        rep = audit_entry_at(_tn_entry(steady=True), _SP)
+        rep = audit_entry_at(_tn_entry(steady=True), _SP, device="cpu")
         assert _rules(rep) == ["KBT202"]
         msg = rep.findings[0][1]
         assert "T=4096" in msg and "N=512" in msg
 
     def test_the_same_plane_passes_when_not_steady(self):
-        rep = audit_entry_at(_tn_entry("planted.cold"), _SP)
+        rep = audit_entry_at(_tn_entry("planted.cold"), _SP, device="cpu")
         assert rep.traced and _rules(rep) == []
 
     def test_compacted_geometry_steady_program_passes(self):
         rep = audit_entry_at(_entry("planted.sparse", lambda t: (t * 2.0).sum(dim=1),
-                                    (torch.ones(1024, 2),), steady=True), _SP)
+                                    (torch.ones(1024, 2),), steady=True), _SP, device="cpu")
         assert rep.traced and _rules(rep) == []
 
     def test_planted_resident_sized_allocation_is_detected(self):
@@ -165,7 +166,7 @@ class TestPlantedBugs:
             r.t.copy_(r.t + 1.0)  # the update built whole, then copied in
 
         rep = audit_entry_at(_entry("planted.alloc", refresh, (_Resident(),),
-                                    in_place=("t",)), _SP)
+                                    in_place=("t",)), _SP, device="cpu")
         assert _rules(rep) == ["KBT203"]
         assert "allocated" in rep.findings[0][1]
 
@@ -174,12 +175,12 @@ class TestPlantedBugs:
             r.t.index_copy_(0, torch.arange(3), torch.ones(3))
 
         rep = audit_entry_at(_entry("planted.inplace", refresh, (_Resident(),),
-                                    in_place=("t",)), _SP)
+                                    in_place=("t",)), _SP, device="cpu")
         assert rep.traced and _rules(rep) == []
 
     def test_planted_node_scaled_round_move_is_detected(self):
         mesh = make_mesh(["cpu"] * 2)
-        rep = audit_entry_at(_entry("planted.move", _round_moves, (mesh, 256)), _SP)
+        rep = audit_entry_at(_entry("planted.move", _round_moves, (mesh, 256)), _SP, device="cpu")
         assert _rules(rep) == ["KBT204"]
         msg = rep.findings[0][1]
         assert "move" in msg and "N/2=256" in msg and "6,144 B a round" in msg
@@ -187,42 +188,42 @@ class TestPlantedBugs:
     def test_per_solve_gather_passes(self):
         # the same ledger moved once per solve is the allowed pattern
         mesh = make_mesh(["cpu"] * 2)
-        rep = audit_entry_at(_entry("planted.solve", _round_moves, (mesh, 256, False)), _SP)
+        rep = audit_entry_at(_entry("planted.solve", _round_moves, (mesh, 256, False)), _SP, device="cpu")
         assert rep.traced and _rules(rep) == []
 
     def test_task_scaled_round_move_passes(self):
         # O(tasks) a round is the contract
         mesh = make_mesh(["cpu"] * 2)
-        rep = audit_entry_at(_entry("planted.tasks", _round_moves, (mesh, 1024)), _SP)
+        rep = audit_entry_at(_entry("planted.tasks", _round_moves, (mesh, 1024)), _SP, device="cpu")
         assert rep.traced and _rules(rep) == [] and rep.round_move_bytes == 2 * 1024 * 12
 
     def test_broken_entry_names_the_shape_point_instead_of_crashing(self):
         def build(sp, dev):
             raise ValueError("shape-derived python branch blew up")
 
-        rep = audit_entry_at(EntryPoint("planted.broken", build), _SP)
+        rep = audit_entry_at(EntryPoint("planted.broken", build), _SP, device="cpu")
         assert not rep.traced and _rules(rep) == ["KBT000"]
         assert "failed to run" in rep.findings[0][1] and "fixture" in rep.findings[0][1]
         findings = run_memory_audit(registry=[EntryPoint("planted.broken", build)],
-                                    points=[_SP], allowlist={})
+                                    points=[_SP], allowlist={}, device="cpu")
         assert [f.rule for f in findings] == ["KBT000"]
 
 
 class TestAllowlist:
     def test_allow_with_reason_suppresses(self):
         allow = {("planted.tn", "KBT202", "fixture"): "fixture: deliberate"}
-        assert run_memory_audit([_tn_entry(steady=True)], [_SP], allowlist=allow) == []
+        assert run_memory_audit([_tn_entry(steady=True)], [_SP], allowlist=allow, device="cpu") == []
 
     def test_allow_without_reason_is_itself_a_finding(self):
         allow = {("planted.tn", "KBT202", "fixture"): "   "}
-        findings = run_memory_audit([_tn_entry(steady=True)], [_SP], allowlist=allow)
+        findings = run_memory_audit([_tn_entry(steady=True)], [_SP], allowlist=allow, device="cpu")
         assert [f.rule for f in findings] == ["KBT000"]
         assert "no reason" in findings[0].message
 
     def test_stale_allowlist_entry_is_itself_a_finding(self):
         clean = _entry("planted.clean", lambda x: x + 1.0, (torch.ones(256),), steady=True)
         allow = {("planted.clean", "KBT202", "fixture"): "was fixed"}
-        findings = run_memory_audit([clean], [_SP], allowlist=allow)
+        findings = run_memory_audit([clean], [_SP], allowlist=allow, device="cpu")
         assert [f.rule for f in findings] == ["KBT000"]
         assert "stale" in findings[0].message
 
@@ -232,16 +233,16 @@ class TestAllowlist:
         clean = _entry("planted.clean", lambda x: x + 1.0, (torch.ones(256),))
         allow = {("parallel.mesh.not_in_this_run", "KBT202", "*"): "r",
                  ("planted.clean", "KBT201", "northstar-1m"): "r"}
-        assert run_memory_audit([clean], [_SP], allowlist=allow) == []
+        assert run_memory_audit([clean], [_SP], allowlist=allow, device="cpu") == []
 
     def test_wildcard_points_cover_the_whole_ladder(self):
         allow = {("planted.tn", "KBT202", "*"): "fixture: deliberate"}
-        assert run_memory_audit([_tn_entry(steady=True)], [_SP], allowlist=allow) == []
+        assert run_memory_audit([_tn_entry(steady=True)], [_SP], allowlist=allow, device="cpu") == []
 
     def test_select_filters_hbm_rules_but_keeps_meta(self):
         entry = _tn_entry(steady=True)
-        assert run_memory_audit([entry], [_SP], allowlist={}, select=["KBT201"]) == []
-        findings = run_memory_audit([entry], [_SP], allowlist={}, select=["KBT202"])
+        assert run_memory_audit([entry], [_SP], allowlist={}, select=["KBT201"], device="cpu") == []
+        findings = run_memory_audit([entry], [_SP], allowlist={}, select=["KBT202"], device="cpu")
         assert [f.rule for f in findings] == ["KBT202"]
 
     def test_glob_matches_literal_brackets(self):
@@ -279,10 +280,10 @@ class TestBudget:
         """On the CPU KBT201 reads the recorder's peak: the [T, N] plane of
         4096 × 512 f32 (8 MiB) and its inputs."""
         monkeypatch.setenv("KB_HBM_BUDGET", "0.0078125")  # 8 MiB
-        findings = run_memory_audit([_tn_entry()], [_SP], allowlist={})
+        findings = run_memory_audit([_tn_entry()], [_SP], allowlist={}, device="cpu")
         assert [f.rule for f in findings] == ["KBT201"]
         monkeypatch.setenv("KB_HBM_BUDGET", "0.0079")
-        assert run_memory_audit([_tn_entry()], [_SP], allowlist={}) == []
+        assert run_memory_audit([_tn_entry()], [_SP], allowlist={}, device="cpu") == []
 
 
 class TestHeadroom:
@@ -291,14 +292,14 @@ class TestHeadroom:
         whole allocates the column (the port's form of the donation
         credit)."""
         x = torch.zeros(1024, 1024)
-        inplace = audit_entry_at(_entry("planted.a", lambda t: t.mul_(2.0).add_(1.0), (x,)), _SP)
-        whole = audit_entry_at(_entry("planted.b", lambda t: t * 2.0 + 1.0, (x,)), _SP)
+        inplace = audit_entry_at(_entry("planted.a", lambda t: t.mul_(2.0).add_(1.0), (x,)), _SP, device="cpu")
+        whole = audit_entry_at(_entry("planted.b", lambda t: t * 2.0 + 1.0, (x,)), _SP, device="cpu")
         assert inplace.peak_bytes == 4 * 2**20
         assert whole.peak_bytes == inplace.peak_bytes + 2 * 4 * 2**20
 
     def test_headroom_report_structure(self):
         entry = _entry("planted.report", lambda x: x + 1.0, (torch.ones(256),))
-        rep = headroom_report(registry=[entry], points=[_SP])
+        rep = headroom_report(registry=[entry], points=[_SP], device="cpu")
         assert rep["budget_bytes"] > 0
         d = rep["entries"]["planted.report"]["fixture"]
         assert d["traced"] and d["peak_bytes"] == 2048

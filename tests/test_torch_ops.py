@@ -25,6 +25,7 @@ from kube_batch_tpu_torch.api.convert import snapshot_from_numpy
 from kube_batch_tpu_torch.ops import fairness, feasibility, ordering, scoring
 from kube_batch_tpu_torch.ops.assignment import f32_sort_key, lex_topk
 from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 
 def _t(a):

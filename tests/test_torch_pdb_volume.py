@@ -45,6 +45,7 @@ from kube_batch_tpu_torch.testing.cycle_drive import oracle_switches
 from fixtures import GiB, build_node, build_pod
 from test_torch_cycle import _assert_same, _from_events, mirror, observed
 from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -21,6 +21,7 @@ from kube_batch_tpu_torch.ops import kernels
 from kube_batch_tpu_torch.ops.kernels import masked_best_node_raw, masked_best_node_raw_plain
 from test_torch_kernels import K1_OUT, _assert_same, _torch, k1_inputs, k1_tie_inputs
 from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 B, G = 4, 8
 GiB = float(2**30)

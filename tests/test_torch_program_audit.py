@@ -29,6 +29,7 @@ from kube_batch_tpu_torch.analysis.program_audit import (
 from kube_batch_tpu_torch.analysis.recorder import Recorder
 from kube_batch_tpu_torch.parallel.mesh import make_mesh
 from kube_batch_tpu_torch.utils import seams
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 
 def _entry(name, fn, args, **kw):
@@ -112,38 +113,38 @@ class TestRegistryClean:
 
 class TestPlantedBugs:
     def test_planted_f64_upcast_is_detected(self):
-        findings = audit_entry(_entry("planted.f64", lambda x: x.double() * 2.0, (_vec(),)))
+        findings = audit_entry(_entry("planted.f64", lambda x: x.double() * 2.0, (_vec(),)), device="cpu")
         assert _rules(findings) == ["KBT101"]
         assert "float64" in findings[0].message
 
     def test_planted_astype_f64_is_detected(self):
         findings = audit_entry(_entry("planted.astype", lambda x: x.to(torch.float64).sum(),
-                                      (_vec(),)))
+                                      (_vec(),)), device="cpu")
         assert _rules(findings) == ["KBT101"]
 
     def test_planted_transfer_to_meta_is_detected(self):
         """On the CPU the one transfer a program can make is to another
         device type."""
         findings = audit_entry(_entry("planted.transfer", lambda x: x.to("meta") + 1.0,
-                                      (_vec(),)))
+                                      (_vec(),)), device="cpu")
         assert _rules(findings) == ["KBT102"]
         assert "cpu->meta" in findings[0].message
 
     def test_declared_upload_passes(self):
         findings = audit_entry(_entry("planted.upload", lambda x: x.to("meta"), (_vec(),),
-                                      uploads=1))
+                                      uploads=1), device="cpu")
         assert findings == []
 
     def test_planted_host_sync_is_detected(self):
         def f(x):
             return x * 2.0 if bool(x.sum() > 0) else x
 
-        findings = audit_entry(_entry("planted.sync", f, (_vec(),)))
+        findings = audit_entry(_entry("planted.sync", f, (_vec(),)), device="cpu")
         assert _rules(findings) == ["KBT103"]
         assert "scalar_read" in findings[0].message
 
     def test_planted_data_dependent_shape_is_detected(self):
-        findings = audit_entry(_entry("planted.mask", lambda x: x[x > 3.0], (_vec(),)))
+        findings = audit_entry(_entry("planted.mask", lambda x: x[x > 3.0], (_vec(),)), device="cpu")
         assert _rules(findings) == ["KBT103"]
         assert "dynamic_shape" in findings[0].message
 
@@ -151,10 +152,10 @@ class TestPlantedBugs:
         """Indexing with a 0-d tensor reads it back first; a [1] index does
         not (the probe's queue lookups)."""
         q = torch.tensor(2)
-        assert _rules(audit_entry(_entry("planted.0d", lambda x, i: x[i], (_vec(), q)))) \
+        assert _rules(audit_entry(_entry("planted.0d", lambda x, i: x[i], (_vec(), q)), device="cpu")) \
             == ["KBT103"]
         assert audit_entry(_entry("planted.1d", lambda x, i: x[i.reshape(1)][0],
-                                  (_vec(), q))) == []
+                                  (_vec(), q)), device="cpu") == []
 
     def test_round_budget_is_per_round(self):
         def rounds(x, n, reads):
@@ -165,9 +166,9 @@ class TestPlantedBugs:
             return x
 
         ok = _entry("planted.rounds", rounds, (_vec(), 3, 1), syncs=(0, 1))
-        assert audit_entry(ok) == []
+        assert audit_entry(ok, device="cpu") == []
         bad = _entry("planted.rounds2", rounds, (_vec(), 3, 2), syncs=(0, 1))
-        findings = audit_entry(bad)
+        findings = audit_entry(bad, device="cpu")
         assert _rules(findings) == ["KBT103"] and "over 3 round(s)" in findings[0].message
 
     def test_planted_in_place_move_is_detected(self):
@@ -176,7 +177,7 @@ class TestPlantedBugs:
             return r.t
 
         findings = audit_entry(_entry("planted.move", swap, (_Resident(), 1.0),
-                                      in_place=("t",)))
+                                      in_place=("t",)), device="cpu")
         assert _rules(findings) == ["KBT104"]
 
     def test_declared_in_place_update_passes(self):
@@ -184,7 +185,7 @@ class TestPlantedBugs:
             return r.t.add_(v)
 
         assert audit_entry(_entry("planted.inplace", swap, (_Resident(), 1.0),
-                                  in_place=("t",))) == []
+                                  in_place=("t",)), device="cpu") == []
 
     def test_kernel_wrapper_is_opaque(self):
         """What a kernel's plain version does inside stays out; its outputs
@@ -195,7 +196,7 @@ class TestPlantedBugs:
             return x * 2.0
 
         rec_entry = _entry("planted.kernel", kernel, (_vec(),))
-        assert audit_entry(rec_entry) == []
+        assert audit_entry(rec_entry, device="cpu") == []
         run = run_entry(rec_entry, AUDIT_POINT, "cpu")
         assert run.rec.opaque == {"kernel": 1}
         assert run.rec.allocations == [32]
@@ -204,7 +205,7 @@ class TestPlantedBugs:
         def build(sp, dev):
             raise RuntimeError("registry rot")
 
-        findings = audit_entry(EntryPoint("planted.broken", build))
+        findings = audit_entry(EntryPoint("planted.broken", build), device="cpu")
         assert _rules(findings) == ["KBT000"]
         assert "failed to run" in findings[0].message
 
@@ -214,15 +215,15 @@ class TestSuppression:
         return _entry("planted.sup", lambda x: x.double(), (_vec(),), allow=allow)
 
     def test_allow_with_reason_suppresses(self):
-        assert audit_entry(self._f64_entry({"KBT101": "fixture: deliberate upcast"})) == []
+        assert audit_entry(self._f64_entry({"KBT101": "fixture: deliberate upcast"}), device="cpu") == []
 
     def test_allow_without_reason_is_itself_a_finding(self):
-        assert _rules(audit_entry(self._f64_entry({"KBT101": "  "}))) == ["KBT000"]
+        assert _rules(audit_entry(self._f64_entry({"KBT101": "  "}), device="cpu")) == ["KBT000"]
 
     def test_select_filters_audit_rules(self):
         entry = self._f64_entry({})
-        assert run_audit(registry=[entry], select=["KBT102"]) == []
-        assert _rules(run_audit(registry=[entry], select=["KBT101"])) == ["KBT101"]
+        assert run_audit(registry=[entry], select=["KBT102"], device="cpu") == []
+        assert _rules(run_audit(registry=[entry], select=["KBT101"], device="cpu")) == ["KBT101"]
 
 
 class TestCatalog:
@@ -383,3 +384,26 @@ def test_registries_clean_on_the_card_and_syncs_match_sync_debug(cuda_device):
             if len(r.rec.syncs) != r.sync_debug}
     assert gaps == {}
     assert np.all([r.peak_bytes > 0 for r in runs.values()])
+
+
+# --------------------------------------------------------------------------
+# the entry points run on the card unless asked for the CPU
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("call", [
+    lambda e: audit_entry(e),
+    lambda e: run_audit(registry=[e]),
+    lambda e: memory_audit.audit_entry_at(e, AUDIT_POINT),
+    lambda e: memory_audit.run_memory_audit([e], [AUDIT_POINT]),
+    lambda e: memory_audit.headroom_report([e], [AUDIT_POINT]),
+], ids=["audit_entry", "run_audit", "audit_entry_at", "run_memory_audit", "headroom_report"])
+def test_entry_points_default_to_the_card(call, monkeypatch):
+    """Without ``device``, each of the five entry points asks for CUDA and
+    raises on a machine with no card instead of running on the CPU."""
+    ran = []
+    entry = _entry("planted.cpu", lambda x: ran.append(x.device) or x * 2.0, (_vec(),))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call(entry)
+    assert ran == []

@@ -52,6 +52,7 @@ from fixtures import GiB, build_cache, build_node, build_pod
 from test_torch_cycle import mirror
 from test_torch_whatif import _port_run, _probe, port_cache
 from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 
 def _tick(qp):

@@ -45,6 +45,7 @@ from test_torch_delta import (
     run_actions,
 )
 from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 CPU = torch.device("cpu")
 #: realistic capacities: with tiny columns the cache rightly prefers whole

@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 pytestmark = pytest.mark.slow
 

@@ -50,6 +50,7 @@ from test_torch_cycle import observed
 from test_torch_ops import _jnp, _rich_snapshot
 from test_torch_solve import FULL_FIXTURES, _assert_results_equal, _fixture, _pend_rows
 from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 
 # --------------------------------------------------------------------------

@@ -18,6 +18,7 @@ import pytest
 
 from kube_batch_tpu_torch.testing import server_drive
 from kube_batch_tpu_torch.testing.cycle_drive import drive
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 TASKS, NODES, ARRIVALS = 2048, 256, 200
 

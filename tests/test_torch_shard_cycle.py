@@ -33,6 +33,7 @@ from kube_batch_tpu_torch.parallel import mesh as pm
 from kube_batch_tpu_torch.scheduler import Scheduler
 from test_torch_cycle import CONFS, FIXTURES, _assert_same, apply, kubelet, observed
 from test_torch_metrics import record_tree
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 #: one capacity for every fixture, on both sides: the node axis pads to
 #: 256 rows, past the JAX package's shard gate

@@ -47,6 +47,7 @@ from kube_batch_tpu_torch.ops import assignment as asg
 from kube_batch_tpu_torch.ops.eviction import EvictConfig, evict_solve
 from kube_batch_tpu_torch.parallel import mesh as pm
 from kube_batch_tpu_torch.parallel import shard_solve
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 GiB = float(2**30)
 TOPK = 8

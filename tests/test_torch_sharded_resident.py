@@ -34,6 +34,7 @@ from kube_batch_tpu_torch.api.resident import (
 )
 from kube_batch_tpu_torch.api.snapshot import DeviceSnapshot
 from kube_batch_tpu_torch.parallel import mesh as pm
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 
 @pytest.fixture(scope="module", autouse=True)

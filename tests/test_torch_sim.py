@@ -15,6 +15,7 @@ import torch
 
 from kube_batch_tpu_torch.sim import SimConfig, SimRunner, preset, run_preset
 from kube_batch_tpu_torch.sim.workload import trace_arrivals
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 CPU = "cpu"
 

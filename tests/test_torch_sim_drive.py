@@ -19,6 +19,7 @@ from kube_batch_tpu.sim import SimConfig as JaxSimConfig
 from kube_batch_tpu.sim import SimRunner as JaxSimRunner
 from kube_batch_tpu_torch.testing.sim_drive import DriveRunner, drive_config, drive_sim
 from test_torch_sim_parity import environ, fresh_jax_caches  # noqa: F401
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 NODES, GANGS, CYCLES = 128, 400, 16
 

@@ -53,6 +53,7 @@ from kube_batch_tpu.sim import run_preset as jax_run_preset
 from kube_batch_tpu_torch.api.resident import PER_CYCLE_FIELDS
 from kube_batch_tpu_torch.sim import run_preset
 from test_torch_metrics import recording
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 @pytest.fixture(scope="module", autouse=True)
 def fresh_jax_caches():

@@ -8,6 +8,7 @@ preset.
 from __future__ import annotations
 
 from test_torch_sim_parity import assert_same_run, fresh_jax_caches  # noqa: F401
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 
 def test_bind_storm_matches_jax(tmp_path):

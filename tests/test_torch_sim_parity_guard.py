@@ -13,6 +13,7 @@ from __future__ import annotations
 import json
 
 from test_torch_sim_parity import assert_same_run, environ, fresh_jax_caches  # noqa: F401
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 
 def test_corruption_matches_jax_and_its_bundle_replays(tmp_path, capsys):

@@ -11,6 +11,7 @@ from __future__ import annotations
 import json
 
 from test_torch_sim_parity import assert_same_run, environ, fresh_jax_caches  # noqa: F401
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 
 def test_warm_ab_prints_what_the_jax_cli_prints(tmp_path, capsys):

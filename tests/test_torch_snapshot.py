@@ -29,6 +29,7 @@ from kube_batch_tpu_torch.device import resolve_device
 from kube_batch_tpu_torch.ops.assignment import AllocateConfig
 from kube_batch_tpu_torch.testing.synthetic import synthetic_device_snapshot
 from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -121,6 +122,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     then the multi-device solve (``parallel/``: a sharded solve on a
     4-shard CPU mesh and the dryrun), then the device-program audits
     (``analysis/``: both tiers over the single-device registry on the CPU),
+    then ``python -m kube_batch_tpu_torch.analysis --races`` (tiers A and
+    D over the package) and the lock checker installed with its
+    guarded-access corroborator over a cache two threads touch,
     leaves no jax, no kube_batch_tpu and no yaml module loaded
     (kube_batch_tpu_torch itself shares the prefix, so the match is exact
     on the package name)."""
@@ -365,6 +369,28 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         assert program_audit.run_audit(program_audit.REGISTRY, "cpu", runs=runs) == []
         assert memory_audit.run_memory_audit(program_audit.REGISTRY, device="cpu",
                                              runs=runs) == []
+        import runpy
+        from kube_batch_tpu_torch.analysis import lockdep, races
+        sys.argv = ["python -m kube_batch_tpu_torch.analysis", "--races"]
+        with contextlib.redirect_stdout(io.StringIO()) as lint_out:
+            try:
+                runpy.run_module("kube_batch_tpu_torch.analysis", run_name="__main__")
+            except SystemExit as e:
+                assert e.code == 0, lint_out.getvalue()
+        assert "kbt-check: clean" in lint_out.getvalue()
+        state = lockdep.install()
+        guarded = lockdep.install_guarded_access(
+            races.runtime_domain_specs(lockdep.HOT_STRUCTURES), state=state)
+        checked = SchedulerCache()
+        checked.enable_ingest_staging()
+        t = threading.Thread(target=checked.drain_staged_ingest)
+        t.start()
+        t.join()
+        checked.drain_staged_ingest()
+        checked.stop()
+        guarded.uninstall()
+        lockdep.uninstall()
+        assert isinstance(checked._lock, lockdep.TrackedLock) and state.violations == []
         bad = sorted(n for n in sys.modules
                      if n in ("jax", "jaxlib", "yaml") or n.startswith(("jax.", "jaxlib.", "yaml."))
                      or n == "kube_batch_tpu" or n.startswith("kube_batch_tpu."))

@@ -50,6 +50,7 @@ from kube_batch_tpu_torch.ops.assignment import (
     allocate_topk_solve,
 )
 from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 
 def _session_snapshot(cache):

@@ -25,6 +25,7 @@ import pytest
 import kube_batch_tpu.k8s.transport as jax_transport
 import kube_batch_tpu_torch.k8s.transport as port_transport
 from test_torch_jax_caches import fresh_jax_caches  # noqa: F401 — clears the JAX caches around the module
+from kube_batch_tpu_torch.analysis.pytest_plugin import port_lockdep  # noqa: F401 — runs the module under the port's lock checker
 
 MODS = (jax_transport, port_transport)
 
