@@ -172,7 +172,24 @@ violation, on fewer than the four hot structures instrumented, or when K1,
 K2 or the gate did not launch under the checker, and prints the edges and
 the five sites with the most wait.  Its ``static`` line runs tiers A and D
 of the analyzer over the installed package tree, which must have no
-finding.  The audit phase
+finding.  The matrix phase
+(``testing/benchmark.py``) runs every case of ``build_cases()`` at full
+width on the card — 3 000 × 100, 50 000 × 5 000 (DRF and proportion),
+10 000 × 1 000 with the binpack row, the overcommitted cluster at 800 /
+400 / 100 and at 10 000 running / 50 000 pending / 5 000 nodes through the
+five actions, 50 000 × 5 000 GPU gangs, and 3 100 pods through
+``run_forever`` on 100 nodes — one timed cycle after each warm-up, with
+the launches of each; a device case must place and launch K1, an
+overcommit case must evict, the startup case must schedule every pod it
+created, a cycle case must launch K2; the two small device cases are
+solved again on the CPU and must assign bit for bit alike.  The go_loop
+phase (``testing/go_baseline.py``, ``go_pass_bench.py``) runs the
+sequential Go allocate loop over the 50 000 × 5 000 workload in numpy and
+in C (``native/go_pass.c``, built with ``cc`` into
+``kube_batch_tpu_torch/build/``) on one thread and on a 16-thread pool —
+the three must place alike — and times the per-task pass the three ways
+(which must pick alike); it prints each leg against the headline drive's
+cycle 1 and the host's CPU.  The audit phase
 (``kube_batch_tpu_torch/analysis``), run right after the build while the
 card holds nothing else, runs every registered device program once under
 the recorder: the single-device registry and the sharded one (four
@@ -243,6 +260,11 @@ SHARDS = 4
 # (sim_drive's 16 cut to 12 for the script's time: its three compacted
 # cycles, the last arrivals' at 9–11, stay in)
 SIM_NODES, SIM_GANGS, SIM_CYCLES = N_NODES, N_TASKS // GANG, 12
+# the benchmark matrix (testing/benchmark.py build_cases, full width): one
+# timed cycle a case after its warm-up (the JAX --quick's 2, cut to 1 for the
+# script's time), and the two small device cases solved on the CPU as well
+MATRIX_CYCLES = 1
+MATRIX_CARD_VS_CPU = ("gang_allocate_kubemark", "binpack_nodeorder_10k_1k")
 
 
 T0 = time.perf_counter()
@@ -1460,6 +1482,118 @@ def phase_replicate():
     return r
 
 
+def phase_matrix(device="cuda"):
+    """The benchmark matrix (``testing/benchmark.py``): every case of
+    ``build_cases()`` at full width on the card, with the kernels each
+    launched (counted from 0 around the case's run); the two small device
+    cases are solved again from the case's own inputs on the card and on
+    the CPU, and must assign bit for bit alike.  ``device="cpu"`` rehearses
+    the control flow (launches read 0 there)."""
+    from kube_batch_tpu_torch.api.convert import snapshot_from_numpy
+    from kube_batch_tpu_torch.ops import kernels
+    from kube_batch_tpu_torch.ops.assignment import allocate_solve
+    from kube_batch_tpu_torch.testing.benchmark import build_cases
+
+    t_phase = time.perf_counter()
+    k1, k2, _gate = KERNELS
+    cases = []
+    for case in build_cases(device):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        r = case.run(MATRIX_CYCLES)
+        seconds = time.perf_counter() - t0
+        launched = {k: kernels.launches[k] for k in KERNELS}
+        kind = ("device" if case.inputs is not None
+                else "overcommit" if "evicted" in r else "startup")
+        entry = dict(config=case.name, kind=kind, **r, launches=launched,
+                     seconds=seconds)
+        if not any(launched.values()):
+            fail(f"matrix: {case.name} launched no kernel")
+        if kind == "device" and (r["placed"] == 0 or launched[k1] == 0):
+            fail(f"matrix: {case.name} placed {r['placed']}, launches {launched}")
+        # one overcommit cycle has no kubelet: the claimants pipeline onto
+        # the victims' Releasing capacity and bind nothing yet (placed 0,
+        # as in the JAX package's case)
+        if kind == "overcommit" and r["evicted"] == 0:
+            fail(f"matrix: {case.name} evicted nothing")
+        if kind == "startup" and r["scheduled"] < r["pods"]:
+            fail(f"matrix: {case.name} scheduled {r['scheduled']} of {r['pods']} pods")
+        if case.name in MATRIX_CARD_VS_CPU:
+            fields, meta, config = case.inputs()
+            card = allocate_solve(snapshot_from_numpy(fields, device),
+                                  config).assigned.cpu().numpy()
+            cpu = allocate_solve(snapshot_from_numpy(fields, "cpu"),
+                                 config).assigned.numpy()
+            if not np.array_equal(card, cpu):
+                fail(f"matrix: {case.name}: the card and the CPU assign "
+                     f"{int((card != cpu).sum())} rows differently")
+            entry["card_vs_cpu"] = dict(assigned_equal=True,
+                                        placed=int((cpu[:meta.n_tasks] >= 0).sum()))
+        cases.append(entry)
+    if device == "cuda" and not any(c["launches"][k2] for c in cases
+                                    if c["kind"] != "device"):
+        fail("matrix: no cycle case launched K2")
+    emit("matrix", cycles=MATRIX_CYCLES, cases=cases,
+         worst_p99_ms=max(c["p99_ms"] for c in cases),
+         seconds=time.perf_counter() - t_phase)
+    return cases
+
+
+def host_cpu_model() -> str:
+    """The host's CPU as ``/proc/cpuinfo`` names it: the model name where
+    it gives one, with the vendor, family, model, stepping and clock (a
+    virtualised kernel may report the model name as "unknown"; Arm's
+    cpuinfo has implementer and part instead)."""
+    import platform
+
+    keys = ("model name", "vendor_id", "cpu family", "model", "stepping",
+            "cpu MHz", "CPU implementer", "CPU part")
+    first = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if not line.strip():
+                if first:
+                    break
+                continue
+            k, _, v = line.partition(":")
+            if k.strip() in keys:
+                first.setdefault(k.strip(), v.strip())
+    named = [f"{k} {first[k]}" for k in keys if first.get(k)]
+    return ", ".join(named) or platform.machine()
+
+
+def phase_go_loop(cycle):
+    """The Go-loop denominator on the card's host
+    (``testing/go_baseline.py``, ``testing/go_pass_bench.py``): the
+    sequential allocate loop over the headline workload in numpy, in C on
+    one thread and in C on a 16-thread pool (the C library built from
+    ``native/go_pass.c`` into ``kube_batch_tpu_torch/build/``), which must
+    place alike; then the per-task pass timed three ways, which must pick
+    alike.  Each leg is set against the headline drive's cycle 1 wall."""
+    from kube_batch_tpu_torch import native
+    from kube_batch_tpu_torch.testing.go_baseline import run_go_baseline
+    from kube_batch_tpu_torch.testing.go_pass_bench import measure
+
+    t0 = time.perf_counter()
+    lib = native.build()
+    stats = run_go_baseline(N_TASKS, N_NODES, GANG, N_QUEUES)
+    diverged = {k: v for k, v in stats.items() if k.endswith("_divergence")}
+    if diverged:
+        fail(f"go_loop: the C legs' placements differ from numpy's: {diverged}")
+    legs = {"numpy": dict(ms=stats["elapsed_ms"], placed=stats["placed"])}
+    for leg in ("native_single", "native_pooled"):
+        legs[leg] = dict(ms=stats[f"{leg}_ms"], placed=stats[f"{leg}_placed"])
+    micro = measure(N_NODES)  # raises if the picks differ
+    cycle1_ms = cycle["cycles"][0]["wall_ms"]
+    emit("go_loop", shape=[stats["n_tasks"], stats["n_nodes"]], legs=legs,
+         threads=micro["threads"], cycle1_wall_ms=cycle1_ms,
+         ratio_to_cycle1={k: v["ms"] / cycle1_ms for k, v in legs.items()},
+         pass_us=micro, floor_holds=micro["floor_holds"],
+         library=str(lib.relative_to(Path(__file__).resolve().parent)),
+         host_cpu=host_cpu_model(), cpu_count=os.cpu_count(),
+         seconds=time.perf_counter() - t0)
+
+
 def phase_sim(device="cuda"):
     """The virtual-time simulator on the card (``testing/sim_drive.py``;
     module docstring).  ``device="cpu"`` rehearses the phase's control
@@ -1630,6 +1764,8 @@ def run_phases(stub) -> int:
     server = phase_server(cycle)
     phase_server_process()
     k8s = phase_k8s(cycle, stub)
+    matrix = phase_matrix()
+    phase_go_loop(cycle)
     sim_launches = phase_sim()
     cycle_launches = {name: {f"cycle{c['cycle']}": c["launches"][name]
                              for c in cycle["cycles"]}
@@ -1658,6 +1794,8 @@ def run_phases(stub) -> int:
     rung = max(set(rerank_rungs), key=rerank_rungs.count) if rerank_rungs else None
     k2_rerank = kern.get(f"K2_P{rung}") if rung else None
 
+    matrix_launches = {name: {c["config"]: c["launches"][name] for c in matrix}
+                       for name in KERNELS}
     k8s_launches = {name: {"cycle1": k8s["cycle1"]["launches"][name],
                            "after_cycle1": k8s["launches_after_cycle1"][name]}
                     for name in KERNELS}
@@ -1688,6 +1826,7 @@ def run_phases(stub) -> int:
              server_launches=server["launches"]["masked_best_node_raw"],
              server_follower_launches=server["follower"]["k1_launches"],
              k8s_launches=k8s_launches["masked_best_node_raw"],
+             matrix_launches=matrix_launches["masked_best_node_raw"],
              sim_launches=sim_launches["masked_best_node_raw"],
              lockdep_launches=lockdep_launches["masked_best_node_raw"],
              shard_launches={"full": shard_launches["full"]["masked_best_node_raw"],
@@ -1714,6 +1853,7 @@ def run_phases(stub) -> int:
              features_launches=features_launches["masked_topk_blocks"],
              server_launches=server["launches"]["masked_topk_blocks"],
              k8s_launches=k8s_launches["masked_topk_blocks"],
+             matrix_launches=matrix_launches["masked_topk_blocks"],
              sim_launches=sim_launches["masked_topk_blocks"],
              lockdep_launches=lockdep_launches["masked_topk_blocks"],
              shard_launches={"compacted": shard_launches["compacted"]["masked_topk_blocks"],
@@ -1741,6 +1881,7 @@ def run_phases(stub) -> int:
              features_launches=features_launches["enqueue_gate"],
              server_launches=server["launches"]["enqueue_gate"],
              k8s_launches=k8s_launches["enqueue_gate"],
+             matrix_launches=matrix_launches["enqueue_gate"],
              sim_launches=sim_launches["enqueue_gate"],
              lockdep_launches=lockdep_launches["enqueue_gate"],
              shard_launches=shard_cycle_launches["enqueue_gate"]),

@@ -124,7 +124,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     (``analysis/``: both tiers over the single-device registry on the CPU),
     then ``python -m kube_batch_tpu_torch.analysis --races`` (tiers A and
     D over the package) and the lock checker installed with its
-    guarded-access corroborator over a cache two threads touch,
+    guarded-access corroborator over a cache two threads touch, then the
+    benchmark matrix (a device case) and the Go-loop denominator (its
+    numpy and compiled C legs, the per-pass micro-benchmark),
     leaves no jax, no kube_batch_tpu and no yaml module loaded
     (kube_batch_tpu_torch itself shares the prefix, so the match is exact
     on the package name)."""
@@ -391,6 +393,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         guarded.uninstall()
         lockdep.uninstall()
         assert isinstance(checked._lock, lockdep.TrackedLock) and state.violations == []
+        import kube_batch_tpu_torch.native
+        from kube_batch_tpu_torch.testing import benchmark, go_baseline, go_pass_bench
+        assert [c.name for c in benchmark.build_cases("cpu")][0] == "gang_allocate_kubemark"
+        assert benchmark._device_case("tiny", 64, 16, device="cpu").run(1)["placed"] > 0
+        gb = go_baseline.run_go_baseline(64, 16)
+        assert gb["placed"] == gb["native_single_placed"] == gb["native_pooled_placed"]
+        assert go_pass_bench.measure(64, reps=4, threads=2)["agreement"] >= 0
         bad = sorted(n for n in sys.modules
                      if n in ("jax", "jaxlib", "yaml") or n.startswith(("jax.", "jaxlib.", "yaml."))
                      or n == "kube_batch_tpu" or n.startswith("kube_batch_tpu."))
